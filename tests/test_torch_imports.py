@@ -1,0 +1,50 @@
+"""The port stands alone: importing `synference_tpu_torch` and every one of
+its modules pulls in neither `jax` nor the JAX package, and starts no build.
+Checked in a fresh interpreter (this test process imports both packages),
+which imports the modules one after another and records what each added."""
+
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+MODULES = ["synference_tpu_torch"] + sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts)
+    for p in (ROOT / "synference_tpu_torch").rglob("*.py")
+    if p.name != "__init__.py")
+
+_PROBE = """
+import importlib, json, sys
+def banned():
+    return sorted(m for m in sys.modules if m in ("jax", "jaxlib",
+                  "synference_tpu") or m.startswith(("jax.", "jaxlib.",
+                  "synference_tpu.")))
+out = {}
+for name in json.loads(sys.argv[1]):
+    importlib.import_module(name)
+    out[name] = banned()
+from synference_tpu_torch.ops import _cuda
+out["_built"] = _cuda.load_library.cache_info().currsize
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def probe():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, json.dumps(MODULES)], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_no_jax_in_sys_modules(probe, module):
+    assert probe[module] == [], probe[module]
+
+
+def test_import_builds_nothing(probe):
+    assert probe["_built"] == 0
