@@ -27,8 +27,9 @@ __all__ = ["FeatureConfig", "FeaturePipeline", "FeatureResult"]
 
 @dataclass(frozen=True)
 class FeatureConfig:
-    """Static feature-engineering configuration (the JAX package's fields;
-    see its docstring for their meaning)."""
+    """Static feature-engineering configuration (the JAX package's fields,
+    less `norm_unit` and `missing_value`, which only the unported options
+    read; see its docstring for their meaning)."""
 
     filter_codes: tuple
     remove_filters: tuple = ()
@@ -41,10 +42,8 @@ class FeatureConfig:
     include_errors: bool = True
     include_flags: bool = False
     normalize_method: str | None = None
-    norm_unit: str = "log10_nJy"
     missing_fraction: float = 0.0
     missing_flux_options: tuple = ()
-    missing_value: float = 99.0
     extra_features: tuple = ()
     remove_parameters: tuple = ()
     add_parameters: tuple = ()

@@ -8,9 +8,9 @@ simulated chunk by chunk through `BatchSEDSimulator.photometry_zsorted_device`.
 Only the finished θ and photometry arrays come back to the host.
 
 The JAX package's other generation paths — HDF5 output and chunk resume,
-spectra, supplementary quantities and emission lines, the host (scipy QMC)
-sampler, mesh-sharded batch functions, and the engine auto-probe — raise
-NotImplementedError naming their ROADMAP item.
+spectra, mesh-sharded batch functions, and the window-body auto-probe —
+raise NotImplementedError naming their ROADMAP item. The host (scipy QMC)
+sampler and its engines are not ported (ROADMAP M5).
 """
 
 from __future__ import annotations
@@ -43,33 +43,24 @@ def _strip_log_prefix(key: str) -> str:
 
 def draw_from_hypercube(param_ranges: dict, n: int,
                         generator: torch.Generator,
-                        unlog_keys: list | None = None,
-                        engine: str = "lhc") -> dict:
-    """Draw n samples over named (lo, hi) ranges on the generator's device.
-
-    engine "lhc": classic stratified Latin hypercube (per-dimension random
-    permutation plus jitter); "random": plain uniforms. `unlog_keys` entries
-    are sampled in log space, raised to 10**x, and lose their
-    "log10_"/"log_" prefix. Returns {name: (n,) float32 tensor}.
+                        unlog_keys: list | None = None) -> dict:
+    """Draw n samples over named (lo, hi) ranges on the generator's device
+    by a classic stratified Latin hypercube (per-dimension random
+    permutation plus jitter). `unlog_keys` entries are sampled in log space,
+    raised to 10**x, and lose their "log10_"/"log_" prefix. Returns
+    {name: (n,) float32 tensor}.
     """
-    if engine not in ("lhc", "random"):
-        raise NotImplementedError(
-            f"engine {engine!r} needs the host (scipy QMC) sampler, which is "
-            "not ported yet (ROADMAP M5); use 'lhc' or 'random'")
     unlog_keys = unlog_keys or []
     dev = generator.device
     out = {}
     for key, (lo, hi) in param_ranges.items():
         if not lo < hi:
             raise ValueError(f"range for {key!r} must have lo < hi")
-        if engine == "lhc":
-            perm = torch.randperm(int(n), generator=generator, device=dev)
-            # perm/n + u/n, not (perm+u)/n: above 2^24 the f32 add perm + u
-            # would drop the jitter
-            u = (perm.to(torch.float32) / n
-                 + torch.rand(int(n), generator=generator, device=dev) / n)
-        else:
-            u = torch.rand(int(n), generator=generator, device=dev)
+        perm = torch.randperm(int(n), generator=generator, device=dev)
+        # perm/n + u/n, not (perm+u)/n: above 2^24 the f32 add perm + u
+        # would drop the jitter
+        u = (perm.to(torch.float32) / n
+             + torch.rand(int(n), generator=generator, device=dev) / n)
         vals = (lo + (hi - lo) * u).to(torch.float32)
         if key in unlog_keys:
             vals = (10.0 ** vals).to(torch.float32)
@@ -87,13 +78,11 @@ class LibraryGenerator:
         param_ranges: {name: (lo, hi)}; after un-logging, the names must
             cover `simulator.param_names`.
         unlog_keys: names sampled in log10 space.
-        engine: "lhc" or "random".
         device: where θ is drawn; must be the simulator's device.
     """
 
     def __init__(self, simulator: BatchSEDSimulator, param_ranges: dict,
-                 unlog_keys: list | None = None, engine: str = "lhc", *,
-                 device):
+                 unlog_keys: list | None = None, *, device):
         self.device = torch.device(device)
         if self.device != simulator.device:
             raise ValueError(f"generator device {self.device} differs from "
@@ -101,7 +90,6 @@ class LibraryGenerator:
         self.simulator = simulator
         self.param_ranges = dict(param_ranges)
         self.unlog_keys = list(unlog_keys or [])
-        self.engine = engine
         drawn = [_strip_log_prefix(k) if k in self.unlog_keys else k
                  for k in self.param_ranges]
         missing = [p for p in simulator.param_names if p not in drawn]
@@ -112,8 +100,7 @@ class LibraryGenerator:
     def sample_parameters_device(self, n: int, generator: torch.Generator):
         """(N, P) θ draws on the device in simulator.param_names order."""
         draws = draw_from_hypercube(self.param_ranges, n, generator,
-                                    unlog_keys=self.unlog_keys,
-                                    engine=self.engine)
+                                    unlog_keys=self.unlog_keys)
         return torch.stack([draws[p] for p in self.simulator.param_names],
                            dim=1)
 
@@ -136,8 +123,7 @@ class LibraryGenerator:
     def generate(self, n: int, batch_size: int | None = None, seed: int = 0,
                  out_path: str | None = None, want_spectra: bool = False,
                  pmapped_fn=None, resume_path: str | None = None,
-                 zsorted_fused: bool | str = True,
-                 device_sampling: bool | None = None) -> dict:
+                 zsorted_fused: bool | str = True) -> dict:
         """Generate n mock SEDs on the device; returns the library dict.
 
         θ comes from a `torch.Generator` seeded with `seed` on the device:
@@ -151,14 +137,13 @@ class LibraryGenerator:
             "resume_path": resume_path is not None,
             "want_spectra": want_spectra,
             "pmapped_fn": pmapped_fn is not None,
-            "device_sampling=False (the host sampler)": device_sampling is False,
         }
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(
                 f"generate({', '.join(asked)}) is not ported yet (ROADMAP M5 "
-                "for HDF5 output, resume and the host sampler; M9 for "
-                "spectra; M14 for mesh-sharded batches)")
+                "for HDF5 output and resume; M9 for spectra; M14 for "
+                "mesh-sharded batches)")
         sim = self.simulator
         if batch_size is None:
             batch_size = auto_batch_size(n)
@@ -193,14 +178,9 @@ class LibraryGenerator:
         n_pad = int(np.ceil(n / bs) * bs)
         if n_pad != n:  # pad with the last (highest-z) row: windows stay tight
             theta = torch.cat([theta, theta[-1:].expand(n_pad - n, -1)], dim=0)
-        k = sim._knot_interval_device(theta[:, iz])
-        span = int(torch.max(k[sub - 1::sub] - k[::sub]))
-        kc, w_cols = sim._zsorted_plan(span)
-        if kc >= sim._n_knots or w_cols >= sim._l_sup:
-            raise NotImplementedError(
-                f"a {sub}-row sub-chunk needs the whole table (kc={kc}, "
-                f"w_cols={w_cols}); the dense photometry() path is ROADMAP M9 "
-                "— lower batch_size")
+        # the simulator's planner, over the whole run: raises when a
+        # sub-chunk's window would be the whole table
+        _, _, kc, w_cols, _, _ = sim._plan_windows(theta, sub)
         return theta, sub, bs, kc, w_cols
 
     def _library(self, theta: np.ndarray, photometry: np.ndarray) -> dict:

@@ -40,13 +40,14 @@ from .sfh import make_age_sampling, sfh_weights, zdist_weights
 __all__ = ["EmissionConfig", "BatchSEDSimulator"]
 
 _FOUR_PI = 4.0 * np.pi
-_IGM_ROWS = 512  # rows of the T_igm(λ_rest, z) table
 _IGM_CHUNK = 16  # redshift rows per IGM evaluation (bounds the (K, L, 39) temporaries)
 
 
 @dataclass(frozen=True)
 class EmissionConfig:
-    """Static emission-model configuration (same fields as the JAX package's).
+    """Static emission-model configuration: the JAX package's fields that
+    the window engine reads (the birth-cloud and dust-emission ones only to
+    refuse them).
 
     lnu = fesc · incident + (1 − fesc) · Σ reprocessed, the reprocessed part
     behind one dust screen exp(−τ_V k_λ); `igm` names the IGM model.
@@ -59,10 +60,7 @@ class EmissionConfig:
     dust_params: tuple = ()  # tuple of (key, value) pairs; hashability
     tau_v_param: str | None = "tau_v"
     tau_v_bc_param: str | None = None
-    age_pivot_log10: float = 7.0
     dust_emission: bool = False
-    dust_temperature: float = 25.0
-    dust_emissivity: float = 1.6
     igm: str = "inoue14"
 
     def dust_params_dict(self) -> dict:
@@ -84,7 +82,7 @@ class BatchSEDSimulator:
     """
 
     STATE_KEYS = ("t_mix", "m_igm", "den_knots", "dust_curve_sup",
-                  "wlam_sup", "age_table", "d19_table", "igm_table")
+                  "wlam_sup", "age_table", "d19_table")
 
     def __init__(
         self,
@@ -162,12 +160,6 @@ class BatchSEDSimulator:
         self._filter_dlog = float(dlog)
         self._max_shift = int(max_shift)
         self._igm_model = None if em.igm in (None, "none") else em.igm
-        self._igm_table = None
-        if self._igm_model is not None:
-            self._igm_dlog = float(np.log10(1.0 + z_max) / (_IGM_ROWS - 2))
-            z_grid = 10.0 ** (self._igm_dlog * torch.arange(
-                _IGM_ROWS, dtype=f32, device=dev)) - 1.0
-            self._igm_table = self._igm_rows(self._lam, z_grid)
 
         self._knot_delta = (max(1, round(0.009 / self._filter_dlog))
                             if photometry_knot_delta is None
@@ -260,10 +252,10 @@ class BatchSEDSimulator:
             raise KeyError(f"unknown state keys {sorted(unknown)}")
         for key, val in arrays.items():
             mine = getattr(self, f"_{key}")
-            if mine is None or tuple(np.shape(val)) != tuple(mine.shape):
+            if tuple(np.shape(val)) != tuple(mine.shape):
                 raise ValueError(
                     f"state {key!r} has shape {np.shape(val)}, simulator "
-                    f"holds {None if mine is None else tuple(mine.shape)}")
+                    f"holds {tuple(mine.shape)}")
         for key, val in arrays.items():
             setattr(self, f"_{key}", torch.tensor(
                 np.asarray(val, np.float32), device=self.device))
@@ -382,18 +374,11 @@ class BatchSEDSimulator:
     def _l_sup(self) -> int:
         return int(self._wlam_sup.shape[0])
 
-    def _knot_interval_host(self, z):
-        """Clamped knot-interval index per redshift (numpy, f64):
-        k = min(floor(floor(s)/δ), n_knots−2), s = log10(1+z)/dlog."""
-        s = (np.log10(1.0 + np.maximum(np.asarray(z), 0.0))
-             / self._filter_dlog)
-        return np.minimum(
-            np.floor_divide(s.astype(np.int64), self._knot_delta),
-            self._n_knots - 2)
-
     def _knot_interval_device(self, z):
-        """Tensor twin of `_knot_interval_host` (float32 shifts); the +5
-        knot margin of `_zsorted_plan` absorbs f32-vs-f64 boundary flips."""
+        """Clamped knot-interval index per redshift,
+        k = min(floor(s/δ), n_knots−2) with s = log10(1+z)/dlog, in float32;
+        the +5 knot margin of `_zsorted_plan` absorbs boundary flips against
+        the JAX package's float64 host plan."""
         s = torch.log10(1.0 + torch.clamp(z, min=0.0)) / self._filter_dlog
         return torch.clamp((s / self._knot_delta).to(torch.int32),
                            max=self._n_knots - 2)
@@ -410,36 +395,13 @@ class BatchSEDSimulator:
 
     def _window_starts(self, k_first, kc: int, w_cols: int):
         """Knot and λ window starts (k0, l0) for sub-chunks whose first row
-        lies in knot interval `k_first` (numpy array or tensor alike)."""
+        lies in knot interval `k_first` (an int64 tensor)."""
         delta = self._knot_delta
         m0, _ = self._filter_support_cols
         l_lo = self._lam_support[0] if self._lam_support else 0
         k0 = (k_first - 1).clip(0, self._n_knots - kc)
         l0 = ((m0 - l_lo) - (k0 + kc - 1) * delta).clip(0, self._l_sup - w_cols)
         return k0, l0
-
-    def _zsorted_window_plan(self, z_sorted_padded, sub: int,
-                             kc: int | None = None,
-                             w_cols: int | None = None):
-        """Host-side window plan for ascending redshifts padded to a multiple
-        of `sub`: None when the window would be the whole table, else
-        (kc, w_cols, k0, l0) per sub-chunk."""
-        k_flat = self._knot_interval_host(z_sorted_padded)
-        k_first, k_last = k_flat[::sub], k_flat[sub - 1::sub]
-        kc_req, w_req = self._zsorted_plan(int((k_last - k_first).max()))
-        kc = kc_req if kc is None else int(kc)
-        w_cols = w_req if w_cols is None else int(w_cols)
-        if kc >= self._n_knots or w_cols >= self._l_sup:
-            return None
-        k0, l0 = self._window_starts(k_first, kc, w_cols)
-        # windows abutting the table end use the hi-edge virtual neighbour,
-        # so the cubic's k+2 may overhang the last knot there
-        at_end = (k0.astype(np.int64) + kc == self._n_knots)
-        if np.any(k_last + 2 > k0 + kc - 1 + at_end):
-            raise ValueError(
-                f"sub-chunk redshift span exceeds the {kc}-knot window; "
-                "lower sub_chunk")
-        return kc, w_cols, k0.astype(np.int32), l0.astype(np.int32)
 
     def _window_calls(self, theta, sub: int, w_cols: int, kc: int, k0, l0):
         """Per sub-chunk of `theta` (n_sub·sub z-sorted rows on the device),

@@ -5,9 +5,20 @@ machine with the port alone:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerance on fluxes above 1e-3 of their row maximum: median relative
-difference < 2e-3, p99 < 5e-3 (bf16 inputs of the knot product; float32
-summation order differs between the kernel and cuBLAS).
+Tolerance, as relative differences on fluxes above 1e-3 of their row
+maximum: p99 < 1e-5 and max < 2e-3, for K1 against its plain version and for
+the fused window body against the staged one. Both sides run an fp32 first
+product and a bf16 knot product; they differ in float32 summation order
+(and the staged body applies dλ/λ after the screen), which now and then
+flips the bf16 rounding of one knot-product input. At these 1024-λ shapes a
+band spans ~30 columns, so one flip moves a flux by up to ~1e-3 (one bf16
+ulp, 2^-7, times one column's share). Measured on an H100: p99 ≤ 1.9e-7, max
+≤ 2.5e-4 (kernel vs plain); p99 1.8e-7, max 3.8e-4 (fused vs staged). The
+p99 bound is the one that separates rounding order from a cheaper product:
+the plain version with a TF32 first product reaches p99 6.7e-4, with bf16
+inputs to it 2.5e-3 (`test_bound_rejects_lower_precision_first_product`).
+`chip_smoke.py` holds K1 to max < 1e-5 at the north-star sub-chunk, where
+bands span hundreds of columns.
 """
 
 import numpy as np
@@ -50,13 +61,17 @@ def _sorted_theta(n, seed=0):
     ]).astype(np.float32)
 
 
-def _assert_close(port, ref):
-    port, ref = port.cpu().numpy(), ref.cpu().numpy()
-    assert port.shape == ref.shape and np.isfinite(port).all()
-    rel = np.abs(port - ref) / np.maximum(np.abs(ref), 1e-30)
-    sig = ref > 1e-3 * ref.max(axis=1, keepdims=True)
-    assert np.median(rel[sig]) < 2e-3, np.median(rel[sig])
-    assert np.quantile(rel[sig], 0.99) < 5e-3, np.quantile(rel[sig], 0.99)
+def _rel(out, ref):
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    rel = np.abs(out - ref) / np.maximum(np.abs(ref), 1e-30)
+    return rel[ref > 1e-3 * ref.max(axis=1, keepdims=True)]
+
+
+def _assert_close(out, ref):
+    rel = _rel(out, ref)
+    assert np.quantile(rel, 0.99) < 1e-5, np.quantile(rel, 0.99)
+    assert rel.max() < 2e-3, rel.max()
 
 
 @pytest.mark.cuda
@@ -71,6 +86,30 @@ def test_kernel_matches_plain(cuda, order, fesc):
         torch.cuda.synchronize()
         _assert_close(out, k1.fused_window_photometry_reference(**a))
     assert k1.fused_window_photometry.launches == before + len(k0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+def test_bound_rejects_lower_precision_first_product(cuda, precision):
+    """The bound has the power to catch a first product computed in TF32 or
+    from bf16 inputs: the plain version doing so misses its p99 limit."""
+    sim = _sim(cuda, 3)
+    theta, sub, kc, w_cols, k0, l0 = sim._plan_windows(
+        _sorted_theta(1536, seed=3), 128)
+    rels = []
+    for _, _, _, a in sim._window_calls(theta, sub, w_cols, kc, k0, l0):
+        ref = k1.fused_window_photometry_reference(**a)
+        if precision == "tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            low = k1.fused_window_photometry_reference(**a)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        else:
+            low = k1.fused_window_photometry_reference(**dict(
+                a, sfzh=a["sfzh"].bfloat16().float(),
+                sed_w=a["sed_w"].bfloat16().float()))
+        rels.append(_rel(low, ref))
+    p99 = np.quantile(np.concatenate(rels), 0.99)
+    assert p99 > 1e-5, p99
 
 
 @pytest.mark.cuda

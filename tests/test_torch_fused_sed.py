@@ -13,10 +13,13 @@ lane-mask row selection with the log-step `pltpu.roll` band reduction, and
 the one-hot batched-matmul knot gather. The port reads the four knot rows
 k−1..k+2 of each galaxy by direct index.
 
-Tolerance on fluxes above 1e-3 of their row maximum: median relative
-difference < 2e-3, p99 < 5e-3. Both sides round the knot product's inputs to
-bf16; a 1-ulp fp32 difference in lnu can flip one bf16 rounding (0.4%),
-which the ~hundreds of terms per band average down.
+Tolerances, as relative differences on fluxes above 1e-3 of their row
+maximum. Against JAX: median < 2e-3, p99 < 5e-3. Both sides round the knot
+product's inputs to bf16; a 1-ulp fp32 difference in lnu can flip one bf16
+rounding (0.4%), which the terms of a band average down. Plain K1 against the
+staged body, both in this package: p99 < 1e-5, max < 2e-3 (measured p99 0,
+max 2.1e-4: only dλ/λ's place differs, so flips are rare, and one moves a
+~30-column band by at most ~1e-3).
 """
 
 import jax.numpy as jnp
@@ -102,10 +105,16 @@ def test_plain_k1_matches_staged_body(order):
     (dλ/λ applied after the screen), through the window engine."""
     sim = _sim(order)
     theta = _sorted_theta(1536, seed=4)
-    assert sim._zsorted_window_plan(theta[:, 1], 128) is not None
+    # the window must engage (the planner raises when it is the whole table)
+    _, _, kc, w_cols, _, _ = sim._plan_windows(theta, 128)
+    assert kc < sim._n_knots and w_cols < sim._l_sup
     fused = sim.photometry_zsorted_device(theta, sub_chunk=128, fused=True)
-    staged = sim.photometry_zsorted_device(theta, sub_chunk=128, fused=False)
-    _assert_close(fused, staged)
+    staged = sim.photometry_zsorted_device(theta, sub_chunk=128,
+                                           fused=False).numpy()
+    rel = np.abs(fused.numpy() - staged) / np.maximum(np.abs(staged), 1e-30)
+    rel = rel[staged > 1e-3 * staged.max(axis=1, keepdims=True)]
+    assert np.quantile(rel, 0.99) < 1e-5, np.quantile(rel, 0.99)
+    assert rel.max() < 2e-3, rel.max()
 
 
 def _meta_args(**over):

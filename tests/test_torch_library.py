@@ -14,6 +14,7 @@ row maximum: median < 2e-3, p99 < 5e-3 (both sides run the fused body).
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import synference_tpu as jst
 import synference_tpu_torch as tt
@@ -105,7 +106,7 @@ def test_empty_library(port_gen):
     (dict(out_path="lib.h5"), NotImplementedError, "out_path"),
     (dict(resume_path="ck"), NotImplementedError, "resume_path"),
     (dict(want_spectra=True), NotImplementedError, "want_spectra"),
-    (dict(device_sampling=False), NotImplementedError, "host sampler"),
+    (dict(pmapped_fn=lambda th: th), NotImplementedError, "pmapped_fn"),
     (dict(batch_size=512), NotImplementedError, "dense photometry"),
 ])
 def test_unported_generation_paths_raise(port_gen, kw, err, match):
@@ -130,8 +131,8 @@ def test_generator_checks():
     with pytest.raises(ValueError, match="differs"):
         tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
                             device="meta")
-    with pytest.raises(NotImplementedError, match="host"):
-        tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
-                            engine="sobol", device="cpu").generate(n=256)
+    with pytest.raises(ValueError, match="lo < hi"):
+        tt.draw_from_hypercube({"tau": (1.0, 1.0)}, 8,
+                               torch.Generator().manual_seed(0))
     assert tt.auto_batch_size(1000) == 1024
     assert tt.auto_batch_size(10**7) == 65536

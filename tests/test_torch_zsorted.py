@@ -44,7 +44,6 @@ def _jax_state(jsim):
         "wlam_sup": np.asarray(jsim._wlam_sup),
         "age_table": np.asarray(jsim._age_table),
         "d19_table": np.asarray(jsim._d19_table),
-        "igm_table": np.asarray(jsim._igm_table),
     }
 
 
@@ -84,8 +83,7 @@ def test_own_tables_match_jax(sims):
     ref = _jax_state(jsim)
     for key in ("den_knots", "wlam_sup", "t_mix"):
         np.testing.assert_array_equal(own[key], ref[key], err_msg=key)
-    for key in ("m_igm", "dust_curve_sup", "age_table", "d19_table",
-                "igm_table"):
+    for key in ("m_igm", "dust_curve_sup", "age_table", "d19_table"):
         np.testing.assert_allclose(own[key], ref[key], rtol=1e-5, atol=1e-7,
                                    err_msg=key)
 
@@ -95,8 +93,10 @@ def test_parity_vs_jax_device_engine(sims, fused):
     jsim, tsim, _ = sims
     theta = _sorted_theta(1536, seed=6)
     z = theta[:, PNAMES.index("redshift")]
-    # the window must engage, or the comparison would be vacuous
-    assert tsim._zsorted_window_plan(z, 128) is not None
+    # the window must engage, or the comparison would be vacuous (the
+    # port's planner raises when the window is the whole table)
+    _, _, kc, w_cols, _, _ = tsim._plan_windows(theta, 128)
+    assert kc < tsim._n_knots and w_cols < tsim._l_sup
     assert jsim._zsorted_window_plan(z, 128) is not None
     port = tsim.photometry_zsorted_device(theta, sub_chunk=128, fused=fused)
     ref = jsim.photometry_zsorted_device(jnp.asarray(theta), sub_chunk=128,
@@ -108,11 +108,12 @@ def test_parity_vs_jax_device_engine(sims, fused):
 
 
 def test_window_starts_match_host_plan(sims):
-    """The device plan (k0, l0 per sub-chunk) equals the host plan."""
-    _, tsim, _ = sims
+    """The port's device plan (kc, w_cols, k0 and l0 per sub-chunk) equals
+    the JAX package's host plan (float64 knot intervals)."""
+    jsim, tsim, _ = sims
     theta = _sorted_theta(1536, seed=7)
     _, sub, kc, w_cols, k0, l0 = tsim._plan_windows(theta, 128)
-    kc_h, w_h, k0_h, l0_h = tsim._zsorted_window_plan(theta[:, 1], sub)
+    kc_h, w_h, k0_h, l0_h = jsim._zsorted_window_plan(theta[:, 1], sub)
     assert (kc, w_cols) == (kc_h, w_h)
     np.testing.assert_array_equal(k0, k0_h)
     np.testing.assert_array_equal(l0, l0_h)
