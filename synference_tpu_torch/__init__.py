@@ -1,10 +1,13 @@
 """synference_tpu_torch — the PyTorch/CUDA port of synference_tpu.
 
 The mock-library forward path (θ draws → SFZH → windowed photometry →
-features) on torch tensors, with the window engine's fused body as a
-hand-written CUDA kernel for Hopper (`csrc/fused_window.cu`). Every public
-entry point takes an explicit device; CPU tensors run the kernels' plain
-PyTorch versions. This package imports neither `jax` nor `synference_tpu`.
+features) and the dense simulator path (`BatchSEDSimulator.photometry` /
+`simulate` on θ in any order, spectra included, and `recover_sed`) on torch
+tensors, with hand-written CUDA kernels for Hopper in `csrc/`: K1 the
+windowed megakernel, K2 the full-table megakernel, K3 the exact-shift
+numerators. Every public entry point takes an explicit device; CPU tensors
+run the kernels' plain PyTorch versions. This package imports neither `jax`
+nor `synference_tpu`.
 """
 
 from .cosmology import PLANCK18, Cosmology
@@ -14,6 +17,7 @@ from .grids import SPSGrid, make_synthetic_grid, make_synthetic_multiaxis_grid
 from .instruments import load_instrument_filters, realistic_filter
 from .library import LibraryGenerator, auto_batch_size, draw_from_hypercube
 from .noise_models import DepthNoiseModel, NoiseModel
+from .recovery import recover_sed
 from .sed import BatchSEDSimulator, EmissionConfig
 
 __all__ = [
@@ -22,5 +26,5 @@ __all__ = [
     "make_synthetic_grid", "make_synthetic_multiaxis_grid",
     "load_instrument_filters", "realistic_filter", "LibraryGenerator",
     "auto_batch_size", "draw_from_hypercube", "DepthNoiseModel", "NoiseModel",
-    "BatchSEDSimulator", "EmissionConfig",
+    "BatchSEDSimulator", "EmissionConfig", "recover_sed",
 ]

@@ -13,8 +13,7 @@
 //              · scale[b]
 //
 // with interp the monotone-cubic Fritsch–Butland Hermite (order 3) or the
-// lerp (order 1) of `photometry_kernel._knot_interp`: scale-normalized
-// slopes, linearly extrapolated virtual neighbours at the table edges, the
+// lerp (order 1) of `photometry_kernel._knot_interp` (knot_interp.cuh), the
 // shift clipped at (kc−1)·δ − 1e-3.
 //
 // What bounds it on the H100. The first product dominates: B·C·W·2 FLOPs
@@ -35,8 +34,8 @@
 // device memory.
 //
 // A galaxy needs only the 4 knot columns k−1..k+2 around its own shift; the
-// TPU kernel computes all kc for the matrix unit, and so does this one. A
-// later version may contract only the 4 columns a galaxy uses.
+// TPU kernel computes all kc for the matrix unit, and so does this one (K2,
+// fused_sed.cu, contracts only the 4).
 //
 // Not carried over from the TPU kernel: 8-row block padding, 128-lane padding
 // and power-of-two knot slots, lane-mask row selection and the log-step roll
@@ -45,6 +44,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "knot_interp.cuh"
 
 namespace {
 
@@ -177,51 +178,6 @@ k1_partial(const float* __restrict__ sfzh, int64_t ld_sfzh,
   }
 }
 
-// Fritsch–Butland slope in the scale-normalized form of `_knot_interp`.
-__device__ __forceinline__ float fb_slope(float da, float db) {
-  const bool same = (da > 0.f && db > 0.f) || (da < 0.f && db < 0.f);
-  if (!same) return 0.f;
-  const float m = fabsf(da) + fabsf(db);
-  const float sc = 1.f / fmaxf(m, 1.0e-30f);
-  const float das = da * sc, dbs = db * sc;
-  const float ms = fabsf(das) + fabsf(dbs);
-  const float na = das / ms, nb = dbs / ms;
-  return m * (2.f * na * nb) / (na + nb);
-}
-
-struct KnotRows {
-  const float* partial;  // (n_split, B, KF) or nullptr for the den table
-  const float* den;      // (kc, ld_den)
-  int64_t ld_den;
-  int n_split, B, KF, f8, g, f;
-
-  __device__ float num(int k) const {
-    float v = 0.f;
-    for (int sp = 0; sp < n_split; ++sp)
-      v += partial[((int64_t)sp * B + g) * KF + k * f8 + f];
-    return v;
-  }
-  __device__ float den_at(int k) const { return den[(int64_t)k * ld_den + f]; }
-};
-
-template <bool kNum>
-__device__ float knot_interp(const KnotRows& r, int k, float t, int kc,
-                             int order) {
-  auto val = [&](int kk) { return kNum ? r.num(kk) : r.den_at(kk); };
-  const float v0 = val(k), v1 = val(k + 1);
-  if (order == 1) return v0 * (1.f - t) + v1 * t;
-  const float vm1 = k == 0 ? 2.f * v0 - v1 : val(k - 1);
-  const float v2 = k + 2 > kc - 1 ? 2.f * v1 - v0 : val(k + 2);
-  const float m0 = fb_slope(v0 - vm1, v1 - v0);
-  const float m1 = fb_slope(v1 - v0, v2 - v1);
-  const float t2 = t * t, t3 = t2 * t;
-  const float h00 = 2.f * t3 - 3.f * t2 + 1.f;
-  const float h10 = t3 - 2.f * t2 + t;
-  const float h01 = -2.f * t3 + 3.f * t2;
-  const float h11 = t3 - t2;
-  return h00 * v0 + h10 * m0 + h01 * v1 + h11 * m1;
-}
-
 __global__ void k1_epilogue(const float* __restrict__ partial, int n_split,
                             const float* __restrict__ s_rel,
                             const float* __restrict__ scale,
@@ -234,9 +190,16 @@ __global__ void k1_epilogue(const float* __restrict__ partial, int n_split,
   const float c = fminf(fmaxf(s_rel[g], 0.f), s_max) / (float)delta;
   const int k = (int)floorf(c);
   const float t = c - (float)k;
-  const KnotRows r{partial, den, ld_den, n_split, B, kc * f8, f8, g, f};
-  const float num = knot_interp<true>(r, k, t, kc, order);
-  const float dn = knot_interp<false>(r, k, t, kc, order);
+  const int kf = kc * f8;
+  const auto num_at = [&](int kk) {
+    float v = 0.f;
+    for (int sp = 0; sp < n_split; ++sp)
+      v += partial[((int64_t)sp * B + g) * kf + kk * f8 + f];
+    return v;
+  };
+  const auto den_at = [&](int kk) { return den[(int64_t)kk * ld_den + f]; };
+  const float num = knot_interp(num_at, k, t, kc, order);
+  const float dn = knot_interp(den_at, k, t, kc, order);
   out[idx] = num / fmaxf(dn, 1.0e-30f) * scale[g];
 }
 

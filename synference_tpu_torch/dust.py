@@ -2,16 +2,15 @@
 
 Counterpart of `synference_tpu/dust.py` for the attenuation curves: each law
 is a function λ → τ(λ)/τ_V, evaluated once per wavelength grid, so the
-screen is an elementwise `exp(-tau_v * k)`. Wavelengths in Angstrom (rest
-frame). Energy-balance dust emission (`greybody_emission`) is not on this
-package's path yet.
+screen is an elementwise `exp(-tau_v * k)`; `greybody_emission` is the
+energy-balance re-emission. Wavelengths in Angstrom (rest frame).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ATTENUATION_LAWS", "attenuation_curve"]
+__all__ = ["ATTENUATION_LAWS", "attenuation_curve", "greybody_emission"]
 
 
 def _power_law(lam, params):
@@ -56,3 +55,25 @@ ATTENUATION_LAWS = {
 def attenuation_curve(law: str, lam: torch.Tensor, params: dict | None = None):
     """τ(λ)/τ_V for the named law at rest wavelengths `lam` [Å]."""
     return ATTENUATION_LAWS[law](lam, params or {})
+
+
+_H_ERG_S = 6.62607015e-27  # Planck [erg s]
+_K_ERG_K = 1.380649e-16  # Boltzmann [erg/K]
+_C_AA_S = 2.99792458e18  # c [Å/s]
+
+
+def greybody_emission(lam, temperature: float, emissivity: float = 1.6):
+    """Unit-energy greybody SED B_ν(T) ν^β on wavelengths `lam` [Å]: L_ν
+    [1/Hz], shape (len(lam),), normalized so ∫ L_ν dν = 1 on this grid.
+
+    Frequencies are in PHz (ν³⁺ᵝ in Hz overflows fp32; the scale cancels in
+    the normalization), and the Planck factor is evaluated in log space (the
+    Wien tail e^-x underflows fp32 for x ≳ 90)."""
+    nu_phz = _C_AA_S / lam * 1.0e-15
+    x = _H_ERG_S * 1.0e15 * nu_phz / (_K_ERG_K * temperature)
+    log_g = (3.0 + emissivity) * torch.log(nu_phz) - torch.where(
+        x > 30.0, x, torch.log(torch.expm1(torch.clamp(x, 1.0e-6, 30.0))))
+    g = torch.exp(log_g - torch.max(log_g))
+    dnu_phz = -torch.gradient(nu_phz)[0]
+    norm = torch.sum(g * dnu_phz)
+    return g / torch.clamp(norm, min=1.0e-30) * 1.0e-15

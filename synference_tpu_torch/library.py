@@ -4,13 +4,15 @@ Counterpart of the device-resident generation path of
 `synference_tpu/library.py` (`LibraryGenerator.generate` →
 `_generate_device`): θ is drawn by a stratified Latin hypercube on the
 device, sorted by redshift, window-planned once for the whole run, and
-simulated chunk by chunk through `BatchSEDSimulator.photometry_zsorted_device`.
+simulated chunk by chunk through `BatchSEDSimulator.photometry_zsorted_device`,
+or through the dense `photometry` when a window would be the whole table.
 Only the finished θ and photometry arrays come back to the host.
 
 The JAX package's other generation paths — HDF5 output and chunk resume,
 spectra, mesh-sharded batch functions, and the window-body auto-probe —
 raise NotImplementedError naming their ROADMAP item. The host (scipy QMC)
-sampler and its engines are not ported (ROADMAP M5).
+sampler and its engines, which also take generation with a fixed redshift,
+are not ported (ROADMAP M5).
 """
 
 from __future__ import annotations
@@ -130,7 +132,8 @@ class LibraryGenerator:
         the same seed gives other (equally valid) draws than the JAX
         package's. Rows are sorted by redshift (library rows are
         exchangeable). `zsorted_fused` picks the window body per
-        `_choose_zsorted_fused`.
+        `_choose_zsorted_fused` (checked even when a sub-chunk's window
+        would be the whole table and the batches take the dense path).
         """
         unported = {
             "out_path": out_path is not None,
@@ -152,13 +155,18 @@ class LibraryGenerator:
                                  np.zeros((0, len(sim.filters)), np.float32))
         if "redshift" not in sim.param_names:
             raise NotImplementedError(
-                "generation with a fixed redshift takes the dense path, "
-                "which is not ported yet (ROADMAP M9)")
+                "generation with a fixed redshift runs on the host sampler, "
+                "which is not ported yet (ROADMAP M5)")
         fuse = self._choose_zsorted_fused(sim, zsorted_fused)
         theta, sub, bs, kc, w_cols = self._draw_sorted(n, batch_size, seed)
-        chunks = [sim.photometry_zsorted_device(
-            theta[i:i + bs], sub_chunk=sub, kc=kc, w_cols=w_cols, fused=fuse)
-            for i in range(0, theta.shape[0], bs)]
+        if kc < sim._n_knots and w_cols < sim._l_sup:
+            def chunk_fn(t):
+                return sim.photometry_zsorted_device(
+                    t, sub_chunk=sub, kc=kc, w_cols=w_cols, fused=fuse)
+        else:  # the window is the whole table: the dense path
+            chunk_fn = sim.photometry
+        chunks = [chunk_fn(theta[i:i + bs])
+                  for i in range(0, theta.shape[0], bs)]
         photometry = torch.cat(chunks, dim=0)[:n]
         return self._library(theta[:n].cpu().numpy(),
                              photometry.cpu().numpy())
@@ -178,8 +186,7 @@ class LibraryGenerator:
         n_pad = int(np.ceil(n / bs) * bs)
         if n_pad != n:  # pad with the last (highest-z) row: windows stay tight
             theta = torch.cat([theta, theta[-1:].expand(n_pad - n, -1)], dim=0)
-        # the simulator's planner, over the whole run: raises when a
-        # sub-chunk's window would be the whole table
+        # the simulator's planner, over the whole run
         _, _, kc, w_cols, _, _ = sim._plan_windows(theta, sub)
         return theta, sub, bs, kc, w_cols
 

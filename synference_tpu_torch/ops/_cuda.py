@@ -1,9 +1,10 @@
 """Build and load the package's hand-written CUDA kernels.
 
 The sources under `synference_tpu_torch/csrc/` expose a plain C interface.
-They are compiled by `nvcc` for Hopper (`sm_90a`) into a shared library in
-`synference_tpu_torch/_build/` at first use, keyed by a hash of the source,
-and bound with `ctypes`. Nothing here runs at import time: a machine without
+At first use every `csrc/*.cu` is compiled by its own `nvcc` process for
+Hopper (`sm_90a`), all started together, and the objects are linked into one
+shared library in `synference_tpu_torch/_build/`, keyed by a hash of every
+source and header; it is bound with `ctypes`. Nothing here runs at import time: a machine without
 `nvcc` or a card can import the package and use the plain versions on CPU
 tensors.
 """
@@ -19,10 +20,11 @@ import subprocess
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-_SRC = _PKG / "csrc" / "fused_window.cu"
+_CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 
 def _nvcc() -> str:
@@ -37,23 +39,43 @@ def _nvcc() -> str:
 def build_library() -> tuple[pathlib.Path, float, str]:
     """Compile the kernel library if its build is missing or stale.
 
-    Returns (path, seconds spent compiling, compiler log); seconds is 0.0
-    when an up-to-date build was found.
+    Returns (path, seconds spent compiling and linking, compiler log);
+    seconds is 0.0 when an up-to-date build was found.
     """
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libsynference_kernels_{digest}.so"
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for path in sorted(_CSRC.glob("*.cu*")):
+        digest.update(path.name.encode() + path.read_bytes())
+    out = BUILD_DIR / f"libsynference_kernels_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(sources, objs)]
+    logs = []
+    for src, proc in zip(sources, procs):
+        _, err = proc.communicate()
+        logs.append(f"{src.name}:\n{err}")
+        if proc.returncode != 0:
+            for other in procs:
+                other.wait()
+            raise RuntimeError(
+                f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+    tmp = out.with_suffix(f".{tag}")
+    link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stderr}")
     os.replace(tmp, out)
-    return out, time.perf_counter() - t0, proc.stderr
+    return out, time.perf_counter() - t0, "\n".join(logs)
 
 
 @functools.lru_cache(maxsize=1)
@@ -72,6 +94,14 @@ def load_library() -> ctypes.CDLL:
     lib.k1_tile_galaxies.restype = i32
     lib.k1_chunk_columns.argtypes = []
     lib.k1_chunk_columns.restype = i32
+    lib.k2_fused_sed.argtypes = [
+        p, i64, p, p, p, p, i64, p, p, i64, p, i64, p,
+        i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, p]
+    lib.k2_fused_sed.restype = i32
+    lib.k2_smem_bytes.argtypes = [i32]
+    lib.k2_smem_bytes.restype = ctypes.c_size_t
+    lib.k3_shift_num.argtypes = [p, i64, p, p, p, i32, i32, i32, i32, p]
+    lib.k3_shift_num.restype = i32
     lib.k1_error_string.argtypes = [i32]
     lib.k1_error_string.restype = ctypes.c_char_p
     return lib

@@ -11,8 +11,11 @@ knots (`_knot_interp`). The denominators Σ_l w_l T_f(...) are exact per
 1/8-column shift (`build_den_table`) and are interpolated at the same knots,
 so the filter-edge staircase cancels in num/den.
 
-The JAX package's exact-shift Pallas numerators (`roll`, `bank`) and the
-table-free `conv` engine are not ported yet (ROADMAP queue 2, M9).
+The exact route (`roll`/`bank`) snaps each shift to 1/8 column, s4 = 8m + rs
+(`shift_decompose`), and sums the flux row against the sub-column table row
+rs read at offset m (`build_subshift_table`): K3, `shift_photometry_num`
+(`csrc/shift_num.cu`), one kernel for both variant names. The table-free
+`conv` engine is not ported yet (ROADMAP M9).
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ __all__ = [
     "KNOT_INTERP_ORDER",
     "build_knot_matrix_device",
     "build_den_table",
+    "build_subshift_table",
+    "shift_decompose",
+    "shift_photometry_num",
+    "shift_photometry_num_reference",
 ]
 
 N_SUB = 8  # sub-column shift resolution of the den table (1/8 column)
@@ -78,6 +85,122 @@ def build_knot_matrix_device(filter_set, lam_rest, dlog: float,
     # (K, F8, L) -> (L, K·F8)
     return (out.permute(2, 0, 1).reshape(l_hi - l_lo, n_knots * f8)
             .contiguous(), n_knots)
+
+
+def build_subshift_table(filter_set, lam_rest, dlog: float, max_shift: int,
+                         n_wav: int, device):
+    """(N_SUB, F8, n_wav + max_shift) table on `device`:
+    table[rs, f, j] = T_f(λ0·10^{(j + rs/8)Δ}), in float32 with the
+    arithmetic of the JAX package's `build_subshift_table_device`. It covers
+    j = l + m for every l < n_wav and integer shift m < max_shift; there is
+    no 128-lane padding (an arbitrary-offset load has no alignment rule on
+    the card)."""
+    f8 = int(np.ceil(len(filter_set) / 8) * 8)
+    n_cols = n_wav + max_shift
+    lam0 = torch.tensor(float(lam_rest[0]), dtype=torch.float32, device=device)
+    dlog32 = torch.tensor(dlog, dtype=torch.float32, device=device)
+    j = torch.arange(n_cols, dtype=torch.float32, device=device)
+    out = torch.zeros(N_SUB, f8, n_cols, dtype=torch.float32, device=device)
+    for rs in range(N_SUB):
+        lam_eval = lam0 * 10.0 ** ((j + rs / N_SUB) * dlog32)
+        for i, filt in enumerate(filter_set.filters):
+            xp = torch.as_tensor(np.asarray(filt.lam, np.float32), device=device)
+            fp = torch.as_tensor(np.asarray(filt.transmission, np.float32),
+                                 device=device)
+            out[rs, i] = _interp_f32(lam_eval, xp, fp)
+    return out
+
+
+def shift_decompose(s, max_shift: int):
+    """Real column shifts -> snapped 1/8-column indices s4 (int32), clipped
+    to [0, N_SUB·max_shift − 1]: m = s4 // N_SUB is the integer shift, rs =
+    s4 % N_SUB the table row."""
+    # clip before the cast: a float beyond int32 has no defined conversion
+    return torch.clamp(torch.round(s * N_SUB), 0,
+                       N_SUB * max_shift - 1).to(torch.int32)
+
+
+def _shift_parts(s4, n_l: int, n_cols: int):
+    """(m, rs) of snapped shifts, with m clipped to the table's reach."""
+    s4 = torch.clamp(s4.long(), min=0)
+    return torch.clamp(s4 // N_SUB, max=n_cols - n_l), s4 % N_SUB
+
+
+def shift_photometry_num_reference(fw, table, s4, rows: int = 1024):
+    """Plain PyTorch K3 (same arguments as `shift_photometry_num`), `rows`
+    galaxies at a time to bound the (rows, F8, L) table gather."""
+    b, n_l = fw.shape
+    _, f8, n_cols = table.shape
+    m, rs = _shift_parts(s4, n_l, n_cols)
+    cols = torch.arange(n_l, device=fw.device)
+    out = torch.empty(b, f8, dtype=torch.float32, device=fw.device)
+    for i in range(0, b, rows):
+        r = slice(i, i + rows)
+        idx = (m[r, None] + cols)[:, None, :].expand(-1, f8, -1)
+        t = torch.gather(table[rs[r]], 2, idx)  # (rows, F8, L)
+        out[r] = (t * fw[r, None, :]).sum(dim=2)
+    return out
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"shift_photometry_num: {msg}")
+
+
+def shift_photometry_num(fw, table, s4):
+    """Exact numerators num[b, f] = Σ_l fw[b, l]·table[rs_b, f, l + m_b] at
+    each galaxy's snapped shift s4 = 8m + rs, one kernel per call.
+
+    Args:
+        fw: (B, L) flux × dλ/λ, float32, unit column stride.
+        table: (N_SUB, F8, L + max_shift) float32 from `build_subshift_table`.
+        s4: (B,) int32 from `shift_decompose`.
+    Returns:
+        (B, F8) float32 numerators.
+
+    CPU tensors go through `shift_photometry_num_reference`. CUDA tensors
+    launch the kernel (`csrc/shift_num.cu`) on the current stream, which
+    clips m to the table's reach as the plain version does; inputs it does
+    not take raise ValueError, a failed launch RuntimeError. Each launch
+    adds one to `shift_photometry_num.launches`.
+    """
+    if fw.device.type == "cpu":
+        return shift_photometry_num_reference(fw, table, s4)
+    _require(fw.device.type == "cuda",
+             f"tensors on {fw.device} are neither CPU nor CUDA")
+    for name, t, dtype in (("fw", fw, torch.float32),
+                           ("table", table, torch.float32),
+                           ("s4", s4, torch.int32)):
+        _require(t.device == fw.device, f"{name} is on {t.device}")
+        _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+    _require(fw.ndim == 2 and fw.stride(1) == 1,
+             "fw must be (B, L) with unit column stride")
+    b, n_l = fw.shape
+    _require(table.ndim == 3 and table.shape[0] == N_SUB
+             and table.is_contiguous(),
+             f"table must be a contiguous ({N_SUB}, F8, L + max_shift) tensor")
+    _, f8, n_cols = table.shape
+    _require(f8 % 8 == 0 and n_cols >= n_l,
+             f"table has shape {tuple(table.shape)} for L = {n_l}")
+    _require(tuple(s4.shape) == (b,) and s4.is_contiguous(),
+             "s4 must be a contiguous (B,) tensor")
+    _require(b >= 1 and n_l >= 1, "empty batch or flux row")
+    from ._cuda import load_library
+
+    lib = load_library()
+    out = torch.empty((b, f8), dtype=torch.float32, device=fw.device)
+    stream = torch.cuda.current_stream(fw.device).cuda_stream
+    err = lib.k3_shift_num(fw.data_ptr(), fw.stride(0), table.data_ptr(),
+                           s4.data_ptr(), out.data_ptr(), b, n_l, f8, n_cols,
+                           stream)
+    if err:
+        raise RuntimeError(
+            f"K3 launch failed: {lib.k1_error_string(err).decode()}")
+    shift_photometry_num.launches += 1
+    return out
+
+
+shift_photometry_num.launches = 0
 
 
 def build_den_table(filter_set, lam_rest: np.ndarray, wlam: np.ndarray,

@@ -1,7 +1,7 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version on the
-window engine's own inputs. Needs an NVIDIA Hopper card and nvcc; skips
-elsewhere (the kernel has no CPU build). Imports no JAX, so it runs on a
-machine with the port alone:
+"""The kernels on the card: K1, K2 and K3 against their plain PyTorch
+versions on the simulator's own inputs, at small and ragged shapes. Needs an
+NVIDIA Hopper card and nvcc; skips elsewhere (the kernels have no CPU
+build). Imports no JAX, so it runs on a machine with the port alone:
 
     python -m pytest tests/test_torch_cuda.py -q
 
@@ -19,6 +19,12 @@ the plain version with a TF32 first product reaches p99 6.7e-4, with bf16
 inputs to it 2.5e-3 (`test_bound_rejects_lower_precision_first_product`).
 `chip_smoke.py` holds K1 to max < 1e-5 at the north-star sub-chunk, where
 bands span hundreds of columns.
+
+K2 (the dense path's full-table kernel) runs the same arithmetic over the
+whole λ support and is held to the same bound and power check, at batch
+sizes 1, 3, 13 and 777. K3 (exact-shift numerators) sums fp32 products of
+positive values in another order than its plain version: max relative
+difference < 1e-5.
 """
 
 import numpy as np
@@ -27,6 +33,7 @@ import torch
 
 import synference_tpu_torch as tt
 from synference_tpu_torch.ops import fused_sed as k1
+from synference_tpu_torch.ops import photometry_kernel as pk
 
 PNAMES = ("log10_mass", "redshift", "peak_age", "tau", "log10_metallicity",
           "tau_v")
@@ -43,13 +50,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _sim(device, order, fesc=0.0):
+def _sim(device, order, fesc=0.0, variant="auto"):
     grid = tt.make_synthetic_grid(n_ages=16, n_mets=4, n_wav=1024)
     filters = tt.FilterSet([tt.tophat_filter(c, ct, w) for c, ct, w in
                             zip(_CODES, _CENTERS, _WIDTHS)])
     return tt.BatchSEDSimulator(grid, filters, PNAMES,
                                 emission=tt.EmissionConfig(fesc=fesc),
-                                photometry_interp_order=order, device=device)
+                                photometry_interp_order=order,
+                                photometry_variant=variant, device=device)
 
 
 def _sorted_theta(n, seed=0):
@@ -140,3 +148,98 @@ def test_ragged_shapes(cuda):
     out = k1.fused_window_photometry(**a)
     torch.cuda.synchronize()
     _assert_close(out, k1.fused_window_photometry_reference(**a))
+
+
+def _unsorted_theta(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(np.column_stack([
+        rng.uniform(7.5, 11, n), rng.uniform(0.05, 8, n),
+        rng.uniform(1e8, 1e9, n), rng.uniform(.1, 1.2, n),
+        rng.uniform(-3.9, -1.6, n), rng.uniform(0, 2, n),
+    ]).astype(np.float32))
+
+
+def _k2_args(sim, theta):
+    """K2's arguments as `_photometry_mega` passes them."""
+    params = sim.theta_dict(theta.to(sim.device))
+    sfzh, _ = sim._sfzh(params)
+    z = params["redshift"]
+    return (sfzh, sim._shift_of_z(z), params["tau_v"], sim._scale_of_z(z),
+            sim._mega_tables, sim._n_knots, sim._knot_delta, sim._f8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 13, 777])
+@pytest.mark.parametrize("order,fesc", [(1, 0.0), (3, 0.0), (3, 0.25)])
+def test_k2_matches_plain(cuda, b, order, fesc):
+    sim = _sim(cuda, order, fesc)
+    assert sim._mega_supported()
+    args = _k2_args(sim, _unsorted_theta(b, seed=b))
+    kw = dict(order=order, fesc=fesc)
+    before = k1.fused_sed_photometry.launches
+    out = k1.fused_sed_photometry(*args, **kw)
+    torch.cuda.synchronize()
+    assert k1.fused_sed_photometry.launches == before + 1
+    _assert_close(out, k1.fused_sed_photometry_reference(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+def test_k2_bound_rejects_lower_precision_first_product(cuda, precision):
+    sim = _sim(cuda, 3)
+    sfzh, s, tau_v, scale, tables, n_knots, delta, f8 = _k2_args(
+        sim, _unsorted_theta(777, seed=11))
+    rest = (n_knots, delta, f8)
+    ref = k1.fused_sed_photometry_reference(sfzh, s, tau_v, scale, tables,
+                                            *rest)
+    if precision == "tf32":
+        torch.backends.cuda.matmul.allow_tf32 = True
+        low = k1.fused_sed_photometry_reference(sfzh, s, tau_v, scale,
+                                                tables, *rest)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        low = k1.fused_sed_photometry_reference(
+            sfzh.bfloat16().float(), s, tau_v, scale,
+            dict(tables, sed=tables["sed"].bfloat16().float()), *rest)
+    p99 = np.quantile(_rel(low, ref), 0.99)
+    assert p99 > 1e-5, p99
+
+
+@pytest.mark.cuda
+def test_dense_photometry_launches_k2_once(cuda):
+    sim = _sim(cuda, 3)
+    assert sim.photometry_backend == "pallas"
+    before = k1.fused_sed_photometry.launches
+    out = sim.photometry(_unsorted_theta(2000, seed=12))
+    torch.cuda.synchronize()
+    assert k1.fused_sed_photometry.launches == before + 1
+    assert out.shape == (2000, len(_CODES))
+    assert bool(torch.isfinite(out).all()) and bool((out >= 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 13, 777])
+def test_k3_matches_plain(cuda, b):
+    sim = _sim(cuda, 3, variant="roll")
+    theta = _unsorted_theta(b, seed=b).to(cuda)
+    res = sim.simulate(theta, want_spectra=True)
+    fw = res["fnu_njy"] * sim._wlam
+    s4 = pk.shift_decompose(sim._shift_of_z(theta[:, 1]), sim._max_shift)
+    before = pk.shift_photometry_num.launches
+    out = pk.shift_photometry_num(fw, sim._subshift_table, s4)
+    torch.cuda.synchronize()
+    assert pk.shift_photometry_num.launches == before + 1
+    ref = pk.shift_photometry_num_reference(fw, sim._subshift_table, s4)
+    n_f = len(_CODES)
+    assert _rel(out[:, :n_f], ref[:, :n_f]).max() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["roll", "bank"])
+def test_exact_spectra_launch_k3_once(cuda, variant):
+    sim = _sim(cuda, 3, variant=variant)
+    before = pk.shift_photometry_num.launches
+    out = sim.simulate(_unsorted_theta(500, seed=13), want_spectra=True)
+    torch.cuda.synchronize()
+    assert pk.shift_photometry_num.launches == before + 1
+    assert bool(torch.isfinite(out["photometry_njy"]).all())

@@ -6,8 +6,8 @@ The θ draws come from a torch.Generator and differ from the JAX package's
 for the same seed, so the check is by distribution: rows sorted by redshift
 and the box covered (as `tests/test_zsorted.py` checks the JAX generator).
 The batch is 256 rows: at this 1024-λ test grid a 512-row sub-chunk of a
-1500-draw library spans the whole knot table, the case that needs the dense
-path (not ported yet). Photometry tolerance on fluxes above 1e-3 of their
+1500-draw library spans the whole knot table, where generation takes the
+dense path (`test_whole_table_batches_take_dense_path`). Photometry tolerance on fluxes above 1e-3 of their
 row maximum: median < 2e-3, p99 < 5e-3 (both sides run the fused body).
 """
 
@@ -107,13 +107,46 @@ def test_empty_library(port_gen):
     (dict(resume_path="ck"), NotImplementedError, "resume_path"),
     (dict(want_spectra=True), NotImplementedError, "want_spectra"),
     (dict(pmapped_fn=lambda th: th), NotImplementedError, "pmapped_fn"),
-    (dict(batch_size=512), NotImplementedError, "dense photometry"),
 ])
 def test_unported_generation_paths_raise(port_gen, kw, err, match):
     args = dict(n=1500, batch_size=256, seed=0)
     args.update(kw)
     with pytest.raises(err, match=match):
         port_gen.generate(**args)
+
+
+def test_whole_table_batches_take_dense_path(port_gen):
+    """A 512-row sub-chunk's window is the whole table here, so every batch
+    takes the dense `photometry()`: on the CPU the exact route, held to the
+    JAX package's exact route on the same θ."""
+    lib = port_gen.generate(n=1500, batch_size=512, seed=3)
+    th = lib["parameters"].T.copy()
+    _, _, kc, w_cols, k0, _ = port_gen.simulator._plan_windows(th, 512)
+    assert k0 is None
+    jsim = _pkg_sim(jst, photometry_backend="xla")
+    ref = np.asarray(jsim.photometry(jnp.asarray(th)))
+    port = lib["photometry"].T
+    assert np.isfinite(port).all() and (port >= 0).all()
+    rel = np.abs(port - ref) / np.maximum(np.abs(ref), 1e-30)
+    rel = rel[ref > 1e-3 * ref.max(axis=1, keepdims=True)]
+    assert np.median(rel) < 2e-3, np.median(rel)
+    assert np.quantile(rel, 0.99) < 5e-3, np.quantile(rel, 0.99)
+
+
+def test_fixed_redshift_generation_raises():
+    """The JAX package generates fixed-redshift libraries on its host
+    sampler, which is not ported."""
+    sim = tt.BatchSEDSimulator(
+        tt.make_synthetic_grid(n_ages=16, n_mets=4, n_wav=1024),
+        tt.FilterSet([tt.tophat_filter(c, ct, w) for c, ct, w in
+                      zip(_CODES, _CENTERS, _WIDTHS)]),
+        tuple(p for p in PNAMES if p != "redshift"),
+        fixed_params={"redshift": 2.0}, device="cpu")
+    prior = {k: v for k, v in PRIOR.items() if k != "redshift"}
+    gen = tt.LibraryGenerator(sim, prior, unlog_keys=["log10_peak_age"],
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
+        gen.generate(n=256)
 
 
 def test_fused_true_on_unsupported_model_raises():

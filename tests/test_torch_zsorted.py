@@ -35,6 +35,11 @@ def _sorted_theta(n, seed=0):
     ]).astype(np.float32)
 
 
+# the tables the window engine reads
+_WINDOW_KEYS = ("t_mix", "m_igm", "den_knots", "dust_curve_sup", "wlam_sup",
+                "age_table", "d19_table")
+
+
 def _jax_state(jsim):
     t_mix, m_igm, den_knots = jsim._zsorted_tables()
     return {
@@ -62,8 +67,7 @@ def sims():
     tsim = tt.BatchSEDSimulator(tgrid, tfilt, PNAMES, sfh="lognormal",
                                 zdist="delta", emission=tt.EmissionConfig(),
                                 device="cpu")
-    own = {k: getattr(tsim, f"_{k}").numpy().copy()
-           for k in tt.BatchSEDSimulator.STATE_KEYS}
+    own = {k: getattr(tsim, f"_{k}").numpy().copy() for k in _WINDOW_KEYS}
     tsim.load_state(_jax_state(jsim))
     return jsim, tsim, own
 
@@ -145,12 +149,11 @@ def test_undersized_plan_is_rejected(sims):
 def test_unported_paths_raise(sims):
     _, tsim, _ = sims
     with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-        tsim.photometry(_sorted_theta(8))
-    with pytest.raises(NotImplementedError, match="whole table"):
-        tsim.photometry_zsorted_device(_sorted_theta(512), sub_chunk=512)
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
         tt.BatchSEDSimulator(tsim.grid, tsim.filters, PNAMES, device="cpu",
                              photometry_variant="conv")
+    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
+        tt.BatchSEDSimulator(tsim.grid, tsim.filters, PNAMES, device="cpu",
+                             n_particles=64)
     with pytest.raises(KeyError, match="unknown state"):
         tsim.load_state({"spectra": np.zeros(3)})
     with pytest.raises(ValueError, match="shape"):
@@ -164,5 +167,5 @@ def test_fused_gate(sims):
         tsim.grid, tsim.filters, PNAMES, device="cpu",
         emission=tt.EmissionConfig(fesc=0.3, reprocessed_types=("total",)))
     assert not sim._window_supported()
-    with pytest.raises(NotImplementedError, match="dense photometry"):
+    with pytest.raises(ValueError, match=r"call \.photometry\(\) instead"):
         sim.photometry_zsorted_device(_sorted_theta(256), sub_chunk=64)
