@@ -75,13 +75,16 @@ def build_knot_matrix_device(filter_set, lam_rest, dlog: float,
     l_idx = torch.arange(l_lo, l_hi, dtype=torch.float32, device=device)
     out = torch.zeros(n_knots, f8, l_hi - l_lo, dtype=torch.float32,
                       device=device)
-    for k in range(n_knots):
-        lam_eval = lam0 * 10.0 ** ((l_idx + float(k * delta)) * dlog32)
-        for i, filt in enumerate(filter_set.filters):
-            xp = torch.as_tensor(np.asarray(filt.lam, np.float32), device=device)
-            fp = torch.as_tensor(np.asarray(filt.transmission, np.float32),
-                                 device=device)
-            out[k, i] = _interp_f32(lam_eval, xp, fp)
+    # every knot's shifted grid at once: (K, L), the same float32 arithmetic
+    # per element as one knot at a time
+    shifts = torch.arange(n_knots, dtype=torch.float32, device=device) * delta
+    lam_eval = (lam0 * 10.0 ** ((l_idx[None, :] + shifts[:, None])
+                                * dlog32)).reshape(-1)
+    for i, filt in enumerate(filter_set.filters):
+        xp = torch.as_tensor(np.asarray(filt.lam, np.float32), device=device)
+        fp = torch.as_tensor(np.asarray(filt.transmission, np.float32),
+                             device=device)
+        out[:, i] = _interp_f32(lam_eval, xp, fp).reshape(n_knots, -1)
     # (K, F8, L) -> (L, K·F8)
     return (out.permute(2, 0, 1).reshape(l_hi - l_lo, n_knots * f8)
             .contiguous(), n_knots)

@@ -54,7 +54,9 @@ from .units import C_AA_S
 __all__ = ["EmissionConfig", "BatchSEDSimulator"]
 
 _FOUR_PI = 4.0 * np.pi
-_IGM_CHUNK = 16  # redshift rows per IGM evaluation (bounds the (K, L, 39) temporaries)
+# elements per IGM evaluation: rows × λ × 39 Lyman-series terms, bounding
+# the temporaries while keeping the number of calls small
+_IGM_CHUNK_ELEMS = 1 << 24
 _IGM_ROWS = 512  # rows of the T_igm(λ_rest, z) table over log10(1+z)
 _XLA_CHUNK = 1024  # galaxies per exact-path step (bounds the (B, F, L) slices)
 # knot-matrix size above which the JAX package's "auto" variant picks conv
@@ -315,8 +317,9 @@ class BatchSEDSimulator:
     def _igm_rows(self, lam_rest, z):
         """(len(z), L) IGM transmission at λ_rest·(1+z) for each redshift."""
         rows = []
-        for i in range(0, z.shape[0], _IGM_CHUNK):
-            zz = z[i:i + _IGM_CHUNK, None]
+        chunk = max(1, _IGM_CHUNK_ELEMS // (39 * lam_rest.shape[0]))
+        for i in range(0, z.shape[0], chunk):
+            zz = z[i:i + chunk, None]
             rows.append(igm_transmission(lam_rest[None, :] * (1.0 + zz), zz,
                                          self._igm_model))
         return torch.cat(rows, dim=0)
