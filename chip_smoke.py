@@ -12,11 +12,15 @@ unsorted θ):
 2. build: compiles every kernel in `synference_tpu_torch/csrc/` (K1, K2,
    K3), one nvcc process per source, all started together;
 3. K1 vs plain: K1 against its plain PyTorch version on main-path
-   sub-chunks (orders 1 and 3), with both timings, and a check that the
-   bound rejects the plain version with a TF32 or a bf16 first product;
+   sub-chunks (orders 1 and 3) and, in its one-launch form, on a whole
+   main-path batch of 64 sub-chunks, with both timings per batch beside
+   the sum of the sub-chunks' bounds and the cuBLAS first product, and a
+   check that the bound rejects the plain version with a TF32 or a bf16
+   first product;
 4. main path: `LibraryGenerator.generate(n=2^20, zsorted_fused=True)`,
-   checking that K1 ran, that the photometry is finite and non-negative,
-   and that one sub-chunk agrees with the staged window body;
+   checking that K1 ran once per 65536-row batch, that the photometry is
+   finite and non-negative, and that one sub-chunk agrees with the staged
+   window body;
 5. features: asinh features with depth noise and errors;
 6. dense photometry: `sim.photometry(θ)` on the headline model launches K2
    once; K2 against its plain version (and the TF32 / bf16 power check),
@@ -29,7 +33,10 @@ unsorted θ):
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
-on the path; the last line is `{"ok": true, "device": {...}}`.
+on the path (with each kernel's share of its bound, and `first_product_ms`:
+the fp32 first product alone as one cuBLAS `torch.matmul` with TF32 off, a
+yardstick for the kernels' core that the port never calls); the last line
+is `{"ok": true, "device": {...}}`.
 """
 
 import json
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 N_LIBRARY = 2**20
+BATCH = 65536  # rows per generation batch: one K1 launch each
 CODES = ["JWST/NIRCam.F090W", "JWST/NIRCam.F115W", "JWST/NIRCam.F150W",
          "JWST/NIRCam.F200W", "JWST/NIRCam.F277W", "JWST/NIRCam.F356W",
          "JWST/NIRCam.F444W"]
@@ -121,10 +129,27 @@ def build_model(tt, dev):
     return sim, gen
 
 
+def k1_bound(a: dict) -> dict:
+    """K1's bound for one sub-chunk's keyword arguments."""
+    b, c = a["sfzh"].shape
+    w = a["sed_w"].shape[1]
+    kf = a["kc"] * a["f8"]
+    return bound(flops_fp32=2.0 * b * c * w, flops_bf16=2.0 * b * w * kf,
+                 nbytes=4 * (b * c + c * w + w + kf + 3 * b + b * a["f8"])
+                 + 2 * w * kf)
+
+
+def first_product_ms(sfzh, sed, reps: int = 10) -> float:
+    """The fp32 first product alone, one cuBLAS call with TF32 off (the
+    yardstick for the kernels' core; the port never calls it)."""
+    return time_ms(lambda: torch.matmul(sfzh, sed), reps=reps)
+
+
 def kernel_vs_plain(sim, gen, k1):
-    """K1 and its plain version on the main path's own sub-chunk inputs: the
-    first sub-chunk of the run and one from its middle, orders 1 and 3."""
-    theta, sub, bs, kc, w_cols = gen._draw_sorted(N_LIBRARY, 65536, seed=0)
+    """K1 and its plain version on the main path's own inputs: the first
+    sub-chunk of the run and one from its middle (one launch each), then a
+    whole 65536-row batch in one launch, orders 1 and 3."""
+    theta, sub, bs, kc, w_cols = gen._draw_sorted(N_LIBRARY, BATCH, seed=0)
     calls = []
     for start in (0, theta.shape[0] // 2):
         chunk, sub, kc, w_cols, k0, l0 = sim._plan_windows(
@@ -150,18 +175,46 @@ def kernel_vs_plain(sim, gen, k1):
             worst["max_abs_err"] = max(worst["max_abs_err"], abs_err)
     a = dict(a0, order=3)
     bound_has_power(k1, a, "K1")
-    b, c = a["sfzh"].shape
-    w = a["sed_w"].shape[1]
-    worst.update(bound(
-        flops_fp32=2.0 * b * c * w,
-        flops_bf16=2.0 * b * w * a["kc"] * a["f8"],
-        nbytes=4 * (b * c + c * w + w + a["kc"] * a["f8"] + 3 * b
-                    + b * a["f8"]) + 2 * w * a["kc"] * a["f8"]))
-    worst["ms"] = time_ms(lambda: k1.fused_window_photometry(**a))
+    sub_ms = time_ms(lambda: k1.fused_window_photometry(**a))
+    log(f"[kernel] one sub-chunk in its own launch (order 3): K1 "
+        f"{sub_ms:.4f} ms, bound {k1_bound(a)['bound_ms']:.4f} ms")
+
+    # a whole main-path batch (the middle one), as the main path launches it
+    mid = (theta.shape[0] // bs // 2) * bs
+    chunk, sub, kc, w_cols, k0, l0 = sim._plan_windows(
+        theta[mid:mid + bs], sub, kc, w_cols)
+    g = sim._window_grouped_args(chunk, sub, w_cols, kc, k0, l0)
+    for order in (1, 3):
+        out = k1.fused_window_photometry_grouped(**dict(g, order=order))
+        torch.cuda.synchronize()
+        ref = k1.fused_window_photometry_grouped_reference(
+            **dict(g, order=order))
+        med, p99, mx, abs_err = rel_stats(out, ref)
+        log(f"[kernel] order={order} batch of {len(k0)} sub-chunks in one "
+            f"launch: rel median={med:.3e} p99={p99:.3e} max={mx:.3e} (tol "
+            f"max<{TOL_KERNEL_MAX}); max abs err={abs_err:.4e} nJy")
+        check(mx < TOL_KERNEL_MAX,
+              f"grouped K1 disagrees with its plain version (order {order})")
+        worst["max_abs_err"] = max(worst["max_abs_err"], abs_err)
+    check(torch.equal(out, k1.fused_window_photometry_grouped(**g)),
+          "two K1 runs differ")
+    subs = [a for *_, a in sim._window_calls(chunk, sub, w_cols, kc, k0, l0)]
+    bounds = [k1_bound(a) for a in subs]
+    worst["bound_ms"] = sum(b["bound_ms"] for b in bounds)
+    worst["bound_by"] = ("operations" if all(
+        b["bound_by"] == "operations" for b in bounds) else "bytes")
+    worst["ms"] = time_ms(lambda: k1.fused_window_photometry_grouped(**g),
+                          reps=10)
     worst["plain_ms"] = time_ms(
-        lambda: k1.fused_window_photometry_reference(**a))
-    log(f"[kernel] time per sub-chunk call (order 3): K1 {worst['ms']:.4f} ms,"
-        f" plain {worst['plain_ms']:.4f} ms")
+        lambda: k1.fused_window_photometry_grouped_reference(**g), reps=3)
+    worst["first_product_ms"] = first_product_ms(
+        g["sfzh"], g["tables"]["sed"][:, :w_cols])
+    log(f"[kernel] K1 per batch of {bs} rows ({len(k0)} sub-chunks, one "
+        f"launch, order 3): {worst['ms']:.4f} ms, plain "
+        f"{worst['plain_ms']:.4f} ms; sum of the sub-chunks' bounds "
+        f"{worst['bound_ms']:.4f} ms ({worst['bound_by']}); cuBLAS fp32 "
+        f"first product of the batch's shape {worst['first_product_ms']:.4f}"
+        f" ms (CUDA events); two runs bitwise equal")
     return worst, calls[0]
 
 
@@ -197,10 +250,11 @@ def main_path(sim, gen, k1, kc: int, w_cols: int):
     wall = time.perf_counter() - t0
     launches = k1.fused_window_photometry.launches
     phot = lib["photometry"]
-    n_sub = int(np.ceil(N_LIBRARY / 1024))
+    n_batch = int(np.ceil(N_LIBRARY / BATCH))
     log(f"[main] generate(n={N_LIBRARY}) {wall:.3f} s = "
         f"{N_LIBRARY / wall:,.0f} SEDs/s; K1 launches {launches}")
-    check(launches == n_sub, f"K1 launched {launches} times, expected {n_sub}")
+    check(launches == n_batch,
+          f"K1 launched {launches} times, expected {n_batch}")
     check(phot.shape == (len(CODES), N_LIBRARY), f"photometry {phot.shape}")
     check(bool(np.isfinite(phot).all()), "non-finite photometry")
     check(bool((phot >= 0).all()), "negative photometry")
@@ -311,18 +365,22 @@ def k2_vs_plain(k1, sim, theta, name: str, reps: int,
         f"err={abs_err:.4e} nJy")
     check(mx < tol_max and (not tol_p99 or p99 < tol_p99),
           f"K2 disagrees with its plain version ({name})")
+    check(torch.equal(out, k2_call(k1, a)), f"two K2 runs differ ({name})")
     stats = {"max_abs_err": abs_err,
              "ms": time_ms(lambda: k2_call(k1, a), reps=reps),
              "plain_ms": time_ms(
                  lambda: k1.fused_window_photometry_reference(**a),
-                 reps=max(3, reps // 4))}
+                 reps=max(3, reps // 4)),
+             "first_product_ms": first_product_ms(a["sfzh"], a["sed_w"])}
     stats.update(bound(
         flops_fp32=2.0 * b * c * n_l, flops_bf16=2.0 * b * n_l * 4 * a["f8"],
         nbytes=4 * (b * c + c * n_l + n_l + a["kc"] * a["f8"] + 3 * b
                     + b * a["f8"]) + 2 * n_l * a["kc"] * a["f8"]))
     log(f"[{name}] K2 {stats['ms']:.4f} ms, plain {stats['plain_ms']:.4f} ms"
         f" per batch (CUDA events); bound {stats['bound_ms']:.4f} ms "
-        f"({stats['bound_by']})")
+        f"({stats['bound_by']}), share "
+        f"{stats['bound_ms'] / stats['ms']:.3f}; cuBLAS fp32 first product "
+        f"{stats['first_product_ms']:.4f} ms; two runs bitwise equal")
     return stats, a
 
 
@@ -385,7 +443,26 @@ def k2_north_star(k1, sim, gen, dev):
     check(sim._mega_supported(), "the north-star model does not take K2")
     k2_vs_plain(k1, sim, theta, "north-star", reps=10,
                 tol_p99=TOL_STAGED_P99, tol_max=TOL_STAGED_MAX)
+    log(f"[north-star] K2 row order: {knot_spans(k1, sim, theta)}")
     route_times(sim, theta, "north-star", reps=8)
+
+
+def knot_spans(k1, sim, theta) -> str:
+    """How many knots the 128-row blocks of K2's row order span: the passes
+    of 8 knots each block makes."""
+    z = theta[:, PNAMES.index("redshift")]
+    s = sim._shift_of_z(z)
+    rows = k1.k2_row_order(s, sim._n_knots, sim._knot_delta).long()
+    c = torch.clamp(s[rows], 0.0, (sim._n_knots - 1) * sim._knot_delta
+                    - 1.0e-3) / sim._knot_delta
+    first = torch.clamp(torch.floor(c) - 1, min=0)
+    n = first.shape[0] // k1.TILE_ROWS * k1.TILE_ROWS
+    blocks = first[:n].reshape(-1, k1.TILE_ROWS)
+    span = (blocks.max(dim=1).values - blocks.min(dim=1).values).cpu()
+    passes = span.div(5, rounding_mode="floor") + 1  # passes start 5 apart
+    return (f"first-knot span per block max {int(span.max())}, mean "
+            f"{float(span.float().mean()):.2f}; blocks with one pass "
+            f"{float((passes == 1).float().mean()):.4f}")
 
 
 def exact_reference(sim, fnu, z):
@@ -452,6 +529,7 @@ def exact_spectra(tt, pk, dev):
     f8, n_cols = table.shape[1], table.shape[2]
     stats.update(bound(flops_fp32=2.0 * b * f8 * n_l, flops_bf16=0.0,
                        nbytes=4 * (b * n_l + table.numel() + b + b * f8)))
+    stats["first_product_ms"] = None  # K3 has no first product
     log(f"[exact] K3 {stats['ms']:.4f} ms, plain {stats['plain_ms']:.4f} ms "
         f"per batch (CUDA events); bound {stats['bound_ms']:.4f} ms "
         f"({stats['bound_by']})")
@@ -513,13 +591,17 @@ def main() -> None:
 
     rows = []
     for name, source, replaces, st in (
-            ("K1 fused_window_photometry", "fused_window.cu",
+            ("K1 fused_window_photometry_grouped", "fused_window.cu",
              "synference_tpu/ops/fused_sed.py:167", k1_stats),
             ("K2 fused_sed_photometry", "fused_sed.cu",
              "synference_tpu/ops/fused_sed.py:167", k2_stats),
             ("K3 shift_photometry_num", "shift_num.cu",
              "synference_tpu/ops/photometry_kernel.py:342 and :233",
              k3_stats)):
+        share = st["bound_ms"] / st["ms"]
+        log(f"[summary] {name}: {st['ms']:.4f} ms against a bound of "
+            f"{st['bound_ms']:.4f} ms ({st['bound_by']}): share of bound "
+            f"{share:.3f}; {st['launches']} launches on the main path")
         rows.append({
             "name": name, "route": "cuda",
             "source": f"synference_tpu_torch/csrc/{source}",
@@ -528,7 +610,9 @@ def main() -> None:
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"],
             # no single PyTorch call computes any of these functions
-            "library_ms": None})
+            "library_ms": None,
+            "share_of_bound": share,
+            "first_product_ms": st["first_product_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

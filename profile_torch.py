@@ -7,13 +7,15 @@ Builds `chip_smoke.py`'s north-star model on the card and prints:
    `--reps` runs each after a warm-up, host clock around synchronized runs;
 2. a per-batch breakdown of one 65536-row batch (host clock around
    synchronized calls, median of `--reps`): θ draw + z-sort + run plan (for
-   the whole run), window plan, SFZH, fused body, K1 launches alone, staged
-   body;
-3. K1 at the main path's first sub-chunk: CUDA-event time and its FLOPs
-   (both products), hence its rate;
+   the whole run), window plan, SFZH, fused body, K1 alone (its one launch
+   over the batch's 64 sub-chunks), staged body;
+3. K1's one launch over that batch: CUDA-event time and its FLOPs (both
+   products), hence its rate;
 4. a `torch.profiler` trace of one `generate(n)`: device self time per
    kernel, and the device busy share, Σ device self time over the untraced
-   wall time of the same run (one stream, so kernels do not overlap).
+   wall time of the same run (one stream, so kernels do not overlap);
+5. the same trace of the dense `photometry(θ)` on 65536 unsorted rows of
+   `chip_smoke.py`'s headline model (K2 and what surrounds it).
 
 Run from the repository root on a machine with a card:
 
@@ -57,7 +59,7 @@ def end_to_end(gen, n: int, reps: int) -> None:
 
 
 def breakdown(sim, gen, n: int, reps: int) -> dict:
-    """Per-batch host-clock times; returns K1's arguments for sub-chunk 0."""
+    """Per-batch host-clock times; returns K1's arguments for the batch."""
     from synference_tpu_torch.ops import fused_sed as k1
 
     t = {"draw+sort+plan (whole run)":
@@ -70,38 +72,44 @@ def breakdown(sim, gen, n: int, reps: int) -> dict:
     t["SFZH"] = host_ms(lambda: sim._sfzh(sim.theta_dict(chunk)), reps)
     t["fused body"] = host_ms(lambda: sim._zsorted_run_raw(
         chunk, sub, w_cols, kc, k0, l0, fused=True), reps)
-    calls = [a for *_, a in sim._window_calls(chunk, sub, w_cols, kc, k0, l0)]
-    t[f"K1 alone ({len(calls)} launches)"] = host_ms(
-        lambda: [k1.fused_window_photometry(**a) for a in calls], reps)
+    g = sim._window_grouped_args(chunk, sub, w_cols, kc, k0, l0)
+    t[f"K1 alone (1 launch, {len(k0)} sub-chunks)"] = host_ms(
+        lambda: k1.fused_window_photometry_grouped(**g), reps)
     t["staged body"] = host_ms(lambda: sim._zsorted_run_raw(
         chunk, sub, w_cols, kc, k0, l0, fused=False), reps)
     for name, ms in t.items():
         print(f"[batch] {name}: {ms:.3f} ms", flush=True)
-    return calls[0]
+    return g
 
 
 def k1_rate(a: dict) -> None:
     from synference_tpu_torch.ops import fused_sed as k1
 
-    ms = smoke.time_ms(lambda: k1.fused_window_photometry(**a), reps=100)
+    ms = smoke.time_ms(lambda: k1.fused_window_photometry_grouped(**a),
+                       reps=20)
     b, c = a["sfzh"].shape
-    w, kf = a["sed_w"].shape[1], a["kc"] * a["f8"]
+    w, kf = a["w_cols"], a["kc"] * a["f8"]
     flop = 2 * b * c * w + 2 * b * w * kf
-    print(f"[k1] B={b} C={c} W={w} kc*F8={kf}: {ms:.4f} ms, "
-          f"{flop / 1e9:.3f} GFLOP, {flop / ms / 1e9:.2f} TFLOP/s", flush=True)
+    print(f"[k1] one launch, B={b} in sub-chunks of {a['sub']}, C={c} W={w} "
+          f"kc*F8={kf}: {ms:.4f} ms, {flop / 1e9:.3f} GFLOP, "
+          f"{flop / ms / 1e9:.2f} TFLOP/s", flush=True)
 
 
-def device_profile(gen, n: int) -> None:
-    wall = host_ms(lambda: gen.generate(n=n, seed=0), 1)
+def device_profile(fn, what: str, reps: int = 1) -> None:
+    """Trace `reps` calls of `fn`: device self time per kernel and the
+    busy share against the untraced wall time of as many calls."""
+    fn()  # warm-up
+    wall = host_ms(lambda: [fn() for _ in range(reps)], 3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        gen.generate(n=n, seed=0)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     dev.sort(key=lambda e: -e.self_device_time_total)
     total = sum(e.self_device_time_total for e in dev) / 1e3
-    print(f"[trace] generate(n={n}): device self time {total:.3f} ms, "
+    print(f"[trace] {what} x{reps}: device self time {total:.3f} ms, "
           f"untraced wall {wall:.3f} ms, busy share {total / wall:.4f}",
           flush=True)
     for e in dev[:12]:
@@ -122,10 +130,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     import synference_tpu_torch as tt
 
-    sim, gen = smoke.build_model(tt, torch.device("cuda"))
+    dev = torch.device("cuda")
+    sim, gen = smoke.build_model(tt, dev)
     end_to_end(gen, args.n, args.reps)
     k1_rate(breakdown(sim, gen, args.n, args.reps))
-    device_profile(gen, args.n // 4)
+    device_profile(lambda: gen.generate(n=args.n // 4, seed=0),
+                   f"generate(n={args.n // 4})")
+    dense = smoke.headline_model(tt, dev, "auto")
+    theta = smoke.headline_theta(dev)
+    device_profile(lambda: dense.photometry(theta),
+                   f"headline photometry({theta.shape[0]} unsorted rows)",
+                   reps=10)
 
 
 if __name__ == "__main__":

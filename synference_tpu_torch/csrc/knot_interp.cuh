@@ -1,5 +1,5 @@
-// Shift-space knot interpolation shared by K1 (fused_window.cu) and K2
-// (fused_sed.cu): the device form of
+// Shift-space knot interpolation of K1 and K2 (their shared core,
+// sed_tile.cuh): the device form of
 // `synference_tpu_torch/ops/photometry_kernel.py::_knot_interp`.
 //
 // Monotone-cubic Hermite through knots k−1..k+2 with scale-normalized

@@ -88,18 +88,10 @@ def load_library() -> ctypes.CDLL:
         p, i64, p, p, p, p, i64, p, p, i64, p, i64, p, p,
         i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, p]
     lib.k1_fused_window.restype = i32
-    lib.k1_smem_bytes.argtypes = [i32]
-    lib.k1_smem_bytes.restype = ctypes.c_size_t
-    lib.k1_tile_galaxies.argtypes = []
-    lib.k1_tile_galaxies.restype = i32
-    lib.k1_chunk_columns.argtypes = []
-    lib.k1_chunk_columns.restype = i32
     lib.k2_fused_sed.argtypes = [
-        p, i64, p, p, p, p, i64, p, p, i64, p, i64, p,
+        p, i64, p, p, p, p, p, i64, p, p, i64, p, i64, p,
         i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, p]
     lib.k2_fused_sed.restype = i32
-    lib.k2_smem_bytes.argtypes = [i32]
-    lib.k2_smem_bytes.restype = ctypes.c_size_t
     lib.k3_shift_num.argtypes = [p, i64, p, p, p, i32, i32, i32, i32, p]
     lib.k3_shift_num.restype = i32
     lib.k1_error_string.argtypes = [i32]

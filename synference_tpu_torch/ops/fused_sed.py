@@ -10,35 +10,40 @@ knots of the IGM-baked knot matrix:
     acc  = bf16(fw) @ bf16(knot_w)      (fp32 accumulation)
     out  = interp(acc; s) / max(interp(den_w; s), 1e-30) · scale
 
-K1 (`fused_window_photometry`, `csrc/fused_window.cu`) runs it over one
-z-sorted sub-chunk's window; K2 (`fused_sed_photometry`,
-`csrc/fused_sed.cu`) over the whole λ support and knot table for θ in any
-order, contracting only the 4 knot rows each galaxy interpolates. Both
-launch their CUDA kernel for tensors on a card and take the plain version
-only for CPU tensors. `fused_window_photometry_reference` is the one plain
-version (K2's is K1's over the full tables); `window_ratio` is the one
-num/den/interpolation definition the kernels' plain versions and the
-simulator's plain bodies use.
+K1 (`csrc/fused_window.cu`) runs it over z-sorted sub-chunks, each through
+its own window: `fused_window_photometry_grouped` covers a whole batch of
+sub-chunks in one launch (the counterpart of the JAX package's `lax.scan`
+over sub-chunks), `fused_window_photometry` one sub-chunk. K2
+(`fused_sed_photometry`, `csrc/fused_sed.cu`) runs it over the whole λ
+support and knot table for θ in any order, visiting the rows in the order
+of `k2_row_order`. Both kernels share one core (`csrc/sed_tile.cuh`). The
+wrappers launch their kernel for tensors on a card and take the plain
+version only for CPU tensors. `fused_window_photometry_reference` is the
+one plain version (the grouped one loops it over sub-chunks, K2's runs it
+over the full tables); `window_ratio` is the one num/den/interpolation
+definition the kernels' plain versions and the simulator's plain bodies
+use.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
+import numpy as np
 import torch
 
 from .photometry_kernel import _knot_interp
 
 __all__ = ["fused_window_photometry", "fused_window_photometry_reference",
+           "fused_window_photometry_grouped",
+           "fused_window_photometry_grouped_reference",
            "fused_sed_photometry", "fused_sed_photometry_reference",
-           "prepare_megakernel_tables", "knot_product", "window_ratio",
-           "FUSED_SED_MIN_KNOTS"]
+           "k2_row_order", "prepare_megakernel_tables", "knot_product",
+           "window_ratio", "TILE_ROWS"]
 
-# shared memory one block can opt into on Hopper (227 KB)
-_MAX_SMEM = 232448
-# K2 reads 4 consecutive knot rows per galaxy (k−1..k+2, clamped to the table)
-FUSED_SED_MIN_KNOTS = 4
+# galaxies per block of both kernels: the unit that `k2_row_order` packs
+# into narrow knot bands
+TILE_ROWS = 128
 
 
 def knot_product(fw: torch.Tensor, knot_w: torch.Tensor) -> torch.Tensor:
@@ -114,9 +119,12 @@ def _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
     b, c = sfzh.shape
     w = sed_w.shape[-1]
     req(b >= 1 and c >= 1 and w >= 1, "empty batch, cells or window")
-    req(kc >= 2 and delta >= 1 and 1 <= f8 <= 128,
-        f"need kc >= 2, delta >= 1, 1 <= f8 <= 128 (kc={kc}, "
-        f"delta={delta}, f8={f8})")
+    req(kc >= 2 and delta >= 1 and 8 <= f8 <= 128 and f8 % 8 == 0,
+        f"need kc >= 2, delta >= 1, f8 a multiple of 8 with f8 <= 128 "
+        f"(kc={kc}, delta={delta}, f8={f8})")
+    # the kernels copy knot rows in 16-byte groups of 8 bands
+    req(knot_w.stride(0) % 8 == 0 and knot_w.data_ptr() % 16 == 0,
+        "knot_w rows must start 16-byte aligned")
     req(order in (1, 3), f"order must be 1 or 3, not {order}")
     shapes = dict(s_rel=(b,), tau_v=(b,), scale=(b,), sed_w=(c, w),
                   curve_w=(w,), knot_w=(w, kc * f8), den_w=(kc, f8))
@@ -134,10 +142,56 @@ def _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
     req(b * max(f8, kc * f8) < 2**31, "batch too large")
 
 
+def _tile_major(sfzh, sub: int, rows=None):
+    """The kernels' A operand: a (C, n_sub·T) copy of sfzh (B, C), with
+    T = `sub` rounded up to `TILE_ROWS`. Sub-chunk i's rows [i·sub,
+    (i+1)·sub), gathered by `rows` first when given, fill columns
+    [i·T, i·T + sub); the rest are zeros. Every block of the kernels then
+    reads its 128 galaxies of one cell as 512 contiguous, aligned bytes."""
+    if rows is not None:
+        sfzh = sfzh.index_select(0, rows)
+    b, c = sfzh.shape
+    n_sub = -(-b // sub)
+    t = -(-sub // TILE_ROWS) * TILE_ROWS
+    if b == n_sub * sub and t == sub:
+        return sfzh.t().contiguous()
+    padded = sfzh.new_zeros((n_sub * sub, c))
+    padded[:b] = sfzh
+    out = sfzh.new_zeros((c, n_sub, t))
+    out[:, :, :sub] = padded.t().reshape(c, n_sub, sub)
+    return out.view(c, -1)
+
+
+def _launch_k1(sfzh, s, tau_v, scale, sed, curve, knot, den, win, w: int,
+               kc: int, delta: int, f8: int, order: int, fesc: float,
+               sub: int):
+    """One K1 launch over ceil(B/sub) sub-chunks (`win` their (k0, l0)
+    int32 starts on the card, None for one window at (0, 0))."""
+    from ._cuda import load_library
+
+    lib = load_library()
+    b, c = sfzh.shape
+    a = _tile_major(sfzh, sub)
+    out = torch.empty((b, f8), dtype=torch.float32, device=sfzh.device)
+    stream = torch.cuda.current_stream(sfzh.device).cuda_stream
+    err = lib.k1_fused_window(
+        a.data_ptr(), a.stride(0), s.data_ptr(), tau_v.data_ptr(),
+        scale.data_ptr(), sed.data_ptr(), sed.stride(0), curve.data_ptr(),
+        knot.data_ptr(), knot.stride(0), den.data_ptr(), den.stride(0),
+        None if win is None else win.data_ptr(), out.data_ptr(), b, c, w, kc,
+        f8, delta, order, float(fesc), sub, stream)
+    if err:
+        raise RuntimeError(
+            f"K1 launch failed: {lib.k1_error_string(err).decode()}")
+    fused_window_photometry.launches += 1
+    return out
+
+
 def fused_window_photometry(sfzh, s_rel, tau_v, scale, sed_w, curve_w,
                             knot_w, den_w, kc: int, delta: int, f8: int,
                             order: int = 3, fesc: float = 0.0):
-    """Windowed SED → (B, F8) band fluxes, one kernel per call.
+    """Windowed SED → (B, F8) band fluxes for one sub-chunk, one kernel per
+    call (the grouped kernel over a single window).
 
     Args:
         sfzh: (B, C) SFZH mass weights [Msun], float32.
@@ -162,39 +216,98 @@ def fused_window_photometry(sfzh, s_rel, tau_v, scale, sed_w, curve_w,
              f"tensors on {sfzh.device} are neither CPU nor CUDA")
     _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
                        den_w, kc, delta, f8, order)
-    from ._cuda import load_library
-
-    lib = load_library()
-    b, c = sfzh.shape
-    w = sed_w.shape[1]
-    kf = kc * f8
-    _require(lib.k1_smem_bytes(kf) <= _MAX_SMEM,
-             f"kc·F8 = {kf} knot columns exceed the kernel's shared memory")
-    # split the window over blockIdx.y so a 1024-galaxy sub-chunk still puts
-    # about two blocks on every SM
-    n_tiles = math.ceil(b / lib.k1_tile_galaxies())
-    n_chunks = math.ceil(w / lib.k1_chunk_columns())
-    sms = torch.cuda.get_device_properties(sfzh.device).multi_processor_count
-    n_split = max(1, min(n_chunks, math.ceil(2 * sms / n_tiles)))
-    partial = torch.empty((n_split, b, kf), dtype=torch.float32,
-                          device=sfzh.device)
-    out = torch.empty((b, f8), dtype=torch.float32, device=sfzh.device)
-    stream = torch.cuda.current_stream(sfzh.device).cuda_stream
-    err = lib.k1_fused_window(
-        sfzh.data_ptr(), sfzh.stride(0), s_rel.data_ptr(), tau_v.data_ptr(),
-        scale.data_ptr(), sed_w.data_ptr(), sed_w.stride(0),
-        curve_w.data_ptr(), knot_w.data_ptr(), knot_w.stride(0),
-        den_w.data_ptr(), den_w.stride(0), partial.data_ptr(),
-        out.data_ptr(), b, c, w, kc, f8, delta, order, float(fesc), n_split,
-        stream)
-    if err:
-        raise RuntimeError(
-            f"K1 launch failed: {lib.k1_error_string(err).decode()}")
-    fused_window_photometry.launches += 1
-    return out
+    return _launch_k1(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
+                      den_w, None, sed_w.shape[1], kc, delta, f8, order,
+                      fesc, sfzh.shape[0])
 
 
 fused_window_photometry.launches = 0
+
+
+def _window_starts(k0, l0, n_rows: int, sub: int, w_cols: int, kc: int,
+                   n_knots: int, n_l: int) -> np.ndarray:
+    """Host-checked (n_sub, 2) int32 window starts (k0, l0), one per
+    sub-chunk of `sub` rows; raises ValueError on a bad array."""
+    who = "fused_window_photometry_grouped"
+    k0, l0 = np.asarray(k0), np.asarray(l0)
+    n_sub = -(-n_rows // sub) if sub >= 1 else 0
+    _require(sub >= 1 and n_rows >= 1, f"need rows and sub >= 1 (rows "
+             f"{n_rows}, sub {sub})", who)
+    _require(k0.shape == (n_sub,) and l0.shape == (n_sub,),
+             f"window starts need shape ({n_sub},) for {n_rows} rows in "
+             f"sub-chunks of {sub}, got {k0.shape} and {l0.shape}", who)
+    _require(np.issubdtype(k0.dtype, np.integer)
+             and np.issubdtype(l0.dtype, np.integer),
+             f"window starts must be integers, got {k0.dtype}, {l0.dtype}",
+             who)
+    _require(2 <= kc <= n_knots and 1 <= w_cols <= n_l,
+             f"window of {kc} knots x {w_cols} columns does not fit the "
+             f"{n_knots} x {n_l} tables", who)
+    _require(bool(np.all((k0 >= 0) & (k0 <= n_knots - kc))),
+             f"knot starts must lie in [0, {n_knots - kc}]", who)
+    _require(bool(np.all((l0 >= 0) & (l0 <= n_l - w_cols))),
+             f"column starts must lie in [0, {n_l - w_cols}]", who)
+    return np.stack([k0, l0], axis=1).astype(np.int32)
+
+
+def fused_window_photometry_grouped_reference(sfzh, s, tau_v, scale,
+                                              tables: dict, k0, l0,
+                                              sub: int, w_cols: int,
+                                              kc: int, delta: int, f8: int,
+                                              order: int = 3,
+                                              fesc: float = 0.0):
+    """Plain PyTorch grouped K1: `fused_window_photometry_reference` per
+    sub-chunk, each on its own window of the tables."""
+    out = torch.empty((sfzh.shape[0], f8), dtype=torch.float32,
+                      device=sfzh.device)
+    for i, (k, l) in enumerate(zip(np.asarray(k0).tolist(),
+                                   np.asarray(l0).tolist())):
+        r = slice(i * sub, (i + 1) * sub)
+        cols = slice(l, l + w_cols)
+        out[r] = fused_window_photometry_reference(
+            sfzh[r], s[r] - float(k * delta), tau_v[r], scale[r],
+            tables["sed"][:, cols], tables["curve"][cols],
+            tables["knot"][cols, k * f8:(k + kc) * f8],
+            tables["den"][k:k + kc], kc, delta, f8, order=order, fesc=fesc)
+    return out
+
+
+def fused_window_photometry_grouped(sfzh, s, tau_v, scale, tables: dict, k0,
+                                    l0, sub: int, w_cols: int, kc: int,
+                                    delta: int, f8: int, order: int = 3,
+                                    fesc: float = 0.0):
+    """Windowed SED → (B, F8) band fluxes for a batch of z-sorted
+    sub-chunks, one kernel launch for all of them.
+
+    Rows [i·sub, (i+1)·sub) are sub-chunk i; it reads λ columns
+    l0[i] .. l0[i]+w_cols and knots k0[i] .. k0[i]+kc of `tables`
+    (`prepare_megakernel_tables`). `s` (B,) holds the absolute column
+    shifts log10(1+z)/Δ; `k0`, `l0` are host integer sequences (the
+    planner's), checked here and copied to the card as one int32 array.
+    Other arguments as `fused_window_photometry`.
+
+    CPU tensors go through `fused_window_photometry_grouped_reference`.
+    CUDA tensors launch K1 once on the current stream (one more on
+    `fused_window_photometry.launches`); bad inputs raise ValueError, a
+    failed launch RuntimeError.
+    """
+    sed, curve, knot, den = (tables[k] for k in ("sed", "curve", "knot",
+                                                 "den"))
+    n_knots, n_l = den.shape[0], sed.shape[1]
+    win = _window_starts(k0, l0, sfzh.shape[0], sub, w_cols, kc, n_knots,
+                         n_l)
+    if sfzh.device.type == "cpu":
+        return fused_window_photometry_grouped_reference(
+            sfzh, s, tau_v, scale, tables, win[:, 0], win[:, 1], sub,
+            w_cols, kc, delta, f8, order=order, fesc=fesc)
+    who = "fused_window_photometry_grouped"
+    _require(sfzh.device.type == "cuda",
+             f"tensors on {sfzh.device} are neither CPU nor CUDA", who)
+    _check_cuda_inputs(sfzh, s, tau_v, scale, sed, curve, knot, den,
+                       n_knots, delta, f8, order, who=who)
+    win = torch.as_tensor(win).to(sfzh.device, non_blocking=True)
+    return _launch_k1(sfzh, s, tau_v, scale, sed, curve, knot, den, win,
+                      w_cols, kc, delta, f8, order, fesc, sub)
 
 
 def fused_sed_photometry_reference(sfzh, s, tau_v, scale, tables: dict,
@@ -208,9 +321,34 @@ def fused_sed_photometry_reference(sfzh, s, tau_v, scale, tables: dict,
         fesc=fesc)
 
 
+def k2_row_order(s, n_knots: int, delta: int) -> torch.Tensor:
+    """(B,) int32 permutation of the rows, sorted (stably) by the first knot
+    row each galaxy reads, max(k − 1, 0) with k its clipped knot interval:
+    K2 visits rows in this order, so each block of `TILE_ROWS` consecutive
+    galaxies spans a narrow band of knots. One argsort on `s`'s device."""
+    c = torch.clamp(s, 0.0, (n_knots - 1) * delta - 1.0e-3) / delta
+    first = torch.clamp(torch.floor(c).to(torch.int32) - 1, min=0)
+    return torch.argsort(first, stable=True).to(torch.int32)
+
+
+def _check_rows(rows, b: int, device) -> None:
+    """A caller's row order: int32 (B,) contiguous on the batch's device
+    and a permutation of 0..B−1 (checked with one sort)."""
+    who = "fused_sed_photometry"
+    _require(torch.is_tensor(rows) and rows.dtype == torch.int32,
+             "rows must be an int32 tensor", who)
+    _require(rows.device == device and tuple(rows.shape) == (b,)
+             and rows.is_contiguous(),
+             f"rows must be a contiguous ({b},) tensor on {device}, got "
+             f"{tuple(rows.shape)} on {rows.device}", who)
+    _require(torch.equal(torch.sort(rows).values,
+                         torch.arange(b, dtype=torch.int32, device=device)),
+             "rows must be a permutation of the batch's rows", who)
+
+
 def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
                          delta: int, f8: int, order: int = 3,
-                         fesc: float = 0.0):
+                         fesc: float = 0.0, rows=None):
     """SED → (B, F8) band fluxes over the whole λ support and knot table,
     one kernel per call, for galaxies in any redshift order.
 
@@ -221,12 +359,16 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
             (1+z)·1e-6/(4π d19²).
         tables: `prepare_megakernel_tables` output: "sed" (C, L), "curve"
             (L,), "knot" (L, n_knots·F8) bfloat16, "den" (n_knots, F8).
+        rows: the order the kernel visits the rows in; None (the default)
+            computes `k2_row_order`. The output is in input order either way.
 
     CPU tensors go through `fused_sed_photometry_reference`. CUDA tensors
     launch the kernel (`csrc/fused_sed.cu`) on the current stream; inputs it
     does not take raise ValueError, a failed launch RuntimeError. Each
     launch adds one to `fused_sed_photometry.launches`.
     """
+    if rows is not None:
+        _check_rows(rows, sfzh.shape[0], sfzh.device)
     if sfzh.device.type == "cpu":
         return fused_sed_photometry_reference(
             sfzh, s, tau_v, scale, tables, n_knots, delta, f8, order=order,
@@ -238,27 +380,21 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
                                                  "den"))
     _check_cuda_inputs(sfzh, s, tau_v, scale, sed, curve, knot, den,
                        n_knots, delta, f8, order, who=who)
-    _require(n_knots >= FUSED_SED_MIN_KNOTS,
-             f"needs at least {FUSED_SED_MIN_KNOTS} knots, got {n_knots}",
-             who)
-    # the kernel loads knot columns in aligned bf16 pairs
-    _require(f8 % 2 == 0 and knot.stride(0) % 2 == 0
-             and knot.data_ptr() % 4 == 0,
-             "needs an even f8 and an even, 4-byte-aligned knot row", who)
+    if rows is None:
+        rows = k2_row_order(s, n_knots, delta)
     from ._cuda import load_library
 
     lib = load_library()
-    _require(lib.k2_smem_bytes(f8) <= _MAX_SMEM,
-             f"F8 = {f8} bands exceed the kernel's shared memory", who)
     b, c = sfzh.shape
+    a = _tile_major(sfzh, b, rows)
     out = torch.empty((b, f8), dtype=torch.float32, device=sfzh.device)
     stream = torch.cuda.current_stream(sfzh.device).cuda_stream
     err = lib.k2_fused_sed(
-        sfzh.data_ptr(), sfzh.stride(0), s.data_ptr(), tau_v.data_ptr(),
-        scale.data_ptr(), sed.data_ptr(), sed.stride(0), curve.data_ptr(),
-        knot.data_ptr(), knot.stride(0), den.data_ptr(), den.stride(0),
-        out.data_ptr(), b, c, sed.shape[1], n_knots, f8, delta, order,
-        float(fesc), stream)
+        a.data_ptr(), a.stride(0), rows.data_ptr(), s.data_ptr(),
+        tau_v.data_ptr(), scale.data_ptr(), sed.data_ptr(), sed.stride(0),
+        curve.data_ptr(), knot.data_ptr(), knot.stride(0), den.data_ptr(),
+        den.stride(0), out.data_ptr(), b, c, sed.shape[1], n_knots, f8,
+        delta, order, float(fesc), stream)
     if err:
         raise RuntimeError(
             f"K2 launch failed: {lib.k1_error_string(err).decode()}")

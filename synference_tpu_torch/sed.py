@@ -41,8 +41,8 @@ from .dust import attenuation_curve, greybody_emission
 from .filters import FilterSet
 from .grids import SPSGrid
 from .igm import igm_transmission
-from .ops.fused_sed import (FUSED_SED_MIN_KNOTS, fused_sed_photometry,
-                            fused_window_photometry, knot_product,
+from .ops.fused_sed import (fused_sed_photometry,
+                            fused_window_photometry_grouped, knot_product,
                             prepare_megakernel_tables, window_ratio)
 from .ops.photometry_kernel import (KNOT_INTERP_ORDER, N_SUB,
                                     build_den_table, build_knot_matrix_device,
@@ -629,12 +629,10 @@ class BatchSEDSimulator:
     def _mega_supported(self) -> bool:
         """Static gate for K2: the kernel route of the JAX megakernel's
         envelope (interp variant, order 1 or 3, a static fesc, one dust
-        screen, no dust emission, F8 ≤ 128) and the CUDA kernel's own limit
-        of at least 4 knots. Unlike the JAX package there is no λ-count
-        gate: that crossover was measured on a TPU."""
+        screen, no dust emission, F8 ≤ 128). Unlike the JAX package there
+        is no λ-count gate: that crossover was measured on a TPU."""
         return (self.photometry_backend == "pallas"
-                and self._window_mega_supported()
-                and self._n_knots >= FUSED_SED_MIN_KNOTS)
+                and self._window_mega_supported())
 
     def _photometry_mega(self, sfzh, z, tau_v):
         """(B, C) SFZH + (B,) z/τ_V -> (B, F) nJy through K2, one launch."""
@@ -702,21 +700,26 @@ class BatchSEDSimulator:
             0, self._l_sup - w_cols)
         return k0, l0
 
-    def _window_calls(self, theta, sub: int, w_cols: int, kc: int, k0, l0):
-        """Per sub-chunk of `theta` (n_sub·sub z-sorted rows on the device),
-        yield (row slice, λ-column slice, knot-column slice, K1 keyword
-        arguments); k0/l0 are the host-int window starts."""
+    def _window_inputs(self, theta):
+        """Per-row inputs of the fused window body for z-sorted θ: (sfzh,
+        absolute shift s, τ_V, observed-frame scale, static fesc)."""
         em = self.emission
-        delta, f8 = self._knot_delta, self._f8
-        tables = self._mega_tables
         params = self.theta_dict(theta)
         sfzh, _ = self._sfzh(params)
         z = self._param(params, "redshift", 0.0)
         tau_v = (params[em.tau_v_param] if em.tau_v_param is not None
                  else torch.zeros_like(z))
-        s_abs = self._shift_of_z(z)
-        scale = self._scale_of_z(z)
         fesc = 0.0 if em.reprocessed_types else float(em.fesc)
+        return sfzh, self._shift_of_z(z), tau_v, self._scale_of_z(z), fesc
+
+    def _window_calls(self, theta, sub: int, w_cols: int, kc: int, k0, l0):
+        """Per sub-chunk of `theta` (n_sub·sub z-sorted rows on the device),
+        yield (row slice, λ-column slice, knot-column slice, keyword
+        arguments of `fused_window_photometry`, the one-sub-chunk K1);
+        k0/l0 are the host-int window starts."""
+        delta, f8 = self._knot_delta, self._f8
+        tables = self._mega_tables
+        sfzh, s_abs, tau_v, scale, fesc = self._window_inputs(theta)
         for i, (k, l) in enumerate(zip(k0, l0)):
             r = slice(i * sub, (i + 1) * sub)
             cols = slice(l, l + w_cols)
@@ -729,33 +732,45 @@ class BatchSEDSimulator:
                 den_w=tables["den"][k:k + kc], kc=kc, delta=delta,
                 f8=f8, order=self._interp_order, fesc=fesc)
 
+    def _window_grouped_args(self, theta, sub: int, w_cols: int, kc: int,
+                             k0, l0) -> dict:
+        """Keyword arguments of `fused_window_photometry_grouped` for every
+        sub-chunk of `theta` at once (K1, one launch)."""
+        sfzh, s_abs, tau_v, scale, fesc = self._window_inputs(theta)
+        return dict(sfzh=sfzh, s=s_abs, tau_v=tau_v, scale=scale,
+                    tables=self._mega_tables, k0=k0, l0=l0, sub=sub,
+                    w_cols=w_cols, kc=kc, delta=self._knot_delta,
+                    f8=self._f8, order=self._interp_order, fesc=fesc)
+
     def _zsorted_run_raw(self, theta, sub: int, w_cols: int, kc: int, k0,
                          l0, fused: bool = False):
         """Run a window body over every sub-chunk -> (n_sub·sub, F).
 
-        `fused=True` launches K1 per sub-chunk; `fused=False` runs the staged
-        body: the two products and `_knot_interp` in plain torch, with dλ/λ
-        applied after the dust screen as in the JAX package's staged body.
+        `fused=True` launches K1 once for all sub-chunks; `fused=False` runs
+        the staged body per sub-chunk: the two products and `_knot_interp`
+        in plain torch, with dλ/λ applied after the dust screen as in the
+        JAX package's staged body.
         """
+        if fused:
+            out = fused_window_photometry_grouped(
+                **self._window_grouped_args(theta, sub, w_cols, kc, k0, l0))
+            return out[:, :len(self.filters)]
         em = self.emission
         fesc = float(em.fesc)
         out = torch.empty(theta.shape[0], len(self.filters),
                           dtype=torch.float32, device=theta.device)
         for r, cols, knots, a in self._window_calls(theta, sub, w_cols, kc,
                                                     k0, l0):
-            if fused:
-                phot = fused_window_photometry(**a)
+            lnu = a["sfzh"] @ self._t_mix[:, cols]
+            att = torch.exp(-a["tau_v"][:, None] * a["curve_w"][None, :])
+            if em.reprocessed_types:  # the gate makes fesc 0 here
+                lnu = lnu * att
             else:
-                lnu = a["sfzh"] @ self._t_mix[:, cols]
-                att = torch.exp(-a["tau_v"][:, None] * a["curve_w"][None, :])
-                if em.reprocessed_types:  # the gate makes fesc 0 here
-                    lnu = lnu * att
-                else:
-                    lnu = lnu * (fesc + (1.0 - fesc) * att)
-                fw = lnu * self._wlam_sup[None, cols]
-                acc = knot_product(fw, self._m_igm[cols, knots])
-                phot = window_ratio(acc, a["den_w"], a["s_rel"], a["scale"],
-                                    kc, a["delta"], a["order"])
+                lnu = lnu * (fesc + (1.0 - fesc) * att)
+            fw = lnu * self._wlam_sup[None, cols]
+            acc = knot_product(fw, self._m_igm[cols, knots])
+            phot = window_ratio(acc, a["den_w"], a["s_rel"], a["scale"],
+                                kc, a["delta"], a["order"])
             out[r] = phot[:, :out.shape[1]]
         return out
 

@@ -25,6 +25,13 @@ whole λ support and is held to the same bound and power check, at batch
 sizes 1, 3, 13 and 777. K3 (exact-shift numerators) sums fp32 products of
 positive values in another order than its plain version: max relative
 difference < 1e-5.
+
+K1 and K2 share one core (`csrc/sed_tile.cuh`). K1's one launch over a
+batch of sub-chunks is held to the same bound with per-sub-chunk windows
+at unaligned columns, ragged tiles and B = 1, 3, 13; both kernels at 128
+bands; K2 for rows at one redshift, sorted, unsorted and spanning the
+whole knot table (several passes of knots), and on the headline's
+384 × 1006 table; and two runs of each give the same bits.
 """
 
 import numpy as np
@@ -215,6 +222,150 @@ def test_dense_photometry_launches_k2_once(cuda):
     assert k1.fused_sed_photometry.launches == before + 1
     assert out.shape == (2000, len(_CODES))
     assert bool(torch.isfinite(out).all()) and bool((out >= 0).all())
+
+
+def _tables(device, c, n_l, n_knots, f8, seed, col0=3):
+    """Random kernel tables on the card; "sed" rows start `col0` floats into
+    a wider buffer (unaligned for col0 % 4 != 0)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return dict(
+        sed=torch.rand(c, n_l + 8, generator=g, device=device)[
+            :, col0:col0 + n_l] * 1e20,
+        curve=torch.rand(n_l, generator=g, device=device),
+        knot=torch.rand(n_l, n_knots * f8, generator=g, device=device).to(
+            torch.bfloat16),
+        den=torch.rand(n_knots, f8, generator=g, device=device) + 1.0)
+
+
+def _rows(device, b, c, s, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return dict(sfzh=torch.rand(b, c, generator=g, device=device) * 1e9,
+                s=torch.as_tensor(s, dtype=torch.float32, device=device),
+                tau_v=torch.rand(b, generator=g, device=device),
+                scale=torch.rand(b, generator=g, device=device) + 0.5)
+
+
+def _grouped_args(device, b, sub, f8=8, seed=0):
+    """Grouped K1 over ceil(b/sub) sub-chunks, each with its own unaligned
+    window (k0, l0) and shifts inside it."""
+    c, n_l, n_knots, kc, w, delta = 45, 300, 12, 6, 131, 3
+    n_sub = -(-b // sub)
+    rng = np.random.default_rng(seed)
+    k0 = rng.integers(0, n_knots - kc + 1, n_sub)
+    l0 = rng.integers(0, n_l - w + 1, n_sub)
+    s = (np.repeat(k0, sub)[:b] * delta
+         + rng.uniform(0, (kc - 1) * delta, b))
+    return dict(**_rows(device, b, c, s, seed),
+                tables=_tables(device, c, n_l, n_knots, f8, seed), k0=k0,
+                l0=l0, sub=sub, w_cols=w, kc=kc, delta=delta, f8=f8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sub", [(1, 1), (3, 2), (13, 5), (700, 200)])
+@pytest.mark.parametrize("order", [1, 3])
+def test_grouped_k1_matches_plain(cuda, b, sub, order):
+    """One launch over every sub-chunk, per-sub-chunk windows at unaligned
+    columns, ragged last tiles and sub-chunks."""
+    a = _grouped_args(cuda, b, sub, seed=b)
+    assert np.any(a["l0"] % 4) or b < 13
+    before = k1.fused_window_photometry.launches
+    out = k1.fused_window_photometry_grouped(**a, order=order)
+    torch.cuda.synchronize()
+    assert k1.fused_window_photometry.launches == before + 1
+    _assert_close(out, k1.fused_window_photometry_grouped_reference(
+        **a, order=order))
+
+
+@pytest.mark.cuda
+def test_window_engine_launches_k1_once_per_batch(cuda):
+    """The fused window body is one K1 launch per batch, also with a
+    sub-chunk that is not a multiple of the 128-row tile."""
+    sim = _sim(cuda, 3)
+    theta = _sorted_theta(1536, seed=6)
+    before = k1.fused_window_photometry.launches
+    fused = sim.photometry_zsorted_device(theta, sub_chunk=96, fused=True)
+    torch.cuda.synchronize()
+    assert k1.fused_window_photometry.launches == before + 1
+    _assert_close(fused, sim.photometry_zsorted_device(theta, sub_chunk=96,
+                                                       fused=False))
+
+
+@pytest.mark.cuda
+def test_kernels_at_f8_128(cuda):
+    """128 bands: K1 (grouped) and K2 walk 16 band groups."""
+    a = _grouped_args(cuda, 300, 100, f8=128, seed=4)
+    out = k1.fused_window_photometry_grouped(**a)
+    torch.cuda.synchronize()
+    _assert_close(out, k1.fused_window_photometry_grouped_reference(**a))
+    n_knots, delta = 12, 3
+    tables = _tables(cuda, 45, 300, n_knots, 128, seed=5)
+    rng = np.random.default_rng(5)
+    r = _rows(cuda, 300, 45, rng.uniform(0, (n_knots - 1) * delta, 300), 5)
+    args = (r["sfzh"], r["s"], r["tau_v"], r["scale"], tables, n_knots,
+            delta, 128)
+    out = k1.fused_sed_photometry(*args)
+    torch.cuda.synchronize()
+    _assert_close(out, k1.fused_sed_photometry_reference(*args))
+
+
+def _spans(kind, b, n_knots, delta, rng):
+    top = (n_knots - 1) * delta
+    if kind == "single-z":
+        return np.full(b, 0.37 * top)
+    if kind == "sorted":
+        return np.sort(rng.uniform(0, top, b))
+    if kind == "unsorted":
+        return rng.uniform(0, top, b)
+    # whole-table: every block's galaxies reach from the first knot to the
+    # last (b = 13 fits one block)
+    return np.linspace(-1.0, top + 1.0, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b", [("single-z", 777), ("sorted", 777),
+                                    ("unsorted", 777), ("whole-table", 13),
+                                    ("whole-table", 3)])
+def test_k2_knot_spans(cuda, kind, b):
+    """K2 is right for every span of knots a block's rows can cover: one
+    pass of 8 knots or many."""
+    n_knots, delta, f8, c = 40, 3, 8, 45
+    rng = np.random.default_rng(b)
+    tables = _tables(cuda, c, 300, n_knots, f8, seed=b)
+    r = _rows(cuda, b, c, _spans(kind, b, n_knots, delta, rng), b)
+    args = (r["sfzh"], r["s"], r["tau_v"], r["scale"], tables, n_knots,
+            delta, f8)
+    out = k1.fused_sed_photometry(*args)
+    torch.cuda.synchronize()
+    _assert_close(out, k1.fused_sed_photometry_reference(*args))
+
+
+@pytest.mark.cuda
+def test_k2_headline_rows(cuda):
+    """The headline's table shape: 384 cells × 1006 columns (rows of 1006
+    floats, not 16-byte aligned), 162 knots of 8 bands."""
+    n_knots, delta, f8, c, n_l = 162, 4, 8, 384, 1006
+    g = torch.Generator(device=cuda).manual_seed(9)
+    tables = _tables(cuda, c, n_l, n_knots, f8, seed=9)
+    tables["sed"] = torch.rand(c, n_l, generator=g, device=cuda) * 1e20
+    rng = np.random.default_rng(9)
+    r = _rows(cuda, 1000, c, rng.uniform(0, 640, 1000), 9)
+    args = (r["sfzh"], r["s"], r["tau_v"], r["scale"], tables, n_knots,
+            delta, f8)
+    out = k1.fused_sed_photometry(*args)
+    torch.cuda.synchronize()
+    _assert_close(out, k1.fused_sed_photometry_reference(*args))
+
+
+@pytest.mark.cuda
+def test_kernels_bitwise_deterministic(cuda):
+    """No atomics and no split sums: two runs give the same bits."""
+    a = _grouped_args(cuda, 700, 200, seed=2)
+    assert torch.equal(k1.fused_window_photometry_grouped(**a),
+                       k1.fused_window_photometry_grouped(**a))
+    sim = _sim(cuda, 3)
+    args = _k2_args(sim, _unsorted_theta(2000, seed=3))
+    assert torch.equal(k1.fused_sed_photometry(*args),
+                       k1.fused_sed_photometry(*args))
 
 
 @pytest.mark.cuda

@@ -246,8 +246,8 @@ def test_backend_and_variant_selection():
 
 
 def test_mega_gate():
-    """K2's static gate: the JAX envelope, no λ-count gate, and the kernel's
-    4-knot minimum; nothing about a launch."""
+    """K2's static gate: the JAX envelope and no λ-count gate; nothing
+    about a launch."""
     xla = _sim(tt)
     pallas = _sim(tt, photometry_backend="pallas")
     assert not xla._mega_supported() and pallas._mega_supported()

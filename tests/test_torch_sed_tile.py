@@ -1,0 +1,227 @@
+"""The one-launch K1 and K2's row order, on the CPU.
+
+K1 covers a whole batch of z-sorted sub-chunks in one launch
+(`fused_window_photometry_grouped`), K2 visits the rows of a batch in the
+order of `k2_row_order`; both read their A operand from the tile-major copy
+`_tile_major`. The kernels run only on a card (`tests/test_torch_cuda.py`);
+here their plain versions, the helpers the CPU reaches and the wrappers'
+input checks are held to the per-sub-chunk plain K1 and the plain K2, on
+inputs made with numpy from a seed. Tolerances: exact where both sides run
+the same float32 operations on the same rows; the plain K2 on gathered rows
+against the plain K2 within 1e-6 relative (each output row depends on its
+own input row only; only the matrix library's blocking of the rows can
+differ).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import synference_tpu_torch as tt
+from synference_tpu_torch.ops import fused_sed as k1
+
+PNAMES = ("log10_mass", "redshift", "peak_age", "tau", "log10_metallicity",
+          "tau_v")
+_CODES = ["F090W", "F115W", "F150W", "F200W", "F277W", "F356W", "F444W"]
+_CENTERS = [9000., 11500., 15000., 20000., 27700., 35600., 44400.]
+_WIDTHS = [2000., 2600., 3300., 4600., 7000., 7800., 10200.]
+
+
+def _tables(rng, c, n_l, n_knots, f8):
+    return dict(
+        sed=torch.as_tensor(rng.uniform(0, 1e20, (c, n_l)), dtype=torch.float32),
+        curve=torch.as_tensor(rng.uniform(0, 1, n_l), dtype=torch.float32),
+        knot=torch.as_tensor(rng.uniform(0, 1, (n_l, n_knots * f8)),
+                             dtype=torch.float32).to(torch.bfloat16),
+        den=torch.as_tensor(rng.uniform(1, 2, (n_knots, f8)),
+                            dtype=torch.float32))
+
+
+def _rows(rng, b, c, s):
+    f32 = torch.float32
+    return dict(sfzh=torch.as_tensor(rng.uniform(0, 1e9, (b, c)), dtype=f32),
+                s=torch.as_tensor(s, dtype=f32),
+                tau_v=torch.as_tensor(rng.uniform(0, 2, b), dtype=f32),
+                scale=torch.as_tensor(rng.uniform(.5, 1.5, b), dtype=f32))
+
+
+def _grouped(seed=0, b=290, sub=100):
+    """Grouped K1 inputs: ceil(b/sub) sub-chunks (the last one short), each
+    with its own window at an unaligned column."""
+    c, n_l, n_knots, kc, w, delta, f8 = 45, 300, 12, 6, 131, 3, 8
+    rng = np.random.default_rng(seed)
+    n_sub = -(-b // sub)
+    k0 = np.array([0, 6, 3])[:n_sub]
+    l0 = np.array([1, 169, 83])[:n_sub]
+    s = np.repeat(k0, sub)[:b] * delta + rng.uniform(0, (kc - 1) * delta, b)
+    return dict(**_rows(rng, b, c, s), tables=_tables(rng, c, n_l, n_knots,
+                                                       f8),
+                k0=k0, l0=l0, sub=sub, w_cols=w, kc=kc, delta=delta, f8=f8)
+
+
+@pytest.mark.parametrize("order", [1, 3])
+def test_grouped_plain_equals_per_sub_chunk_loop(order):
+    """The grouped K1's plain path over sub-chunks with distinct, unaligned
+    windows, a sub-chunk of 100 rows (not a multiple of the 128-row tile)
+    and a short last one, equals `fused_window_photometry_reference` run
+    on each sub-chunk's own window."""
+    a = _grouped(seed=order)
+    assert len(set(a["l0"] % 4)) > 1 and a["sub"] % k1.TILE_ROWS
+    out = k1.fused_window_photometry_grouped(**a, order=order)
+    t, sub, kc, delta, f8 = a["tables"], a["sub"], a["kc"], a["delta"], 8
+    for i, (k, l) in enumerate(zip(a["k0"], a["l0"])):
+        r = slice(i * sub, (i + 1) * sub)
+        cols = slice(l, l + a["w_cols"])
+        ref = k1.fused_window_photometry_reference(
+            a["sfzh"][r], a["s"][r] - float(k * delta), a["tau_v"][r],
+            a["scale"][r], t["sed"][:, cols], t["curve"][cols],
+            t["knot"][cols, k * f8:(k + kc) * f8], t["den"][k:k + kc], kc,
+            delta, f8, order=order)
+        assert torch.equal(out[r], ref), i
+
+
+def _sim(order=3):
+    grid = tt.make_synthetic_grid(n_ages=16, n_mets=4, n_wav=1024)
+    filters = tt.FilterSet([tt.tophat_filter(c, ct, w) for c, ct, w in
+                            zip(_CODES, _CENTERS, _WIDTHS)])
+    return tt.BatchSEDSimulator(grid, filters, PNAMES,
+                                photometry_interp_order=order, device="cpu")
+
+
+def _sorted_theta(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return np.column_stack([
+        rng.uniform(7.5, 11, n), np.sort(rng.uniform(0.05, 8, n)),
+        rng.uniform(1e8, 1e9, n), rng.uniform(.1, 1.2, n),
+        rng.uniform(-3.9, -1.6, n), rng.uniform(0, 2, n),
+    ]).astype(np.float32)
+
+
+def test_window_engine_fused_body_is_one_grouped_call():
+    """`_zsorted_run_raw(fused=True)` is the grouped K1 over the batch: it
+    equals the one-sub-chunk K1 (plain) on each sub-chunk's window."""
+    sim = _sim()
+    theta, sub, kc, w_cols, k0, l0 = sim._plan_windows(
+        _sorted_theta(1000, seed=1), 96)
+    assert len(set(np.asarray(l0) % 4)) > 1
+    out = sim._zsorted_run_raw(theta, sub, w_cols, kc, k0, l0, fused=True)
+    for r, _, _, a in sim._window_calls(theta, sub, w_cols, kc, k0, l0):
+        ref = k1.fused_window_photometry_reference(**a)
+        assert torch.equal(out[r], ref[:, :len(_CODES)])
+
+
+def test_tile_major_layout():
+    """The kernels' A operand: sub-chunk i's rows in columns i·T.., T the
+    sub-chunk rounded up to 128 rows, zeros elsewhere; with a row order,
+    the gathered rows."""
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((290, 5)), dtype=torch.float32)
+    a = k1._tile_major(x, 100)
+    assert a.shape == (5, 3 * 128)
+    for i in range(3):
+        n = min(100, 290 - 100 * i)
+        assert torch.equal(a[:, i * 128:i * 128 + n],
+                           x[100 * i:100 * i + n].T)
+        assert not a[:, i * 128 + n:(i + 1) * 128].any()
+    rows = torch.as_tensor(rng.permutation(256), dtype=torch.int32)
+    x = x[:256]
+    assert torch.equal(k1._tile_major(x, 256, rows), x[rows.long()].T)
+
+
+def _first_knot(s, n_knots, delta):
+    c = np.clip(s, 0, (n_knots - 1) * delta - 1e-3) / delta
+    return np.maximum(np.floor(c).astype(int) - 1, 0)
+
+
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "single-z"])
+def test_k2_row_order(kind):
+    """A stable int32 permutation sorting rows by their first knot: at the
+    headline's 65536 rows over 162 knots each 128-row block spans at most
+    one first knot whatever the input order, so K2's blocks contract one
+    pass of knots each (a pass holds first knots 5 apart)."""
+    n_knots, delta, b = 162, 4, 65536
+    rng = np.random.default_rng(3)
+    s = rng.uniform(0, 641, b)
+    if kind == "sorted":
+        s = np.sort(s)
+    elif kind == "single-z":
+        s = np.full(b, 321.7)
+    order = k1.k2_row_order(torch.as_tensor(s, dtype=torch.float32),
+                            n_knots, delta)
+    assert order.dtype == torch.int32 and order.shape == (b,)
+    idx = order.numpy()
+    np.testing.assert_array_equal(np.sort(idx), np.arange(b))
+    first = _first_knot(s.astype(np.float32), n_knots, delta)[idx]
+    assert np.all(np.diff(first) >= 0)
+    span = np.ptp(first.reshape(-1, k1.TILE_ROWS), axis=1)
+    assert span.max() <= 1
+    if kind != "unsorted":  # stable: already-ordered rows keep their order
+        np.testing.assert_array_equal(idx, np.arange(b))
+
+
+def test_k2_gather_then_scatter_reproduces_reference():
+    """Running the plain K2 on the rows in K2's row order and scattering
+    the results back gives the plain K2 on the batch as it came."""
+    n_knots, delta, f8, c, b = 40, 3, 8, 45, 333
+    rng = np.random.default_rng(4)
+    tables = _tables(rng, c, 300, n_knots, f8)
+    r = _rows(rng, b, c, rng.uniform(0, (n_knots - 1) * delta, b))
+    order = k1.k2_row_order(r["s"], n_knots, delta).long()
+    ref = k1.fused_sed_photometry_reference(
+        r["sfzh"], r["s"], r["tau_v"], r["scale"], tables, n_knots, delta, f8)
+    got = torch.empty_like(ref)
+    got[order] = k1.fused_sed_photometry_reference(
+        r["sfzh"][order], r["s"][order], r["tau_v"][order],
+        r["scale"][order], tables, n_knots, delta, f8)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(k0=np.array([0, 6])), "window starts need shape"),
+    (dict(l0=np.array([1.0, 169.0, 83.0])), "must be integers"),
+    (dict(k0=np.array([0, 7, 3])), "knot starts must lie"),
+    (dict(l0=np.array([-1, 169, 83])), "column starts must lie"),
+    (dict(l0=np.array([1, 170, 83])), "column starts must lie"),
+    (dict(w_cols=301), "does not fit"),
+    (dict(sub=0), "sub >= 1"),
+])
+def test_grouped_wrapper_rejects_bad_window_starts(bad, match):
+    a = dict(_grouped(), **bad)
+    with pytest.raises(ValueError, match=match):
+        k1.fused_window_photometry_grouped(**a)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda b: torch.arange(b), "int32"),
+    (lambda b: torch.arange(b + 1, dtype=torch.int32), r"\(333,\)"),
+    (lambda b: torch.zeros(b, dtype=torch.int32), "permutation"),
+    (lambda b: torch.arange(2 * b, dtype=torch.int32)[::2], "contiguous"),
+])
+def test_k2_wrapper_rejects_bad_row_order(bad, match):
+    n_knots, delta, f8, c, b = 40, 3, 8, 45, 333
+    rng = np.random.default_rng(5)
+    tables = _tables(rng, c, 300, n_knots, f8)
+    r = _rows(rng, b, c, rng.uniform(0, 100, b))
+    with pytest.raises(ValueError, match=match):
+        k1.fused_sed_photometry(r["sfzh"], r["s"], r["tau_v"], r["scale"],
+                                tables, n_knots, delta, f8, rows=bad(b))
+    good = k1.k2_row_order(r["s"], n_knots, delta)
+    torch.testing.assert_close(
+        k1.fused_sed_photometry(r["sfzh"], r["s"], r["tau_v"], r["scale"],
+                                tables, n_knots, delta, f8, rows=good),
+        k1.fused_sed_photometry_reference(r["sfzh"], r["s"], r["tau_v"],
+                                          r["scale"], tables, n_knots, delta,
+                                          f8), rtol=0, atol=0)
+
+
+def test_cuda_input_checks_want_16_byte_knot_rows():
+    """The kernels copy the knot matrix in 16-byte groups of 8 bands: a
+    row stride that is not a multiple of 8 is refused before a launch."""
+    b, c, w, kc, f8 = 64, 48, 256, 8, 8
+    m = dict(device="meta")
+    knot = torch.empty(w, kc * f8 + 4, dtype=torch.bfloat16, **m)[:, :kc * f8]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k1._check_cuda_inputs(
+            torch.empty(b, c, **m), torch.empty(b, **m), torch.empty(b, **m),
+            torch.empty(b, **m), torch.empty(c, w, **m), torch.empty(w, **m),
+            knot, torch.empty(kc, f8, **m), kc, 2, f8, 3)

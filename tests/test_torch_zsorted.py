@@ -111,6 +111,22 @@ def test_parity_vs_jax_device_engine(sims, fused):
     assert np.quantile(rel, 0.99) < p99, np.quantile(rel, 0.99)
 
 
+def test_fused_parity_vs_jax_with_ragged_sub_chunks(sims):
+    """The fused body, one grouped K1 call per batch, with sub-chunks of 96
+    rows (not a multiple of the kernels' 128-row tile) and a padded last
+    one, against the JAX package's fused body at the same tolerance."""
+    jsim, tsim, _ = sims
+    theta = _sorted_theta(1000, seed=10)
+    _, _, kc, w_cols, _, _ = tsim._plan_windows(theta, 96)
+    assert kc < tsim._n_knots and w_cols < tsim._l_sup
+    port = tsim.photometry_zsorted_device(theta, sub_chunk=96, fused=True)
+    ref = jsim.photometry_zsorted_device(jnp.asarray(theta), sub_chunk=96,
+                                         fused=True)
+    rel = _rel(port, ref)
+    assert np.median(rel) < 2e-3, np.median(rel)
+    assert np.quantile(rel, 0.99) < 5e-3, np.quantile(rel, 0.99)
+
+
 def test_window_starts_match_host_plan(sims):
     """The port's device plan (kc, w_cols, k0 and l0 per sub-chunk) equals
     the JAX package's host plan (float64 knot intervals)."""
