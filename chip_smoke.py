@@ -28,8 +28,13 @@ unsorted θ):
 7. K2 at the north-star width: one unsorted batch, K2 and its plain
    version, and both routes' times (the card's crossover record);
 8. exact spectra: `simulate(θ, want_spectra=True)` with the "roll" and
-   "bank" variants launches K3; K3 against its plain version, roll equal to
-   bank, and 1024 rows of each route against an exact filter integral.
+   "bank" variants launches K3 once; the whole call's time; K3 against its
+   plain version at the headline batch, on row- and column-sliced views of
+   the flux, at 16 bands, on sorted rows and at a wide shape whose table
+   slab does not fit in shared memory (the north-star grid's 10⁴ columns);
+   its row keys against their plain version; two runs bitwise equal, and
+   each row's bits independent of the rest of the batch; roll equal to
+   bank; 1024 rows of each route against an exact filter integral.
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
@@ -70,6 +75,7 @@ TOL_STAGED_P99, TOL_STAGED_MAX = 1e-5, 1e-3
 HEADLINE_BATCH = 65536
 HEADLINE_CENTERS = [9000., 11500., 15000., 20000., 27700., 35600., 44400.]
 HEADLINE_WIDTHS = [2000., 2600., 3300., 4600., 7000., 7800., 10200.]
+WIDE_ROWS = 16384  # K3's wide shape: rows of the north-star grid's width
 # The exact routes against a float64 filter integral at the true shift, as
 # tests/test_pallas_kernel.py::test_matches_xla_path bounds them: |Δ| below
 # these fractions of the row's largest flux (1/8-column snapping for roll
@@ -480,12 +486,128 @@ def exact_reference(sim, fnu, z):
     return ref
 
 
-def exact_spectra(tt, pk, dev):
+def k3_bounds(fw, table) -> dict:
+    """K3's bound: the flux slab, the table, the shifts and the result
+    moved once, against 2·B·F8·L fp32 operations."""
+    b, n_l = fw.shape
+    f8 = table.shape[1]
+    return bound(flops_fp32=2.0 * b * f8 * n_l, flops_bf16=0.0,
+                 nbytes=4 * (b * n_l + table.numel() + b + b * f8))
+
+
+def k3_vs_plain(pk, fw, table, s4, n_f: int, name: str, reps: int = 0):
+    """K3 against its plain version on one batch (max relative difference
+    < TOL_KERNEL_MAX on fluxes above 1e-3 of the row maximum); with `reps`,
+    both times (the kernel's with its key kernel and sort) and the bound."""
+    out = pk.shift_photometry_num(fw, table, s4)
+    torch.cuda.synchronize()
+    ref = pk.shift_photometry_num_reference(fw, table, s4)
+    med, p99, mx, abs_err = rel_stats(out[:, :n_f], ref[:, :n_f])
+    log(f"[exact] K3 vs plain, {name} (B={fw.shape[0]} L={fw.shape[1]} "
+        f"F8={table.shape[1]} table cols={table.shape[2]}, row stride "
+        f"{fw.stride(0)}, base % 16 = {fw.data_ptr() % 16}): rel "
+        f"median={med:.3e} p99={p99:.3e} max={mx:.3e} (tol "
+        f"max<{TOL_KERNEL_MAX}); max abs err={abs_err:.4e}")
+    check(mx < TOL_KERNEL_MAX,
+          f"K3 disagrees with its plain version ({name})")
+    stats = {"max_abs_err": abs_err, "out": out}
+    if reps:
+        stats["ms"] = time_ms(lambda: pk.shift_photometry_num(fw, table, s4),
+                              reps=reps)
+        order_ms = time_ms(lambda: pk.shift_row_order(
+            s4, fw.shape[1], table.shape[2]), reps=reps)
+        stats["plain_ms"] = time_ms(
+            lambda: pk.shift_photometry_num_reference(fw, table, s4), reps=5)
+        stats.update(k3_bounds(fw, table))
+        stats["first_product_ms"] = None  # K3 has no first product
+        log(f"[exact] K3, {name}: {stats['ms']:.4f} ms per batch, of which "
+            f"the row keys and their sort {order_ms:.4f} ms; plain "
+            f"{stats['plain_ms']:.4f} ms (CUDA events); bound "
+            f"{stats['bound_ms']:.4f} ms ({stats['bound_by']}), share "
+            f"{stats['bound_ms'] / stats['ms']:.3f}")
+    return stats
+
+
+def k3_properties(pk, fw, table, s4, n_f: int) -> None:
+    """K3 beyond the headline call: views of the flux, 16 bands, sorted
+    rows, the row keys, and the bits of two runs and of a row alone."""
+    out = pk.shift_photometry_num(fw, table, s4)
+    check(torch.equal(out, pk.shift_photometry_num(fw, table, s4)),
+          "two K3 runs differ")
+    n_l, n_cols = fw.shape[1], table.shape[2]
+    n_m = n_cols - n_l + 1
+    check(torch.equal(pk._shift_row_keys(s4, n_m),
+                      pk.shift_row_keys_reference(s4, n_m)),
+          "K3's row keys differ from their plain version")
+    # already sorted rows: the same rows give the same bits in any order
+    order, _ = pk.shift_row_order(s4, n_l, n_cols)
+    sub = order[::8].contiguous()  # 8192 rows in shift order
+    got = k3_vs_plain(pk, fw[sub], table, s4[sub], n_f, "sorted rows")["out"]
+    check(torch.equal(got, out[sub]),
+          "a K3 row's bits depend on the rest of the batch")
+    # a row-sliced view (16-byte copies, row stride 2·L) and a column-sliced
+    # one (rows not 16-byte aligned: the 4-byte copies)
+    rows = slice(0, 16384, 2)
+    got = k3_vs_plain(pk, fw[rows], table, s4[rows].contiguous(), n_f,
+                      "row-sliced view")["out"]
+    check(torch.equal(got, out[rows]), "K3 differs on a row-sliced view")
+    cols = fw[:8192, 1:n_l - 3]  # L − 4 columns from byte 4 of each row
+    got = k3_vs_plain(pk, cols, table, s4[:8192], n_f,
+                      "column-sliced view")["out"]
+    check(torch.equal(got, pk.shift_photometry_num(cols.contiguous(), table,
+                                                   s4[:8192])),
+          "K3's 4-byte and 16-byte copies give different bits")
+    table16 = torch.cat([table, table.flip(1)], dim=1).contiguous()
+    got = k3_vs_plain(pk, fw[:8192], table16, s4[:8192], 16,
+                      "16 bands")["out"]
+    check(torch.equal(got[:, :8], out[:8192]),
+          "K3's first band group differs at 16 bands")
+    # what a later kernel could skip: flux columns that meet only table
+    # columns where every band is zero
+    nz = (table != 0).any(dim=1)  # (N_SUB, table columns)
+    cols = torch.arange(n_cols, device=table.device)
+    lo = torch.where(nz, cols, n_cols).min(dim=1).values
+    hi = torch.where(nz, cols + 1, 0).max(dim=1).values
+    m, rs = pk._shift_parts(s4, n_l, n_cols)
+    met = (torch.clamp(hi[rs] - m, max=n_l)
+           - torch.clamp(lo[rs] - m, min=0)).clamp(min=0)
+    log(f"[exact] the table's nonzero columns span [{int(lo.min())}, "
+        f"{int(hi.max())}) of {n_cols}; {float(met.sum()) / s4.numel() / n_l:.4f}"
+        f" of this batch's flux columns meet one (K3 reads them all, as its "
+        f"plain version does)")
+    log("[exact] K3: two runs bitwise equal; row keys equal their plain "
+        "version; sorted, row-sliced, column-sliced and 16-band runs give "
+        "each row the same bits")
+
+
+def k3_wide(pk, sim, dev) -> None:
+    """K3 at the north-star grid's width: an rs slab of the table (L +
+    max_shift columns of 8 bands) does not fit in a block's shared memory,
+    so the kernel stages column bands. Seeded flux, shifts from the
+    north-star prior's redshift range."""
+    n_l = sim.grid.n_wav
+    table = pk.build_subshift_table(sim.filters, sim.grid.lam,
+                                    sim._filter_dlog, sim._max_shift, n_l,
+                                    dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    fw = torch.rand(WIDE_ROWS, n_l, generator=g, device=dev)
+    lo, hi = PRIOR["redshift"]
+    z = lo + (hi - lo) * torch.rand(WIDE_ROWS, generator=g, device=dev)
+    s4 = pk.shift_decompose(sim._shift_of_z(z), sim._max_shift)
+    check(table.shape[2] * 32 > 227 * 1024, "the wide slab fits after all")
+    st = k3_vs_plain(pk, fw, table, s4, len(sim.filters), "wide shape",
+                     reps=10)
+    check(torch.equal(st["out"], pk.shift_photometry_num(fw, table, s4)),
+          "two K3 runs differ (wide shape)")
+    log("[exact] K3 wide shape: two runs bitwise equal")
+
+
+def exact_spectra(tt, pk, dev, north_star_sim):
     """Phase 8: the exact routes through K3, with spectra."""
     theta = headline_theta(dev, seed=1)
-    outs, stats = {}, {}
+    outs, stats, sims = {}, {}, {}
     for variant in ("roll", "bank"):
-        sim = headline_model(tt, dev, variant)
+        sim = sims[variant] = headline_model(tt, dev, variant)
         sim.simulate(theta[:256], want_spectra=True)  # warm-up, not counted
         torch.cuda.synchronize()
         pk.shift_photometry_num.launches = 0
@@ -505,6 +627,8 @@ def exact_spectra(tt, pk, dev):
     check(all(torch.equal(outs["roll"][k], outs["bank"][k])
               for k in outs["roll"]), "roll and bank outputs differ")
     log("[exact] roll and bank outputs are identical")
+    sim = sims["roll"]
+    whole_ms = time_ms(lambda: sim.simulate(theta, want_spectra=True), reps=5)
     # K3 on the run's own inputs
     res = outs["roll"]
     z = theta[:, PNAMES.index("redshift")]
@@ -512,27 +636,13 @@ def exact_spectra(tt, pk, dev):
     s4 = pk.shift_decompose(sim._shift_of_z(z), sim._max_shift)
     table = sim._subshift_table
     n_f = len(sim.filters)
-    out = pk.shift_photometry_num(fw, table, s4)
-    torch.cuda.synchronize()
-    ref = pk.shift_photometry_num_reference(fw, table, s4)
-    med, p99, mx, abs_err = rel_stats(out[:, :n_f], ref[:, :n_f])
-    log(f"[exact] K3 vs plain (B={fw.shape[0]} L={fw.shape[1]} "
-        f"F8={table.shape[1]} table cols={table.shape[2]}): rel "
-        f"median={med:.3e} p99={p99:.3e} max={mx:.3e} (tol "
-        f"max<{TOL_KERNEL_MAX}); max abs err={abs_err:.4e}")
-    check(mx < TOL_KERNEL_MAX, "K3 disagrees with its plain version")
-    stats["max_abs_err"] = abs_err
-    stats["ms"] = time_ms(lambda: pk.shift_photometry_num(fw, table, s4))
-    stats["plain_ms"] = time_ms(
-        lambda: pk.shift_photometry_num_reference(fw, table, s4), reps=5)
-    b, n_l = fw.shape
-    f8, n_cols = table.shape[1], table.shape[2]
-    stats.update(bound(flops_fp32=2.0 * b * f8 * n_l, flops_bf16=0.0,
-                       nbytes=4 * (b * n_l + table.numel() + b + b * f8)))
-    stats["first_product_ms"] = None  # K3 has no first product
-    log(f"[exact] K3 {stats['ms']:.4f} ms, plain {stats['plain_ms']:.4f} ms "
-        f"per batch (CUDA events); bound {stats['bound_ms']:.4f} ms "
-        f"({stats['bound_by']})")
+    stats.update(k3_vs_plain(pk, fw, table, s4, n_f, "headline batch",
+                             reps=20))
+    log(f"[exact] simulate({theta.shape[0]}, want_spectra=True), variant "
+        f"roll: {whole_ms:.4f} ms per call (CUDA events), of which K3 with "
+        f"its row order {stats['ms']:.4f} ms = {stats['ms'] / whole_ms:.3f}")
+    k3_properties(pk, fw, table, s4, n_f)
+    k3_wide(pk, north_star_sim, dev)
     # 1024 rows of each route against the float64 filter integral
     sim_x = headline_model(tt, dev, "auto", backend="xla")
     rows = slice(0, 1024)
@@ -587,7 +697,7 @@ def main() -> None:
     features(tt, lib, dev)
     k2_stats = dense_photometry(tt, k1, dev)
     k2_north_star(k1, sim, gen, dev)
-    k3_stats = exact_spectra(tt, pk, dev)
+    k3_stats = exact_spectra(tt, pk, dev, sim)
 
     rows = []
     for name, source, replaces, st in (

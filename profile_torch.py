@@ -15,7 +15,10 @@ Builds `chip_smoke.py`'s north-star model on the card and prints:
    kernel, and the device busy share, Σ device self time over the untraced
    wall time of the same run (one stream, so kernels do not overlap);
 5. the same trace of the dense `photometry(θ)` on 65536 unsorted rows of
-   `chip_smoke.py`'s headline model (K2 and what surrounds it).
+   `chip_smoke.py`'s headline model (K2 and what surrounds it);
+6. the same trace of 10 `simulate(θ, want_spectra=True)` calls on the
+   headline model's "roll" variant (K3, its row keys and sort, and the
+   (B, L) slab passes around it).
 
 Run from the repository root on a machine with a card:
 
@@ -141,6 +144,11 @@ def main() -> None:
     device_profile(lambda: dense.photometry(theta),
                    f"headline photometry({theta.shape[0]} unsorted rows)",
                    reps=10)
+    del dense
+    roll = smoke.headline_model(tt, dev, "roll")
+    device_profile(lambda: roll.simulate(theta, want_spectra=True),
+                   f"headline simulate({theta.shape[0]} unsorted rows, "
+                   f"want_spectra=True), variant roll", reps=10)
 
 
 if __name__ == "__main__":

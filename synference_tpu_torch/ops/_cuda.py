@@ -92,7 +92,10 @@ def load_library() -> ctypes.CDLL:
         p, i64, p, p, p, p, p, i64, p, p, i64, p, i64, p,
         i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, p]
     lib.k2_fused_sed.restype = i32
-    lib.k3_shift_num.argtypes = [p, i64, p, p, p, i32, i32, i32, i32, p]
+    lib.k3_shift_num.argtypes = [p, i64, p, p, i32, p, p, i32, i32, i32, i32,
+                                 i32, i32, p]
+    lib.k3_shift_keys.argtypes = [p, p, i32, i32, i32, p]
+    lib.k3_shift_keys.restype = i32
     lib.k3_shift_num.restype = i32
     lib.k1_error_string.argtypes = [i32]
     lib.k1_error_string.restype = ctypes.c_char_p

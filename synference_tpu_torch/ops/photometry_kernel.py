@@ -14,11 +14,15 @@ so the filter-edge staircase cancels in num/den.
 The exact route (`roll`/`bank`) snaps each shift to 1/8 column, s4 = 8m + rs
 (`shift_decompose`), and sums the flux row against the sub-column table row
 rs read at offset m (`build_subshift_table`): K3, `shift_photometry_num`
-(`csrc/shift_num.cu`), one kernel for both variant names. The table-free
+(`csrc/shift_num.cu`), one kernel for both variant names. It visits the rows
+in shift order (`shift_row_order`) and reads the table from its
+band-adjacent copy (`band_adjacent_table`). The table-free
 `conv` engine is not ported yet (ROADMAP M9).
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -31,8 +35,13 @@ __all__ = [
     "build_den_table",
     "build_subshift_table",
     "shift_decompose",
+    "shift_row_order",
+    "shift_row_keys_reference",
+    "band_adjacent_table",
+    "band_adjacent_table_inverse",
     "shift_photometry_num",
     "shift_photometry_num_reference",
+    "shift_photometry_num_ordered_reference",
 ]
 
 N_SUB = 8  # sub-column shift resolution of the den table (1/8 column)
@@ -145,6 +154,111 @@ def shift_photometry_num_reference(fw, table, s4, rows: int = 1024):
     return out
 
 
+def shift_row_keys_reference(s4, n_m: int):
+    """Plain PyTorch row keys (same arguments as `_shift_row_keys`)."""
+    s = torch.clamp(s4.to(torch.int32), min=0)
+    key = torch.add(torch.clamp(s // N_SUB, max=n_m - 1), s % N_SUB,
+                    alpha=n_m)
+    return key.to(_key_dtype(n_m))
+
+
+def _key_dtype(n_m: int):
+    """int16 where every key rs·n_m + m fits (the sort then makes half the
+    radix passes), else int32."""
+    return torch.int16 if N_SUB * n_m <= 32767 else torch.int32
+
+
+def _shift_row_keys(s4, n_m: int):
+    """(B,) keys rs·n_m + min(m, n_m − 1) of the snapped shifts s4 = 8m + rs
+    (negative s4 count as 0): the plain version on a CPU tensor, one small
+    kernel of `csrc/shift_num.cu` on a CUDA tensor."""
+    if s4.device.type != "cuda":
+        return shift_row_keys_reference(s4, n_m)
+    if s4.dtype != torch.int32 or s4.ndim != 1 or not s4.is_contiguous():
+        raise ValueError("shift_row_order: s4 must be a contiguous (B,) "
+                         "int32 tensor")
+    from ._cuda import load_library
+
+    lib = load_library()
+    keys = torch.empty(s4.shape, dtype=_key_dtype(n_m), device=s4.device)
+    err = lib.k3_shift_keys(s4.data_ptr(), keys.data_ptr(), s4.shape[0], n_m,
+                            keys.element_size(),
+                            torch.cuda.current_stream(s4.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"K3 key launch failed: {lib.k1_error_string(err).decode()}")
+    return keys
+
+
+def shift_row_order(s4, n_l: int, n_cols: int):
+    """(order, keys) of K3's row visit, for contiguous int32 `s4` (B,):
+    `keys` (B,) are the rows' keys rs·n_m + m in ascending order, n_m =
+    n_cols − L + 1 the number of integer shifts and m clipped as
+    `_shift_parts` clips it; `order` (B,) int64 is the stable permutation
+    that sorts them (`keys[g]` belongs to row `order[g]`). Consecutive rows
+    then share one table row rs and neighbouring m. One sort on `s4`'s
+    device, no host readback."""
+    keys, order = torch.sort(_shift_row_keys(s4, n_cols - n_l + 1),
+                             stable=True)
+    return order, keys
+
+
+def band_adjacent_table(table):
+    """(N_SUB, F8, n_cols) sub-column table -> (N_SUB, F8/4, ncp, 4), the
+    layout K3 stages: the 8 bands of a column are two adjacent groups of
+    4 (one 16-byte read each), ncp = n_cols rounded up to 32 with zeros in
+    the padding columns."""
+    n_sub, f8, n_cols = table.shape
+    ncp = -(-n_cols // 32) * 32
+    padded = torch.nn.functional.pad(table, (0, ncp - n_cols))
+    return (padded.reshape(n_sub, f8 // 4, 4, ncp).permute(0, 1, 3, 2)
+            .contiguous())
+
+
+def band_adjacent_table_inverse(laid, n_cols: int):
+    """The (N_SUB, F8, n_cols) table that `band_adjacent_table` laid out."""
+    n_sub, quads, ncp, _ = laid.shape
+    return (laid.permute(0, 1, 3, 2).reshape(n_sub, quads * 4, ncp)
+            [:, :, :n_cols].contiguous())
+
+
+_LAID = {}  # id(table) -> (weakref, version, band-adjacent copy)
+
+
+def _laid_table(table):
+    """`band_adjacent_table(table)`, made once per table: cached on the
+    tensor's identity and version counter, dropped with the tensor."""
+    key = id(table)
+    hit = _LAID.get(key)
+    if hit is not None and hit[0]() is table and hit[1] == table._version:
+        return hit[2]
+    ref = weakref.ref(table, lambda _, key=key: _LAID.pop(key, None))
+    _LAID[key] = (ref, table._version, band_adjacent_table(table))
+    return _LAID[key][2]
+
+
+def shift_photometry_num_ordered_reference(fw, table, s4, rows: int = 1024):
+    """Plain PyTorch K3 along the kernel's data path: rows visited in
+    `shift_row_order`, each shift decoded from its sorted key, the band
+    values read from the band-adjacent table, results written to
+    out[order[g]]. Same arguments and result as
+    `shift_photometry_num_reference`."""
+    b, n_l = fw.shape
+    _, f8, n_cols = table.shape
+    order, keys = shift_row_order(s4, n_l, n_cols)
+    n_m = n_cols - n_l + 1
+    rs, m = keys.long() // n_m, keys.long() % n_m
+    laid = band_adjacent_table(table)
+    cols = torch.arange(n_l, device=fw.device)
+    out = torch.empty(b, f8, dtype=torch.float32, device=fw.device)
+    for i in range(0, b, rows):
+        r = slice(i, i + rows)
+        # (rows, L, F8/4, 4): band f = 4·quad + position
+        t = laid[rs[r, None], :, m[r, None] + cols].reshape(-1, n_l, f8)
+        out[order[r]] = (t * fw[order[r], :, None]).sum(dim=1)
+    return out
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"shift_photometry_num: {msg}")
@@ -155,17 +269,23 @@ def shift_photometry_num(fw, table, s4):
     each galaxy's snapped shift s4 = 8m + rs, one kernel per call.
 
     Args:
-        fw: (B, L) flux × dλ/λ, float32, unit column stride.
+        fw: (B, L) flux × dλ/λ, float32, unit column stride; a row or
+            column slice of a larger slab is fine.
         table: (N_SUB, F8, L + max_shift) float32 from `build_subshift_table`.
         s4: (B,) int32 from `shift_decompose`.
     Returns:
-        (B, F8) float32 numerators.
+        (B, F8) float32 numerators, rows in the caller's order.
 
     CPU tensors go through `shift_photometry_num_reference`. CUDA tensors
-    launch the kernel (`csrc/shift_num.cu`) on the current stream, which
-    clips m to the table's reach as the plain version does; inputs it does
-    not take raise ValueError, a failed launch RuntimeError. Each launch
-    adds one to `shift_photometry_num.launches`.
+    launch the kernel (`csrc/shift_num.cu`) on the current stream: the rows
+    are visited in `shift_row_order` (one sort per call), the table goes in
+    as its band-adjacent copy (made once per table), and m is clipped to
+    the table's reach as the plain version clips it. Flux rows that start
+    16-byte aligned are streamed in 16-byte copies, others in 4-byte copies
+    by the same kernel; a row's result is the same bits either way, and
+    whatever the other rows of the batch are. Inputs the kernel does not
+    take raise ValueError, a failed launch RuntimeError. Each launch adds
+    one to `shift_photometry_num.launches`.
     """
     if fw.device.type == "cpu":
         return shift_photometry_num_reference(fw, table, s4)
@@ -191,11 +311,15 @@ def shift_photometry_num(fw, table, s4):
     from ._cuda import load_library
 
     lib = load_library()
+    order, keys = shift_row_order(s4, n_l, n_cols)
+    laid = _laid_table(table)
+    aligned = fw.data_ptr() % 16 == 0 and (b == 1 or fw.stride(0) % 4 == 0)
     out = torch.empty((b, f8), dtype=torch.float32, device=fw.device)
     stream = torch.cuda.current_stream(fw.device).cuda_stream
-    err = lib.k3_shift_num(fw.data_ptr(), fw.stride(0), table.data_ptr(),
-                           s4.data_ptr(), out.data_ptr(), b, n_l, f8, n_cols,
-                           stream)
+    err = lib.k3_shift_num(fw.data_ptr(), fw.stride(0), laid.data_ptr(),
+                           keys.data_ptr(), keys.element_size(),
+                           order.data_ptr(), out.data_ptr(), b, n_l, f8,
+                           n_cols, laid.shape[2], 4 if aligned else 1, stream)
     if err:
         raise RuntimeError(
             f"K3 launch failed: {lib.k1_error_string(err).decode()}")

@@ -24,7 +24,12 @@ K2 (the dense path's full-table kernel) runs the same arithmetic over the
 whole λ support and is held to the same bound and power check, at batch
 sizes 1, 3, 13 and 777. K3 (exact-shift numerators) sums fp32 products of
 positive values in another order than its plain version: max relative
-difference < 1e-5.
+difference < 1e-5, at those batch sizes and at 16 and 128 bands, a flux
+length that ends inside a chunk, a table without shifts, one shift for every
+row, eight rows of eight table rows, row- and column-sliced flux views, a
+table slab wider than shared memory, and keys that need 32 bits. A K3 row's
+bits do not depend on the batch around it, and its row keys equal their
+plain version.
 
 K1 and K2 share one core (`csrc/sed_tile.cuh`). K1's one launch over a
 batch of sub-chunks is held to the same bound with per-sub-chunk windows
@@ -366,23 +371,89 @@ def test_kernels_bitwise_deterministic(cuda):
     args = _k2_args(sim, _unsorted_theta(2000, seed=3))
     assert torch.equal(k1.fused_sed_photometry(*args),
                        k1.fused_sed_photometry(*args))
+    for case in (777, "ragged-l", "wide-slab"):
+        k3 = _k3_case(cuda, case)
+        assert torch.equal(pk.shift_photometry_num(*k3),
+                           pk.shift_photometry_num(*k3))
+
+
+def _k3_case(device, case):
+    """(fw, table, s4) of a K3 case: an int is a batch of the simulator's
+    own flux rows, a name a synthetic shape."""
+    if isinstance(case, int):
+        sim = _sim(device, 3, variant="roll")
+        theta = _unsorted_theta(case, seed=case).to(device)
+        res = sim.simulate(theta, want_spectra=True)
+        s4 = pk.shift_decompose(sim._shift_of_z(theta[:, 1]), sim._max_shift)
+        return res["fnu_njy"] * sim._wlam, sim._subshift_table, s4
+    # b, L, table columns, F8; L = 1003 and 515 end inside a flux chunk
+    b, n_l, n_cols, f8 = {
+        "f8-16": (777, 1000, 1300, 16), "f8-128": (300, 515, 700, 128),
+        "ragged-l": (1000, 1003, 1400, 8), "no-shift": (500, 512, 512, 8),
+        "one-s4": (2000, 1024, 1324, 8), "each-rs": (8, 1024, 1324, 8),
+        "row-slice": (777, 1024, 1324, 8), "col-slice": (777, 1020, 1324, 8),
+        "wide-slab": (300, 10000, 13000, 8), "int32-keys": (900, 600, 5600, 8),
+    }[case]
+    g = torch.Generator(device=device).manual_seed(len(case))
+    fw = torch.rand(2 * b, n_l + 4, generator=g, device=device)
+    table = torch.rand(pk.N_SUB, f8, n_cols, generator=g, device=device)
+    s4 = torch.randint(0, pk.N_SUB * (n_cols - n_l) + 8, (b,), generator=g,
+                       device=device, dtype=torch.int32)
+    if case == "one-s4":
+        s4 = torch.full_like(s4, 1001)
+    if case == "each-rs":
+        s4 = 800 + torch.arange(8, dtype=torch.int32, device=device)
+    if case == "row-slice":  # every other row: 16-byte copies, wider stride
+        return fw[::2, :n_l], table, s4
+    if case == "col-slice":  # rows start 4 bytes off: the 4-byte copies
+        return fw[:b, 1:n_l + 1], table, s4
+    return fw[:b, :n_l].contiguous(), table, s4
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 3, 13, 777])
-def test_k3_matches_plain(cuda, b):
-    sim = _sim(cuda, 3, variant="roll")
-    theta = _unsorted_theta(b, seed=b).to(cuda)
-    res = sim.simulate(theta, want_spectra=True)
-    fw = res["fnu_njy"] * sim._wlam
-    s4 = pk.shift_decompose(sim._shift_of_z(theta[:, 1]), sim._max_shift)
+@pytest.mark.parametrize("case", [
+    1, 3, 13, 777, "f8-16", "f8-128", "ragged-l", "no-shift", "one-s4",
+    "each-rs", "row-slice", "col-slice", "wide-slab", "int32-keys"])
+def test_k3_matches_plain(cuda, case):
+    fw, table, s4 = _k3_case(cuda, case)
     before = pk.shift_photometry_num.launches
-    out = pk.shift_photometry_num(fw, sim._subshift_table, s4)
+    out = pk.shift_photometry_num(fw, table, s4)
     torch.cuda.synchronize()
     assert pk.shift_photometry_num.launches == before + 1
-    ref = pk.shift_photometry_num_reference(fw, sim._subshift_table, s4)
-    n_f = len(_CODES)
+    ref = pk.shift_photometry_num_reference(fw, table, s4)
+    n_f = len(_CODES) if isinstance(case, int) else table.shape[1]
     assert _rel(out[:, :n_f], ref[:, :n_f]).max() < 1e-5
+    # a view and its contiguous copy (4-byte or 16-byte copies, any row
+    # stride) give the same bits
+    assert torch.equal(out, pk.shift_photometry_num(fw.contiguous(), table,
+                                                    s4))
+
+
+@pytest.mark.cuda
+def test_k3_rows_do_not_depend_on_the_batch(cuda):
+    """A row alone, in a sorted batch or in an unsorted one: the same bits,
+    in the caller's row order."""
+    fw, table, s4 = _k3_case(cuda, "ragged-l")
+    out = pk.shift_photometry_num(fw, table, s4)
+    perm = torch.argsort(s4.long(), stable=True)
+    assert torch.equal(pk.shift_photometry_num(fw[perm], table,
+                                               s4[perm].contiguous()),
+                       out[perm])
+    for b in (0, 499, 999):
+        assert torch.equal(pk.shift_photometry_num(
+            fw[b:b + 1], table, s4[b:b + 1]), out[b:b + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_m", [1, 301, 4095, 4096, 20000])
+def test_k3_row_keys_match_plain(cuda, n_m):
+    g = torch.Generator(device=cuda).manual_seed(n_m)
+    s4 = torch.randint(-40, pk.N_SUB * n_m + 400, (5000,), generator=g,
+                       device=cuda, dtype=torch.int32)
+    keys = pk._shift_row_keys(s4, n_m)
+    ref = pk.shift_row_keys_reference(s4, n_m)
+    assert keys.dtype == ref.dtype and torch.equal(keys, ref)
+    assert torch.equal(pk.shift_row_keys_reference(s4.cpu(), n_m), ref.cpu())
 
 
 @pytest.mark.cuda
