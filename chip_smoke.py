@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Card smoke test of the PyTorch/CUDA port (`synference_tpu_torch`).
 
-Drives the port's two paths once on one NVIDIA card. The mock-library path
-runs at the north-star width (64 ages × 12 metallicities × 10⁴ λ grid, 7
+Drives the port's paths once on one NVIDIA card. The mock-library path and
+the NPE path on top of it (features, NSF ensemble training, posterior
+sampling, calibration metrics, a saved model) run at the north-star width (64 ages × 12 metallicities × 10⁴ λ grid, 7
 NIRCam bands, lognormal SFH, delta-Z, Calzetti screen, Inoue14 IGM); the
 dense simulator path at `bench.py`'s headline width (48 ages × 8
 metallicities × 2048 λ from 300 Å, 7 tophat bands, the same physics, 65536
@@ -34,7 +35,22 @@ unsorted θ):
    slab does not fit in shared memory (the north-star grid's 10⁴ columns);
    its row keys against their plain version; two runs bitwise equal, and
    each row's bits independent of the rest of the batch; roll equal to
-   bank; 1024 rows of each route against an exact filter integral.
+   bank; 1024 rows of each route against an exact filter integral;
+9. train: `SBIFitter.run_single_sbi("nsf", hidden_features=69,
+   num_transforms=15, n_nets=8)` for 3 epochs at batch 2048 on every fourth
+   row of the phase-4 library (2^18 rows; depth is cut, width is not),
+   fp32 with TF32 off: every loss finite, each member's training loss and
+   the ensemble's mean validation loss falling, the members different, and no call inside an epoch that waits
+   for the card (the trainer runs its epochs under the sync debug mode
+   "error"; a loss that reads a value back must raise there). Prints ms
+   per step and steps/s from the clock of the per-epoch callback;
+10. posterior: `evaluate_model(256, max_objects=512)` and
+   `evaluate_members(128, max_objects=256)` with raw draws/s; every sample
+   inside the prior box and acceptance 1.0 (support-aware flow); the flow's
+   inverse then forward recovers the base normals to 1e-4; the ensemble's
+   `log_prob` on the card against the same parameters on the CPU to 1e-4 on
+   256 objects; `save_state` → `load_saved_model` gives the same `log_prob`
+   bits. TARP, PIT-KS and R² after 3 epochs are readings, not gates.
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
@@ -45,8 +61,10 @@ is `{"ok": true, "device": {...}}`.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,6 +103,15 @@ TOL_EXACT_SNAP, TOL_EXACT_LERP = 2.5e-2, 6e-2
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
+# The NPE path: the north-star model at full width, cut in depth.
+TRAIN_STRIDE = 4  # every fourth library row: 2^18 rows spanning all z
+TRAIN_EPOCHS = 3
+N_NETS = 8
+# inverse∘forward of the flow on base normals (in fp64 every value, in fp32
+# the 99.9th percentile: a few fp32 spline inversions are ill-conditioned,
+# in the JAX package too), and the ensemble's fp32 log_prob on the card
+# against the CPU
+TOL_FLOW = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -658,6 +685,205 @@ def exact_spectra(tt, pk, dev, north_star_sim):
     return stats
 
 
+def train(tt, lib, dev):
+    """Phase 9: the north-star NSF ensemble, three epochs on 2^18 rows."""
+    from synference_tpu_torch.train import train_ensemble
+
+    fitter = tt.SBIFitter(
+        photometry=lib["photometry"].T[::TRAIN_STRIDE],
+        parameters=lib["parameters"].T[::TRAIN_STRIDE],
+        parameter_names=lib["parameter_names"],
+        filter_codes=lib["filter_codes"], device=dev)
+    fitter.create_feature_array(tt.FeatureConfig(
+        filter_codes=tuple(CODES), unit="asinh", depths_ab=(29.5,) * 7,
+        n_scatters=1, include_errors=True))
+    stamps = [time.perf_counter()]
+
+    def stamp(epoch, tr, va):
+        stamps.append(time.perf_counter())  # after the epoch's readback
+        return False
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fitter.run_single_sbi(
+        "nsf", hidden_features=69, num_transforms=15, n_nets=N_NETS,
+        train_config=tt.TrainConfig(batch_size=2048, learning_rate=7e-4,
+                                    max_epochs=TRAIN_EPOCHS),
+        epoch_callback=stamp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = res.history["steps_per_epoch"]
+    epochs = len(res.val_losses)
+    # the first epoch carries warm-up (cuBLAS handles, allocator growth)
+    per_epoch = np.diff(stamps)
+    ms_step = 1e3 * float(per_epoch[1:].mean()) / steps
+    log(f"[train] NSF 69x15 x{N_NETS}, batch 2048, fp32 (TF32 off), "
+        f"{fitter.features.shape[0]} rows: {epochs} epochs of {steps} steps "
+        f"in {wall:.2f} s with split and init; epochs "
+        f"{[round(float(t), 3) for t in per_epoch]} s; {ms_step:.3f} ms per "
+        f"step = {1e3 / ms_step:.2f} steps/s (epochs after the first, "
+        f"validation pass included)")
+    for name, hist in (("train", res.train_losses), ("val", res.val_losses)):
+        log(f"[train] {name} loss per epoch (rows) and member: "
+            f"{np.round(hist.astype(float), 3).tolist()}")
+    check(epochs == TRAIN_EPOCHS, f"{epochs} epochs ran")
+    check(bool(np.isfinite(res.train_losses).all()
+               and np.isfinite(res.val_losses).all()), "non-finite loss")
+    # A member's validation loss at the end of an epoch is one point of a
+    # noisy path this early (it moves by ~1 nat between epochs, measured),
+    # so each member is held by its training loss, an epoch's mean, and the
+    # ensemble by its mean validation loss
+    check(bool((res.train_losses[-1] < res.train_losses[0]).all()),
+          "a member's training loss did not fall")
+    check(float(res.val_losses[-1].mean()) < float(res.val_losses[0].mean()),
+          "the ensemble's mean validation loss did not fall")
+    w = res.params["flow"]["blocks"][0][0]["w"]
+    check(w.shape[0] == N_NETS and all(
+        not torch.equal(w[0], w[i]) for i in range(1, N_NETS)),
+        "ensemble members do not differ")
+    check(abs(float(np.std(res.val_losses[-1]))) > 0,
+          "every member has the same validation loss")
+
+    # the guard that makes a readback inside an epoch raise is live
+    def reads_back(p, tb, xb):
+        loss = -fitter.flow.log_prob(p, tb, xb).mean(dim=-1)
+        float(loss.detach().sum())  # waits for the card
+        return loss
+
+    raised = False
+    try:
+        train_ensemble(fitter.flow, fitter.feature_params[:4096],
+                       fitter.features[:4096],
+                       config=tt.TrainConfig(batch_size=1024, max_epochs=1),
+                       n_nets=2, loss_fn=reads_back)
+    except RuntimeError as e:
+        raised = "synchroniz" in str(e)
+    check(raised, "a readback inside an epoch did not raise")
+    log("[train] no call inside an epoch waited for the card (sync debug "
+        "mode \"error\" around every epoch; a loss that reads back raises)")
+    return fitter
+
+
+def posterior(tt, fitter, dev):
+    """Phase 10: sampling, calibration metrics, CPU agreement, saved model."""
+    per = -(-256 // N_NETS)
+    for name, fn, raw in (
+            ("evaluate_model(256, max_objects=512)",
+             lambda: fitter.evaluate_model(256, max_objects=512),
+             N_NETS * 512 * 4 * per),
+            ("evaluate_members(128, max_objects=256)",
+             lambda: fitter.evaluate_members(128, max_objects=256),
+             N_NETS * 256 * 4 * 128)):
+        fn()  # warm-up, not timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"[posterior] {name}: {dt:.3f} s, {raw} raw draws = "
+            f"{raw / dt:,.0f} draws/s with the metric chain")
+        if "point" in rep:
+            report = rep
+        else:
+            members = rep
+    log(f"[posterior] ensemble after {TRAIN_EPOCHS} epochs (readings): TARP "
+        f"{report['tarp_deviation']:.4f}, PIT-KS "
+        f"{np.round(report['pit_ks'], 3).tolist()}, R2 "
+        f"{np.round(report['point']['r2'], 3).tolist()}, mean log-prob "
+        f"{report['mean_log_prob']:.3f}")
+    log(f"[posterior] members: TARP {members['tarp_deviation']['mean']} ± "
+        f"{members['tarp_deviation']['ci95']} (ci95), R2 mean "
+        f"{members['r2']['mean']}")
+    check(report["sampling_acceptance_min"] == 1.0
+          and members["sampling_acceptance_min"]["mean"] == 1.0,
+          "a support-aware flow leaked outside the prior box")
+    for v in (report["tarp_deviation"], report["mean_log_prob"],
+              *report["pit_ks"], *report["point"]["r2"],
+              *members["tarp_deviation"]["per_member"]):
+        check(bool(np.isfinite(v)), "non-finite metric")
+
+    idx = fitter._split["test"][:512]
+    xs, truths = fitter.features[idx], fitter.feature_params[idx]
+    t0 = time.perf_counter()
+    draws = fitter.sample_posterior(xs, 256)
+    dt = time.perf_counter() - t0
+    log(f"[posterior] sample_posterior(512 objects, 256): {dt:.3f} s to the "
+        f"host = {512 * 256 / dt:,.0f} kept draws/s")
+    lo, hi = fitter.prior.low.cpu().numpy(), fitter.prior.high.cpu().numpy()
+    check(draws.shape == (512, 256, len(PNAMES)), f"draws {draws.shape}")
+    check(bool(np.isfinite(draws).all() and (draws >= lo).all()
+               and (draws <= hi).all()), "a sample lies outside the prior")
+
+    # inverse then forward of the flow proper (standardised, unbounded
+    # space) on base normals, in fp32 and fp64; through the box transform
+    # as a reading
+    flow, params = fitter.flow, fitter.train_result.params
+    g = torch.Generator(device=dev).manual_seed(3)
+    n_dim = len(PNAMES)
+    base = torch.randn((N_NETS, 256, 64, n_dim), generator=g, device=dev)
+    flat_base = base.reshape(N_NETS, -1, n_dim)
+    with torch.no_grad():
+        ctx = flow._context(params, xs[:256]).unsqueeze(2).expand(
+            -1, -1, 64, -1).reshape(N_NETS, 256 * 64, -1)
+
+        def round_trip(dtype):
+            from synference_tpu_torch.flows.base import tree_map
+            net = tree_map(lambda a: a.to(dtype), params["flow"])
+            u = flow._net.inverse(net, flat_base.to(dtype), ctx.to(dtype))
+            back, _ = flow._net.forward(net, u, ctx.to(dtype))
+            return (back - flat_base).abs().flatten()
+
+        err, err64 = round_trip(torch.float32), round_trip(torch.float64)
+        theta = flow.sample_batch(params, xs[:256], 64, base=base)
+        x_rep = torch.as_tensor(xs[:256], device=dev).repeat_interleave(
+            64, dim=0)
+        err_box = (flow.to_base(params, theta.reshape(N_NETS, -1, n_dim),
+                                x_rep) - flat_base).abs()
+    p999 = float(err.kthvalue(int(0.999 * err.numel())).values)
+    log(f"[posterior] inverse then forward on {flat_base.numel() // n_dim} "
+        f"base normals: fp64 max |Δ| {float(err64.max()):.3e}, fp32 p99.9 "
+        f"{p999:.3e} (both tol {TOL_FLOW}), fp32 max {float(err.max()):.3e};"
+        f" through the prior-box transform too: max "
+        f"{float(err_box.max()):.3e}, median {float(err_box.median()):.3e} "
+        f"(readings: the logit loses bits near the box faces)")
+    check(float(err64.max()) < TOL_FLOW and p999 < TOL_FLOW,
+          "the flow's inverse then forward misses the base normals")
+
+    # the ensemble's log_prob on the card against the CPU
+    cpu = torch.device("cpu")
+    from synference_tpu_torch.flows.base import (ConditionalFlow,
+                                                 params_from_numpy,
+                                                 params_to_numpy)
+    post_cpu = tt.EnsemblePosterior(
+        ConditionalFlow.from_spec(flow.spec(), cpu),
+        params_from_numpy(params_to_numpy(params), cpu),
+        tt.BoxUniform.from_dict(fitter.prior.to_dict(), cpu), N_NETS)
+    with torch.no_grad():
+        lp = fitter.posterior.log_prob(truths[:256], xs[:256])
+        lp_cpu = post_cpu.log_prob(truths[:256], xs[:256])
+    check(bool(torch.isfinite(lp).all()), "non-finite log_prob of a truth")
+    d = float((lp.cpu() - lp_cpu).abs().max())
+    log(f"[posterior] ensemble log_prob, card vs CPU, 256 objects: max |Δ| "
+        f"{d:.3e} (tol {TOL_FLOW})")
+    check(d < TOL_FLOW, "log_prob on the card disagrees with the CPU")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.pkl")
+        fitter.save_state(path)
+        size = os.path.getsize(path)
+        loaded = tt.SBIFitter.load_saved_model(path, device=dev)
+    with torch.no_grad():
+        same = torch.equal(loaded.posterior.log_prob(truths[:256], xs[:256]),
+                           lp)
+    log(f"[posterior] save_state ({size} bytes) -> load_saved_model: "
+        f"log_prob bitwise equal: {same}")
+    check(same, "a saved and reloaded model gives another log_prob")
+    flux = fitter.photometry[:8]
+    feats = loaded.features_from_observations(flux, 0.1 * np.abs(flux) + 1.0)
+    check(feats.shape == (8, xs.shape[1]) and bool(np.isfinite(feats).all()),
+          "features_from_observations of the loaded model")
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
@@ -698,6 +924,8 @@ def main() -> None:
     k2_stats = dense_photometry(tt, k1, dev)
     k2_north_star(k1, sim, gen, dev)
     k3_stats = exact_spectra(tt, pk, dev, sim)
+    fitter = train(tt, lib, dev)
+    posterior(tt, fitter, dev)
 
     rows = []
     for name, source, replaces, st in (

@@ -18,7 +18,12 @@ Builds `chip_smoke.py`'s north-star model on the card and prints:
    `chip_smoke.py`'s headline model (K2 and what surrounds it);
 6. the same trace of 10 `simulate(θ, want_spectra=True)` calls on the
    headline model's "roll" variant (K3, its row keys and sort, and the
-   (B, L) slab passes around it).
+   (B, L) slab passes around it);
+7. the same trace of 20 training steps of the north-star NSF ensemble (69
+   hidden units, 15 transforms, 8 members as batched weights, batch 2048 per
+   member, fp32 with TF32 off) on features of a 2^17-row library: kernels
+   launched per step, device busy share, the top device operations; and
+   the host-clock time of a step and of the validation pass.
 
 Run from the repository root on a machine with a card:
 
@@ -113,12 +118,59 @@ def device_profile(fn, what: str, reps: int = 1) -> None:
     dev.sort(key=lambda e: -e.self_device_time_total)
     total = sum(e.self_device_time_total for e in dev) / 1e3
     print(f"[trace] {what} x{reps}: device self time {total:.3f} ms, "
-          f"untraced wall {wall:.3f} ms, busy share {total / wall:.4f}",
-          flush=True)
+          f"untraced wall {wall:.3f} ms, busy share {total / wall:.4f}; "
+          f"{sum(e.count for e in dev) / reps:.1f} device operations per "
+          f"call", flush=True)
     for e in dev[:12]:
         ms = e.self_device_time_total / 1e3
         print(f"[trace] {ms:9.3f} ms {ms / total:7.2%} x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
+
+
+def training_profile(tt, gen, dev, steps: int = 20) -> None:
+    """One training step of the north-star NSF ensemble, traced."""
+    from synference_tpu_torch.train import (TrainConfig, _EnsembleState,
+                                            _validation_loss)
+
+    lib = gen.generate(n=2**17, seed=0)
+    fitter = tt.SBIFitter(lib["photometry"].T, lib["parameters"].T,
+                          lib["parameter_names"], lib["filter_codes"],
+                          device=dev)
+    fitter.create_feature_array(tt.FeatureConfig(
+        filter_codes=tuple(smoke.CODES), unit="asinh", depths_ab=(29.5,) * 7,
+        n_scatters=1, include_errors=True))
+    cfg = TrainConfig(batch_size=2048, learning_rate=7e-4, max_epochs=1)
+    fitter.run_single_sbi("nsf", hidden_features=69, num_transforms=15,
+                          n_nets=smoke.N_NETS, train_config=cfg)
+    flow = fitter.flow
+    theta = torch.as_tensor(fitter.feature_params, device=dev)
+    x = torch.as_tensor(fitter.features, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = _EnsembleState(
+        flow.init(g, theta, x, n_members=smoke.N_NETS),
+        torch.full((smoke.N_NETS,), cfg.learning_rate, device=dev), cfg)
+    rows = torch.randint(0, theta.shape[0], (smoke.N_NETS, cfg.batch_size),
+                         generator=g, device=dev)
+
+    def loss_fn(p, tb, xb):
+        return -flow.log_prob(p, tb, xb).mean(dim=-1)
+
+    def step():
+        state.train_step(loss_fn, theta[rows], x[rows])
+
+    def validate():
+        with torch.no_grad():
+            _validation_loss(loss_fn, state.params, theta[:65536], x[:65536])
+
+    step()
+    print(f"[train] NSF 69x15 x{smoke.N_NETS}, batch {cfg.batch_size}, "
+          f"{state.flat.shape[1]} weights per member, fp32 (TF32 off): "
+          f"{host_ms(step, 20):.3f} ms per step (host clock, median of 20); "
+          f"validation pass over 65536 rows {host_ms(validate, 5):.3f} ms",
+          flush=True)
+    device_profile(step, "training step", reps=steps)
+    device_profile(validate, "validation pass, 65536 rows x 8 members",
+                   reps=3)
 
 
 def main() -> None:
@@ -149,6 +201,8 @@ def main() -> None:
     device_profile(lambda: roll.simulate(theta, want_spectra=True),
                    f"headline simulate({theta.shape[0]} unsorted rows, "
                    f"want_spectra=True), variant roll", reps=10)
+    del roll
+    training_profile(tt, gen, dev)
 
 
 if __name__ == "__main__":

@@ -7,9 +7,13 @@ error propagation (`unit`, `asinh_softening_njy`), optional error columns,
 an error floor and dropped filters. Column order follows the JAX package:
 [photometry (F'), unc_* (F')].
 
+`FeatureConfig.to_flags` / `from_flags` write and read the JAX package's
+provenance record (same names and values), and `transform_observations`
+replays the training transform on a catalogue.
+
 Normalization, missing-band simulation, flag columns, extra features,
-multi-set depths, θ-column transforms and the replay on observations are not
-ported yet (ROADMAP M6); configs that ask for them raise NotImplementedError.
+multi-set depths and θ-column transforms are not ported yet (ROADMAP M6);
+configs, and flag records, that ask for them raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,9 +31,9 @@ __all__ = ["FeatureConfig", "FeaturePipeline", "FeatureResult"]
 
 @dataclass(frozen=True)
 class FeatureConfig:
-    """Static feature-engineering configuration (the JAX package's fields,
-    less `norm_unit` and `missing_value`, which only the unported options
-    read; see its docstring for their meaning)."""
+    """Static feature-engineering configuration (the JAX package's fields;
+    see its docstring for their meaning). `norm_unit` and `missing_value`
+    are read by unported options only and are carried for the flag record."""
 
     filter_codes: tuple
     remove_filters: tuple = ()
@@ -42,8 +46,10 @@ class FeatureConfig:
     include_errors: bool = True
     include_flags: bool = False
     normalize_method: str | None = None
+    norm_unit: str = "log10_nJy"
     missing_fraction: float = 0.0
     missing_flux_options: tuple = ()
+    missing_value: float = 99.0
     extra_features: tuple = ()
     remove_parameters: tuple = ()
     add_parameters: tuple = ()
@@ -65,6 +71,60 @@ class FeatureConfig:
                 and isinstance(self.depths_ab[0], (tuple, list))),
         }
         return [k for k, v in asked.items() if v]
+
+    def to_flags(self) -> dict:
+        """The serialisable provenance record (feature_array_flags)."""
+        multi = bool(self.depths_ab) and isinstance(
+            self.depths_ab[0], (tuple, list))
+        return {
+            "filter_codes": list(self.filter_codes),
+            "remove_filters": list(self.remove_filters),
+            "unit": self.unit,
+            "asinh_softening_njy": (
+                list(self.asinh_softening_njy)
+                if isinstance(self.asinh_softening_njy, (tuple, list))
+                else self.asinh_softening_njy),
+            "n_scatters": self.n_scatters,
+            "depths_ab": (
+                [list(row) for row in self.depths_ab] if multi
+                else (list(self.depths_ab) if self.depths_ab else None)),
+            "depth_sigma_level": self.depth_sigma_level,
+            "min_pct_error": self.min_pct_error,
+            "include_errors": self.include_errors,
+            "include_flags": self.include_flags,
+            "normalize_method": self.normalize_method,
+            "norm_unit": self.norm_unit,
+            "missing_fraction": self.missing_fraction,
+            "missing_flux_options": [list(m)
+                                     for m in self.missing_flux_options],
+            "missing_value": self.missing_value,
+            "extra_features": list(self.extra_features),
+            "remove_parameters": list(self.remove_parameters),
+            "add_parameters": list(self.add_parameters),
+            "parameter_transforms": [list(t)
+                                     for t in self.parameter_transforms],
+        }
+
+    @classmethod
+    def from_flags(cls, d: dict) -> "FeatureConfig":
+        d = dict(d)
+        d["filter_codes"] = tuple(d["filter_codes"])
+        d["remove_filters"] = tuple(d.get("remove_filters", ()))
+        soft = d.get("asinh_softening_njy", 5.0)
+        d["asinh_softening_njy"] = (tuple(soft) if isinstance(soft, list)
+                                    else soft)
+        dep = d.get("depths_ab")
+        if dep and isinstance(dep[0], (tuple, list)):
+            d["depths_ab"] = tuple(tuple(row) for row in dep)
+        else:
+            d["depths_ab"] = tuple(dep) if dep else None
+        d["missing_flux_options"] = tuple(
+            tuple(m) for m in d.get("missing_flux_options", ()))
+        for key in ("extra_features", "remove_parameters", "add_parameters"):
+            d[key] = tuple(d.get(key, ()))
+        d["parameter_transforms"] = tuple(
+            tuple(t) for t in d.get("parameter_transforms", ()))
+        return cls(**d)
 
 
 @dataclass
@@ -188,8 +248,50 @@ class FeaturePipeline:
             features, source_index = features[good], source_index[good]
             if params is not None:
                 params = params[good]
+        flags = cfg.to_flags()
+        flags["feature_names"] = names
+        flags["n_input_rows"] = int(n)
         return FeatureResult(features=features, feature_names=names,
-                             parameters=params,
-                             flags={"feature_names": names,
-                                    "n_input_rows": int(n)},
+                             parameters=params, flags=flags,
                              source_index=source_index)
+
+    def transform_observations(self, flux, flux_err=None, flux_unit="nJy",
+                               missing_mask=None, *, device) -> np.ndarray:
+        """Replay the training transform on observations (no scattering).
+
+        Args:
+            flux: (M, F) observed fluxes in config.filter_codes order.
+            flux_err: (M, F) matching 1σ errors (required when the training
+                features include errors).
+            flux_unit: unit of the provided values.
+            missing_mask: per-band missing flags; not ported (ROADMAP M6).
+            device: where the transform runs.
+        """
+        if missing_mask is not None:
+            raise NotImplementedError(
+                "missing-band replay is not ported yet (ROADMAP M6)")
+        cfg = self.config
+        flux = torch.as_tensor(flux, dtype=torch.float32, device=device)
+        f_njy = U.convert_flux(flux, flux_unit, "nJy")[:, self._keep_idx]
+        e_njy = None
+        if flux_err is not None:
+            err = torch.as_tensor(flux_err, dtype=torch.float32,
+                                  device=device)
+            e_njy = U.convert_flux_err(flux, err, flux_unit,
+                                       "nJy")[:, self._keep_idx]
+            if cfg.min_pct_error > 0:
+                e_njy = torch.maximum(e_njy,
+                                      cfg.min_pct_error * torch.abs(f_njy))
+        x, xe = self._to_unit(f_njy, e_njy)
+        blocks = [x]
+        if cfg.include_errors and xe is not None:
+            blocks.append(xe)
+        return torch.cat(blocks, dim=1).cpu().numpy()
+
+    @classmethod
+    def from_flags(cls, flags: dict, noise_models=None) -> "FeaturePipeline":
+        """The pipeline of a flag record, as `build` or the JAX package
+        wrote it."""
+        flags = {k: v for k, v in flags.items()
+                 if k not in ("feature_names", "n_input_rows")}
+        return cls(FeatureConfig.from_flags(flags), noise_models)

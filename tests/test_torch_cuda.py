@@ -465,3 +465,114 @@ def test_exact_spectra_launch_k3_once(cuda, variant):
     torch.cuda.synchronize()
     assert pk.shift_photometry_num.launches == before + 1
     assert bool(torch.isfinite(out["photometry_njy"]).all())
+
+
+# -- the NPE path on the card: plain PyTorch, held to the CPU -----------------
+# fp32 with TF32 off on both sides; cuBLAS and the CPU sum in another order:
+# log_prob and samples to 1e-4, one optimiser step to 1e-5 of a weight.
+_NSF = dict(hidden_features=16, num_transforms=3, num_bins=4,
+            support_low=(-2.0, -2.0), support_high=(2.0, 2.0))
+
+
+def _flow_on_both(cuda, k=3, seed=0):
+    from synference_tpu_torch.flows import base
+
+    cpu_flow = base.build_flow("nsf", 2, 4, device="cpu", **_NSF)
+    card_flow = base.build_flow("nsf", 2, 4, device=cuda, **_NSF)
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(-1.5, 1.5, (512, 2)).astype(np.float32)
+    x = rng.standard_normal((512, 4)).astype(np.float32)
+    params = cpu_flow.init(torch.Generator().manual_seed(seed), theta, x,
+                           n_members=k)
+    for block in params["flow"]["blocks"]:  # leave the identity
+        block[-1]["w"] = 0.1 * torch.as_tensor(
+            rng.standard_normal(tuple(block[-1]["w"].shape)),
+            dtype=torch.float32)
+    on_card = base.params_from_numpy(base.params_to_numpy(params), cuda)
+    return cpu_flow, card_flow, params, on_card, theta, x
+
+
+@pytest.mark.cuda
+def test_flow_log_prob_and_samples_match_cpu(cuda):
+    cpu_flow, card_flow, params, on_card, theta, x = _flow_on_both(cuda)
+    with torch.no_grad():
+        lp = card_flow.log_prob(on_card, theta, x)
+        ref = cpu_flow.log_prob(params, theta, x)
+        assert lp.device.type == "cuda" and lp.shape == (3, 512)
+        np.testing.assert_allclose(lp.cpu().numpy(), ref.numpy(), atol=1e-4)
+        base = np.random.default_rng(1).standard_normal(
+            (3, 16, 32, 2)).astype(np.float32)
+        s = card_flow.sample_batch(on_card, x[:16], 32, base=base)
+        ref = cpu_flow.sample_batch(params, x[:16], 32, base=base)
+        np.testing.assert_allclose(s.cpu().numpy(), ref.numpy(), atol=1e-4)
+        own = card_flow.sample_batch(
+            on_card, x[:16], 32, torch.Generator(device=cuda).manual_seed(0))
+    assert own.device.type == "cuda"
+    assert (own > -2.0).all() and (own < 2.0).all()
+
+
+@pytest.mark.cuda
+def test_posterior_sample_batch_matches_cpu(cuda):
+    cpu_flow, card_flow, params, on_card, theta, x = _flow_on_both(cuda)
+    base = np.random.default_rng(2).standard_normal(
+        (3, 8, 4 * 4, 2)).astype(np.float32)
+    out = []
+    for flow, p, dev in ((cpu_flow, params, "cpu"),
+                         (card_flow, on_card, cuda)):
+        post = tt.EnsemblePosterior(
+            flow, p, tt.BoxUniform((-1.0, -1.0), (1.0, 1.0), device=dev))
+        with torch.no_grad():
+            out.append(post.sample_batch_with_acceptance(x[:8], 10,
+                                                         base=base))
+    np.testing.assert_allclose(out[1][0].cpu().numpy(), out[0][0].numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(out[1][1].cpu().numpy(), out[0][1].numpy(),
+                               atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_training_step_matches_cpu_and_reads_nothing_back(cuda):
+    from synference_tpu_torch.train import (TrainConfig, _EnsembleState,
+                                            _no_host_sync, train_ensemble)
+
+    cpu_flow, card_flow, params, on_card, theta, x = _flow_on_both(cuda)
+    cfg = TrainConfig(clip_max_norm=0.5, weight_decay=0.01)
+    lrs = [1e-3, 3e-3, 7e-4]
+    rows = np.random.default_rng(3).integers(0, 512, (3, 128))
+    states = []
+    for flow, p, dev in ((cpu_flow, params, "cpu"),
+                         (card_flow, on_card, cuda)):
+        state = _EnsembleState(p, torch.as_tensor(lrs, device=dev), cfg)
+        before = state.flat.clone()
+        tb = torch.as_tensor(theta[rows], device=dev)
+        xb = torch.as_tensor(x[rows], device=dev)
+        with _no_host_sync(torch.device(dev)):
+            state.train_step(
+                lambda q, t, c, f=flow: -f.log_prob(q, t, c).mean(dim=-1),
+                tb, xb)
+        assert float((state.flat - before).abs().max()) > 1e-4  # it moved
+        states.append(state)
+    np.testing.assert_allclose(states[1].flat.cpu().numpy(),
+                               states[0].flat.numpy(), atol=1e-5)
+
+    # a loss that reads a value back inside an epoch raises on the card
+    def reads_back(q, t, c):
+        loss = -card_flow.log_prob(q, t, c).mean(dim=-1)
+        float(loss.detach().sum())
+        return loss
+
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        train_ensemble(card_flow, theta, x,
+                       config=TrainConfig(max_epochs=1, batch_size=128),
+                       n_nets=2, loss_fn=reads_back)
+    # an informative toy: θ follows the context with noise 0.1
+    rng = np.random.default_rng(4)
+    ctx = rng.uniform(-1, 1, (2000, 4)).astype(np.float32)
+    toy = (ctx[:, :2] + 0.1 * rng.standard_normal((2000, 2))
+           ).astype(np.float32)
+    res = train_ensemble(card_flow, toy, ctx,
+                         config=TrainConfig(max_epochs=6, batch_size=128,
+                                            learning_rate=5e-3), n_nets=2)
+    assert (res.val_losses[-1] < res.val_losses[0] - 0.5).all()
+    assert (res.train_losses[-1] < res.train_losses[0] - 0.5).all()
+    assert res.params["theta_mean"].device.type == "cuda"

@@ -1,6 +1,7 @@
 """Port parity, features: `FeatureConfig`/`FeaturePipeline.build` for the
 north-star configuration (asinh units, depth noise, one scatter, error
-columns) and `DepthNoiseModel`.
+columns), `DepthNoiseModel`, the flag record (`to_flags` / `from_flags`,
+the JAX package's names and values) and `transform_observations`.
 
 The deterministic parts — depth σ, the asinh transform of a flux and the
 propagation of its error, the feature column layout — must match the JAX
@@ -117,3 +118,61 @@ def test_remove_filters_and_unported_options():
                dict(depths_ab=(DEPTHS, DEPTHS))):
         with pytest.raises(NotImplementedError, match="ROADMAP M6"):
             FeaturePipeline(_cfg(FeatureConfig, **kw))
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"asinh_softening_njy": (1.0, 2, 3, 4, 5, 6, 7), "unit": "AB"},
+    {"asinh_softening_njy": "snr_5", "remove_filters": ("F115W",),
+     "min_pct_error": 0.05, "n_scatters": 2, "depths_ab": None,
+     "include_errors": False}])
+def test_flags_are_the_jax_packages(kw):
+    if kw.get("asinh_softening_njy") == "snr_5":
+        kw = dict(kw, depths_ab=DEPTHS)
+    cfg, jcfg = _cfg(FeatureConfig, **kw), _cfg(JConfig, **kw)
+    assert cfg.to_flags() == jcfg.to_flags()
+    # each package reads the other's record
+    assert FeatureConfig.from_flags(jcfg.to_flags()) == cfg
+    assert JConfig.from_flags(cfg.to_flags()) == jcfg
+    phot = _phot(32)
+    res = FeaturePipeline(cfg).build(torch.Generator().manual_seed(0), phot)
+    jres = JPipeline(jcfg).build(jax.random.PRNGKey(0), phot)
+    assert res.flags == jres.flags
+    again = FeaturePipeline.from_flags(jres.flags)
+    assert again.config == cfg and again.kept_codes == JPipeline.from_flags(
+        res.flags).kept_codes
+
+
+def test_flags_of_unported_options_raise():
+    flags = _cfg(JConfig, normalize_method="F200W").to_flags()
+    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
+        FeaturePipeline.from_flags(flags)
+    flags = _cfg(JConfig, missing_fraction=0.2, include_flags=True).to_flags()
+    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
+        FeaturePipeline.from_flags(flags)
+
+
+@pytest.mark.parametrize("unit,flux_unit", [("asinh", "nJy"), ("AB", "nJy"),
+                                            ("asinh", "Jy"), ("nJy", "AB")])
+def test_transform_observations_matches_jax(unit, flux_unit):
+    kw = dict(unit=unit, remove_filters=("F150W",), min_pct_error=0.03)
+    port = FeaturePipeline(_cfg(FeatureConfig, **kw))
+    ref = JPipeline(_cfg(JConfig, **kw))
+    flux = _phot(200) + 0.5
+    err = 0.1 * flux + 0.2
+    if flux_unit == "Jy":
+        flux, err = flux * 1e-9, err * 1e-9
+    elif flux_unit == "AB":
+        flux, err = 31.4 - 2.5 * np.log10(flux), 0.1 + 0 * flux
+    out = port.transform_observations(flux, err, flux_unit, device="cpu")
+    want = ref.transform_observations(flux, err, flux_unit)
+    assert out.shape == want.shape == (200, 12)
+    np.testing.assert_allclose(out, want, rtol=2e-5, atol=1e-6)
+    # without errors: photometry columns only
+    out = port.transform_observations(flux, None, flux_unit, device="cpu")
+    np.testing.assert_allclose(
+        out, ref.transform_observations(flux, None, flux_unit), rtol=2e-5,
+        atol=1e-6)
+    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
+        port.transform_observations(flux, err, flux_unit,
+                                    missing_mask=np.zeros_like(flux),
+                                    device="cpu")

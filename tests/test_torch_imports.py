@@ -1,8 +1,12 @@
 """The port stands alone: importing `synference_tpu_torch` and every one of
 its modules pulls in neither `jax` nor the JAX package, and starts no build.
 Checked in a fresh interpreter (this test process imports both packages),
-which imports the modules one after another and records what each added."""
+which imports the modules one after another and records what each added.
+The scripts that drive the port (`chip_smoke.py`, `profile_torch.py`,
+`examples/north_star_torch.py`, `scripts/probe_torch_*.py`) need a card, so
+their import statements are read from their source instead."""
 
+import ast
 import json
 import pathlib
 import subprocess
@@ -19,9 +23,9 @@ MODULES = ["synference_tpu_torch"] + sorted(
 _PROBE = """
 import importlib, json, sys
 def banned():
-    return sorted(m for m in sys.modules if m in ("jax", "jaxlib",
+    return sorted(m for m in sys.modules if m in ("jax", "jaxlib", "optax",
                   "synference_tpu") or m.startswith(("jax.", "jaxlib.",
-                  "synference_tpu.")))
+                  "optax.", "synference_tpu.")))
 out = {}
 for name in json.loads(sys.argv[1]):
     importlib.import_module(name)
@@ -48,3 +52,23 @@ def test_no_jax_in_sys_modules(probe, module):
 
 def test_import_builds_nothing(probe):
     assert probe["_built"] == 0
+
+
+SCRIPTS = ["chip_smoke.py", "profile_torch.py",
+           "examples/north_star_torch.py"] + sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
+        "probe_torch_*.py"))
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_scripts_import_no_jax(script):
+    tree = ast.parse((ROOT / script).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    banned = [n for n in names if n.split(".")[0] in (
+        "jax", "jaxlib", "optax", "synference_tpu")]
+    assert banned == [], banned
