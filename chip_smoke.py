@@ -37,20 +37,25 @@ unsorted θ):
    each row's bits independent of the rest of the batch; roll equal to
    bank; 1024 rows of each route against an exact filter integral;
 9. train: `SBIFitter.run_single_sbi("nsf", hidden_features=69,
-   num_transforms=15, n_nets=8)` for 3 epochs at batch 2048 on every fourth
+   num_transforms=15, n_nets=8)` for 5 epochs at batch 2048 on every fourth
    row of the phase-4 library (2^18 rows; depth is cut, width is not),
-   fp32 with TF32 off: every loss finite, each member's training loss and
-   the ensemble's mean validation loss falling, the members different, and no call inside an epoch that waits
-   for the card (the trainer runs its epochs under the sync debug mode
-   "error"; a loss that reads a value back must raise there). Prints ms
-   per step and steps/s from the clock of the per-epoch callback;
+   fp32 with TF32 off: every loss finite; for each member the best
+   validation loss of epochs 2-5 below that of epoch 1, the training loss
+   falling, and the best validation loss kept equal to its path's minimum;
+   the ensemble's mean validation loss falling; the members different; and
+   no call inside an epoch that waits for the card (the trainer runs its
+   epochs under the sync debug mode "error"; a loss that reads a value back
+   must raise there). Prints the seconds per epoch from the per-epoch
+   callback, the ms of one step alone and of one validation pass alone
+   (host clock), steps/s, and the host's CPU, load and time per launch of
+   a one-element kernel;
 10. posterior: `evaluate_model(256, max_objects=512)` and
    `evaluate_members(128, max_objects=256)` with raw draws/s; every sample
    inside the prior box and acceptance 1.0 (support-aware flow); the flow's
    inverse then forward recovers the base normals to 1e-4; the ensemble's
    `log_prob` on the card against the same parameters on the CPU to 1e-4 on
    256 objects; `save_state` → `load_saved_model` gives the same `log_prob`
-   bits. TARP, PIT-KS and R² after 3 epochs are readings, not gates.
+   bits. TARP, PIT-KS and R² after 5 epochs are readings, not gates.
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
@@ -105,7 +110,9 @@ PEAK_FP32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
 # The NPE path: the north-star model at full width, cut in depth.
 TRAIN_STRIDE = 4  # every fourth library row: 2^18 rows spanning all z
-TRAIN_EPOCHS = 3
+# the fewest epochs after which every member's best later validation loss
+# lies a nat below its first (the early path moves by ~1 nat per epoch)
+TRAIN_EPOCHS = 5
 N_NETS = 8
 # inverse∘forward of the flow on base normals (in fp64 every value, in fp32
 # the 99.9th percentile: a few fp32 spline inversions are ill-conditioned,
@@ -685,8 +692,73 @@ def exact_spectra(tt, pk, dev, north_star_sim):
     return stats
 
 
+def host_reading(dev) -> str:
+    """What the host can do for a launch-bound loop: its CPU, its load, and
+    the host-clock time per launch of a one-element kernel (20000 launches
+    between two synchronisations)."""
+    cpu = {}
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, value = ln.partition(":")
+                cpu.setdefault(key.strip(), value.strip())
+    model = (f"CPU model {cpu.get('model name', 'not given')!r} at "
+             f"{cpu.get('cpu MHz', 'unknown')} MHz")
+    one = torch.zeros(1, device=dev)
+    for reps in (2000, 20000):  # the first loop warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            one.add_(1.0)
+        torch.cuda.synchronize()
+        us = 1e6 * (time.perf_counter() - t0) / reps
+    return (f"{model}, {os.cpu_count()} cores, load average "
+            f"{os.getloadavg()[0]:.2f}; {us:.3f} us per launch of a "
+            f"one-element kernel")
+
+
+def training_parts(flow, theta, x, n_val: int):
+    """One optimiser step and one validation pass over `n_val` rows of the
+    north-star ensemble, as `train_ensemble` runs them, on freshly
+    initialised members: (step, validate, state)."""
+    from synference_tpu_torch import train as tr
+
+    dev = flow.device
+    cfg = tr.TrainConfig(batch_size=2048, learning_rate=7e-4)
+    theta = torch.as_tensor(theta, dtype=torch.float32, device=dev)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = tr._new_state(flow, theta, x, cfg, N_NETS, g)
+    loss_fn = tr._npe_loss(flow)
+    rows = torch.randint(0, theta.shape[0], (N_NETS, cfg.batch_size),
+                         generator=g, device=dev)
+
+    def step():
+        state.train_step(loss_fn, theta[rows], x[rows])
+
+    def validate():
+        with torch.no_grad():
+            tr._validation_loss(loss_fn, state.params, theta[:n_val],
+                                x[:n_val])
+
+    return step, validate, state
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of `fn` between two synchronisations."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def train(tt, lib, dev):
-    """Phase 9: the north-star NSF ensemble, three epochs on 2^18 rows."""
+    """Phase 9: the north-star NSF ensemble, TRAIN_EPOCHS epochs on 2^18
+    rows."""
     from synference_tpu_torch.train import train_ensemble
 
     fitter = tt.SBIFitter(
@@ -716,13 +788,29 @@ def train(tt, lib, dev):
     epochs = len(res.val_losses)
     # the first epoch carries warm-up (cuBLAS handles, allocator growth)
     per_epoch = np.diff(stamps)
-    ms_step = 1e3 * float(per_epoch[1:].mean()) / steps
+    epoch_ms = 1e3 * float(per_epoch[1:].mean())
     log(f"[train] NSF 69x15 x{N_NETS}, batch 2048, fp32 (TF32 off), "
         f"{fitter.features.shape[0]} rows: {epochs} epochs of {steps} steps "
         f"in {wall:.2f} s with split and init; epochs "
-        f"{[round(float(t), 3) for t in per_epoch]} s; {ms_step:.3f} ms per "
-        f"step = {1e3 / ms_step:.2f} steps/s (epochs after the first, "
-        f"validation pass included)")
+        f"{[round(float(t), 3) for t in per_epoch]} s")
+    # the step and the validation pass each alone, on the same flow, rows
+    # and validation size, beside what the host can do
+    tr_idx = fitter._split["train"]
+    n_val = int(len(tr_idx) * tt.TrainConfig().validation_fraction)
+    step, validate, _ = training_parts(
+        fitter.flow, fitter.feature_params[tr_idx], fitter.features[tr_idx],
+        n_val)
+    step()
+    validate()
+    ms_step = host_ms(lambda: [step() for _ in range(20)], 3) / 20
+    ms_val = host_ms(validate, 3)
+    log(f"[train] one step alone {ms_step:.3f} ms = {1e3 / ms_step:.2f} "
+        f"steps/s (host clock, median of 3 runs of 20 steps); one "
+        f"validation pass over {n_val} rows {ms_val:.3f} ms; {steps} steps "
+        f"+ 1 pass = {steps * ms_step + ms_val:.1f} ms against "
+        f"{epoch_ms:.1f} ms per epoch after the first, whose remainder is "
+        f"the epoch's shuffle and minibatch gathers")
+    log(f"[train] host: {host_reading(dev)}")
     for name, hist in (("train", res.train_losses), ("val", res.val_losses)):
         log(f"[train] {name} loss per epoch (rows) and member: "
             f"{np.round(hist.astype(float), 3).tolist()}")
@@ -731,12 +819,17 @@ def train(tt, lib, dev):
                and np.isfinite(res.val_losses).all()), "non-finite loss")
     # A member's validation loss at the end of an epoch is one point of a
     # noisy path this early (it moves by ~1 nat between epochs, measured),
-    # so each member is held by its training loss, an epoch's mean, and the
-    # ensemble by its mean validation loss
+    # so each member is held by the best of its later epochs against its
+    # first, and by its training loss, an epoch's mean
+    check(bool((res.val_losses[1:].min(axis=0) < res.val_losses[0]).all()),
+          "a member's validation loss never fell below its first epoch's")
     check(bool((res.train_losses[-1] < res.train_losses[0]).all()),
           "a member's training loss did not fall")
     check(float(res.val_losses[-1].mean()) < float(res.val_losses[0].mean()),
           "the ensemble's mean validation loss did not fall")
+    check(bool(np.array_equal(np.float32(res.history["best_val"]),
+                              np.float32(res.val_losses.min(axis=0)))),
+          "a member's best validation loss is not its path's minimum")
     w = res.params["flow"]["blocks"][0][0]["w"]
     check(w.shape[0] == N_NETS and all(
         not torch.equal(w[0], w[i]) for i in range(1, N_NETS)),
@@ -857,7 +950,7 @@ def posterior(tt, fitter, dev):
     post_cpu = tt.EnsemblePosterior(
         ConditionalFlow.from_spec(flow.spec(), cpu),
         params_from_numpy(params_to_numpy(params), cpu),
-        tt.BoxUniform.from_dict(fitter.prior.to_dict(), cpu), N_NETS)
+        tt.BoxUniform.from_dict(fitter.prior.to_dict(), cpu))
     with torch.no_grad():
         lp = fitter.posterior.log_prob(truths[:256], xs[:256])
         lp_cpu = post_cpu.log_prob(truths[:256], xs[:256])

@@ -31,9 +31,7 @@ Run from the repository root on a machine with a card:
 """
 
 import argparse
-import statistics
 import subprocess
-import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -43,22 +41,10 @@ import chip_smoke as smoke
 BATCH = 65536
 
 
-def host_ms(fn, reps: int) -> float:
-    """Median host-clock ms of `fn` between two synchronizations."""
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 def end_to_end(gen, n: int, reps: int) -> None:
     for fused in (True, False):
         gen.generate(n=BATCH, seed=1, zsorted_fused=fused)  # warm-up
-        walls = [host_ms(lambda: gen.generate(n=n, seed=0,
+        walls = [smoke.host_ms(lambda: gen.generate(n=n, seed=0,
                                               zsorted_fused=fused), 1) / 1e3
                  for _ in range(reps)]
         print(f"[e2e] generate(n={n}) {'fused' if fused else 'staged'} body:"
@@ -71,19 +57,19 @@ def breakdown(sim, gen, n: int, reps: int) -> dict:
     from synference_tpu_torch.ops import fused_sed as k1
 
     t = {"draw+sort+plan (whole run)":
-         host_ms(lambda: gen._draw_sorted(n, BATCH, seed=0), reps)}
+         smoke.host_ms(lambda: gen._draw_sorted(n, BATCH, seed=0), reps)}
     theta, sub, bs, kc, w_cols = gen._draw_sorted(n, BATCH, seed=0)
     batch = theta[:bs]
-    t["window plan"] = host_ms(
+    t["window plan"] = smoke.host_ms(
         lambda: sim._plan_windows(batch, sub, kc, w_cols), reps)
     chunk, sub, kc, w_cols, k0, l0 = sim._plan_windows(batch, sub, kc, w_cols)
-    t["SFZH"] = host_ms(lambda: sim._sfzh(sim.theta_dict(chunk)), reps)
-    t["fused body"] = host_ms(lambda: sim._zsorted_run_raw(
+    t["SFZH"] = smoke.host_ms(lambda: sim._sfzh(sim.theta_dict(chunk)), reps)
+    t["fused body"] = smoke.host_ms(lambda: sim._zsorted_run_raw(
         chunk, sub, w_cols, kc, k0, l0, fused=True), reps)
     g = sim._window_grouped_args(chunk, sub, w_cols, kc, k0, l0)
-    t[f"K1 alone (1 launch, {len(k0)} sub-chunks)"] = host_ms(
+    t[f"K1 alone (1 launch, {len(k0)} sub-chunks)"] = smoke.host_ms(
         lambda: k1.fused_window_photometry_grouped(**g), reps)
-    t["staged body"] = host_ms(lambda: sim._zsorted_run_raw(
+    t["staged body"] = smoke.host_ms(lambda: sim._zsorted_run_raw(
         chunk, sub, w_cols, kc, k0, l0, fused=False), reps)
     for name, ms in t.items():
         print(f"[batch] {name}: {ms:.3f} ms", flush=True)
@@ -107,7 +93,7 @@ def device_profile(fn, what: str, reps: int = 1) -> None:
     """Trace `reps` calls of `fn`: device self time per kernel and the
     busy share against the untraced wall time of as many calls."""
     fn()  # warm-up
-    wall = host_ms(lambda: [fn() for _ in range(reps)], 3)
+    wall = smoke.host_ms(lambda: [fn() for _ in range(reps)], 3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -129,8 +115,7 @@ def device_profile(fn, what: str, reps: int = 1) -> None:
 
 def training_profile(tt, gen, dev, steps: int = 20) -> None:
     """One training step of the north-star NSF ensemble, traced."""
-    from synference_tpu_torch.train import (TrainConfig, _EnsembleState,
-                                            _validation_loss)
+    from synference_tpu_torch.flows.base import build_flow
 
     lib = gen.generate(n=2**17, seed=0)
     fitter = tt.SBIFitter(lib["photometry"].T, lib["parameters"].T,
@@ -139,35 +124,22 @@ def training_profile(tt, gen, dev, steps: int = 20) -> None:
     fitter.create_feature_array(tt.FeatureConfig(
         filter_codes=tuple(smoke.CODES), unit="asinh", depths_ab=(29.5,) * 7,
         n_scatters=1, include_errors=True))
-    cfg = TrainConfig(batch_size=2048, learning_rate=7e-4, max_epochs=1)
-    fitter.run_single_sbi("nsf", hidden_features=69, num_transforms=15,
-                          n_nets=smoke.N_NETS, train_config=cfg)
-    flow = fitter.flow
-    theta = torch.as_tensor(fitter.feature_params, device=dev)
-    x = torch.as_tensor(fitter.features, device=dev)
-    g = torch.Generator(device=dev).manual_seed(0)
-    state = _EnsembleState(
-        flow.init(g, theta, x, n_members=smoke.N_NETS),
-        torch.full((smoke.N_NETS,), cfg.learning_rate, device=dev), cfg)
-    rows = torch.randint(0, theta.shape[0], (smoke.N_NETS, cfg.batch_size),
-                         generator=g, device=dev)
-
-    def loss_fn(p, tb, xb):
-        return -flow.log_prob(p, tb, xb).mean(dim=-1)
-
-    def step():
-        state.train_step(loss_fn, theta[rows], x[rows])
-
-    def validate():
-        with torch.no_grad():
-            _validation_loss(loss_fn, state.params, theta[:65536], x[:65536])
-
+    prior = fitter.create_priors()
+    flow = build_flow(
+        "nsf", theta_dim=len(fitter.parameter_names),
+        context_dim=fitter.features.shape[1], device=dev,
+        hidden_features=69, num_transforms=15,
+        support_low=tuple(prior.low.cpu().numpy().astype(float)),
+        support_high=tuple(prior.high.cpu().numpy().astype(float)))
+    step, validate, state = smoke.training_parts(
+        flow, fitter.feature_params, fitter.features, n_val=65536)
     step()
-    print(f"[train] NSF 69x15 x{smoke.N_NETS}, batch {cfg.batch_size}, "
+    print(f"[train] NSF 69x15 x{smoke.N_NETS}, batch 2048, "
           f"{state.flat.shape[1]} weights per member, fp32 (TF32 off): "
-          f"{host_ms(step, 20):.3f} ms per step (host clock, median of 20); "
-          f"validation pass over 65536 rows {host_ms(validate, 5):.3f} ms",
-          flush=True)
+          f"{smoke.host_ms(step, 20):.3f} ms per step (host clock, median "
+          f"of 20); validation pass over 65536 rows "
+          f"{smoke.host_ms(validate, 5):.3f} ms; "
+          f"host: {smoke.host_reading(dev)}", flush=True)
     device_profile(step, "training step", reps=steps)
     device_profile(validate, "validation pass, 65536 rows x 8 members",
                    reps=3)

@@ -29,7 +29,7 @@ __all__ = ["pit_values", "sbc_ranks", "pit_ks_statistic", "tarp_coverage",
 _LEVELS = (0.5, 0.68, 0.9, 0.95)
 
 
-def _f32(a, device=None):
+def _f32(a, device):
     return torch.as_tensor(a, dtype=torch.float32, device=device)
 
 
@@ -122,75 +122,77 @@ def _coverage(sorted_samples, truths, levels):
 
 
 # -- the public metrics ---------------------------------------------------
-def pit_values(samples, truths):
+# Each takes arrays or tensors and a required `device`, moves its inputs
+# there and computes there ("cuda" without a card raises).
+def pit_values(samples, truths, *, device):
     """Probability integral transform per object and parameter: samples
     (M, S, P), truths (M, P) -> (M, P) in [0, 1]; uniform when calibrated."""
-    samples = torch.as_tensor(samples)
-    truths = torch.as_tensor(truths, device=samples.device)
+    samples = torch.as_tensor(samples, device=device)
+    truths = torch.as_tensor(truths, device=device)
     return _below(samples, truths).to(torch.float32).mean(dim=-2)
 
 
-def sbc_ranks(samples, truths):
+def sbc_ranks(samples, truths, *, device):
     """Simulation-based-calibration ranks: the rank of the truth among the
     S draws (integer 0..S)."""
-    samples = torch.as_tensor(samples)
-    truths = torch.as_tensor(truths, device=samples.device)
+    samples = torch.as_tensor(samples, device=device)
+    truths = torch.as_tensor(truths, device=device)
     return _below(samples, truths).sum(dim=-2)
 
 
-def pit_ks_statistic(pit) -> np.ndarray:
+def pit_ks_statistic(pit, *, device) -> np.ndarray:
     """Kolmogorov–Smirnov distance of PIT values from U(0,1), per param."""
-    return _ks(_f32(pit)).cpu().numpy()
+    return _ks(_f32(pit, device)).cpu().numpy()
 
 
 def tarp_coverage(samples, truths, generator: torch.Generator | None = None,
-                  n_alpha: int = 50, norm: bool = True, uniforms=None):
+                  n_alpha: int = 50, norm: bool = True, uniforms=None, *,
+                  device):
     """TARP expected coverage probability (Lemos et al. 2023).
 
     For each object a random reference point is drawn; the credibility of
     the truth is the fraction of posterior draws closer to the reference
     than the truth is. ECP(α) = P(credibility < α); calibrated ⇒ ECP(α) = α.
     The reference points' uniforms (M, P) come from `uniforms` or from
-    `generator` (seed 0 on the samples' device when both are None).
+    `generator`, which lies on `device` (seed 0 there when both are None).
 
     Returns (alphas (n_alpha,), ecp (n_alpha,)) as numpy arrays.
     """
-    samples = _f32(samples)
-    truths = _f32(truths, samples.device)
+    samples = _f32(samples, device)
+    truths = _f32(truths, device)
     if uniforms is None:
         if generator is None:
-            generator = torch.Generator(device=samples.device).manual_seed(0)
+            generator = torch.Generator(device=device).manual_seed(0)
         uniforms = torch.rand(truths.shape, generator=generator,
-                              device=samples.device)
-    alphas, ecp = _tarp_ecp(samples, truths, _f32(uniforms, samples.device),
+                              device=device)
+    alphas, ecp = _tarp_ecp(samples, truths, _f32(uniforms, device),
                             n_alpha, norm)
     return alphas.cpu().numpy(), ecp.cpu().numpy()
 
 
-def tarp_deviation(samples, truths, generator=None, uniforms=None) -> float:
+def tarp_deviation(samples, truths, generator=None, uniforms=None, *,
+                   device) -> float:
     """|ECP(0.5) − 0.5|, the mid-curve summary of `tarp_coverage`."""
     alphas, ecp = tarp_coverage(samples, truths, generator,
-                                uniforms=uniforms)
+                                uniforms=uniforms, device=device)
     mid = np.argmin(np.abs(alphas - 0.5))
     return float(np.abs(ecp[mid] - 0.5))
 
 
-def expected_coverage(samples, truths, levels=_LEVELS) -> np.ndarray:
+def expected_coverage(samples, truths, levels=_LEVELS, *,
+                      device) -> np.ndarray:
     """Central credible-interval coverage per level and parameter:
     (len(levels), P) empirical fractions."""
-    samples = _f32(samples)
-    ordered = torch.sort(samples, dim=-2).values
-    return _coverage(ordered, _f32(truths, samples.device),
-                     levels).cpu().numpy()
+    ordered = torch.sort(_f32(samples, device), dim=-2).values
+    return _coverage(ordered, _f32(truths, device), levels).cpu().numpy()
 
 
-def point_metrics(samples, truths) -> dict:
+def point_metrics(samples, truths, *, device) -> dict:
     """Point-estimate metrics from posterior medians: per-parameter arrays
     mse, rmse, mae, median_ae, r2, nmse (normalised by variance), bias."""
-    samples = _f32(samples)
-    ordered = torch.sort(samples, dim=-2).values
+    ordered = torch.sort(_f32(samples, device), dim=-2).values
     return {k: v.cpu().numpy() for k, v in
-            _point(ordered, _f32(truths, samples.device)).items()}
+            _point(ordered, _f32(truths, device)).items()}
 
 
 # -- the chain --------------------------------------------------------------

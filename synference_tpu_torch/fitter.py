@@ -22,7 +22,7 @@ import torch
 from .diagnostics import evaluate_members_fused, evaluate_posterior
 from .features import FeatureConfig, FeaturePipeline
 from .flows.base import (ConditionalFlow, build_flow, params_from_numpy,
-                         params_to_numpy, tree_map)
+                         params_to_numpy, tree_leaves, tree_map)
 from .posterior import DirectPosterior, EnsemblePosterior
 from .priors import BoxUniform, priors_from_library
 from .train import TrainConfig, train_ensemble
@@ -173,17 +173,17 @@ class SBIFitter:
             groups=None if source is None else source[tr_idx],
             epoch_callback=epoch_callback)
         self.engine = engine
-        self._set_posterior(self.train_result.params, n_nets)
+        self._set_posterior(self.train_result.params)
         return self.train_result
 
-    def _set_posterior(self, stacked_params, n_members: int):
-        if n_members == 1:
+    def _set_posterior(self, stacked_params):
+        if tree_leaves(stacked_params)[0].shape[0] == 1:
             self.posterior = DirectPosterior(
                 self.flow, tree_map(lambda a: a[0], stacked_params),
                 self.prior)
         else:
             self.posterior = EnsemblePosterior(self.flow, stacked_params,
-                                               self.prior, n_members)
+                                               self.prior)
 
     # ------------------------------------------------------------------
     def sample_posterior(self, xs, n_samples: int = 1000,
@@ -266,9 +266,13 @@ class SBIFitter:
         fitter.flow = ConditionalFlow.from_spec(state["flow_spec"],
                                                 fitter.device)
         fitter.prior = BoxUniform.from_dict(state["prior"], fitter.device)
-        fitter._set_posterior(
-            params_from_numpy(state["params"], fitter.device),
-            state.get("n_members", 1))
+        params = params_from_numpy(state["params"], fitter.device)
+        k = int(tree_leaves(params)[0].shape[0])
+        if state.get("n_members", k) != k:
+            raise ValueError(
+                f"saved state names {state['n_members']} members, its "
+                f"parameters carry {k}")
+        fitter._set_posterior(params)
         flags = state.get("feature_flags")
         fitter.feature_flags = flags
         fitter.feature_pipeline = (FeaturePipeline.from_flags(flags)

@@ -118,15 +118,15 @@ class DirectPosterior:
 
 class EnsemblePosterior:
     """Uniform mixture of member posteriors; `stacked_params` carry a
-    leading member axis (as `train_ensemble` returns them)."""
+    leading member axis (as `train_ensemble` returns them), whose length
+    is the number of members."""
 
     def __init__(self, flow: ConditionalFlow, stacked_params,
-                 prior: BoxUniform, n_members: int | None = None):
+                 prior: BoxUniform):
         self.flow = flow
         self.params = stacked_params
         self.prior = prior
-        self.n_members = n_members or int(
-            tree_leaves(stacked_params)[0].shape[0])
+        self.n_members = int(tree_leaves(stacked_params)[0].shape[0])
 
     def _member(self, i: int) -> DirectPosterior:
         return DirectPosterior(

@@ -159,6 +159,35 @@ class _EnsembleState:
         return loss.detach()
 
 
+def _npe_loss(flow):
+    """The NPE loss of `flow`: (stacked params, θ, x) -> (K,) values of
+    −mean log q(θ|x)."""
+    def loss_fn(p, tb, xb):
+        return -flow.log_prob(p, tb, xb).mean(dim=-1)
+
+    return loss_fn
+
+
+def _new_state(flow, t_tr, x_tr, cfg: TrainConfig, n_nets: int,
+               generator: torch.Generator,
+               member_learning_rates=None) -> _EnsembleState:
+    """Freshly initialised members of `flow` (standardised on the training
+    rows) with their learning rates and optimiser state: what
+    `train_ensemble` starts from, and what a profile of one step builds."""
+    dev = torch.device(flow.device)
+    if member_learning_rates is not None:
+        lrs = torch.as_tensor(member_learning_rates, dtype=torch.float32,
+                              device=dev)
+        if lrs.shape != (n_nets,):
+            raise ValueError(
+                f"member_learning_rates must have shape ({n_nets},), "
+                f"got {tuple(lrs.shape)}")
+    else:
+        lrs = torch.full((n_nets,), cfg.learning_rate, device=dev)
+    return _EnsembleState(
+        flow.init(generator, t_tr, x_tr, n_members=n_nets), lrs, cfg)
+
+
 @contextlib.contextmanager
 def _no_host_sync(device: torch.device):
     """On a CUDA device, make any call that waits for the device raise."""
@@ -247,22 +276,10 @@ def train_ensemble(flow, theta, x, generator: torch.Generator | None = None,
     bs = min(cfg.batch_size, n_train)
     steps_per_epoch = max(n_train // bs, 1)
 
-    if member_learning_rates is not None:
-        lrs = torch.as_tensor(member_learning_rates, dtype=torch.float32,
-                              device=dev)
-        if lrs.shape != (n_nets,):
-            raise ValueError(
-                f"member_learning_rates must have shape ({n_nets},), "
-                f"got {tuple(lrs.shape)}")
-    else:
-        lrs = torch.full((n_nets,), cfg.learning_rate, device=dev)
-
     if loss_fn is None:
-        def loss_fn(p, tb, xb):
-            return -flow.log_prob(p, tb, xb).mean(dim=-1)
-
-    state = _EnsembleState(
-        flow.init(generator, t_tr, x_tr, n_members=n_nets), lrs, cfg)
+        loss_fn = _npe_loss(flow)
+    state = _new_state(flow, t_tr, x_tr, cfg, n_nets, generator,
+                       member_learning_rates)
     flat, params = state.flat, state.params
     best_flat = flat.clone()
     best_val = torch.full((n_nets,), torch.inf, device=dev)

@@ -531,6 +531,43 @@ def test_posterior_sample_batch_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_single_metrics_run_on_the_card_and_match_cpu(cuda):
+    """numpy in, `device=` says where: counts exact, float32 sums to 1e-6."""
+    from synference_tpu_torch import diagnostics as td
+
+    rng = np.random.default_rng(5)
+    truths = rng.uniform(-1, 1, (40, 3)).astype(np.float32)
+    samples = (truths[:, None, :] + 0.3 * rng.standard_normal(
+        (40, 64, 3))).astype(np.float32)
+    u = rng.uniform(size=truths.shape).astype(np.float32)
+    pit = td.pit_values(samples, truths, device=cuda)
+    assert pit.device.type == "cuda"
+    np.testing.assert_array_equal(
+        pit.cpu().numpy(),
+        td.pit_values(samples, truths, device="cpu").numpy())
+    ranks = td.sbc_ranks(samples, truths, device=cuda)
+    assert ranks.device.type == "cuda"
+    np.testing.assert_array_equal(
+        ranks.cpu().numpy(),
+        td.sbc_ranks(samples, truths, device="cpu").numpy())
+    tol = dict(rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(td.pit_ks_statistic(pit, device=cuda),
+                               td.pit_ks_statistic(pit, device="cpu"), **tol)
+    np.testing.assert_allclose(
+        td.tarp_coverage(samples, truths, uniforms=u, device=cuda)[1],
+        td.tarp_coverage(samples, truths, uniforms=u, device="cpu")[1], **tol)
+    own = td.tarp_deviation(samples, truths, device=cuda)  # card generator
+    assert 0.0 <= own <= 0.5
+    np.testing.assert_allclose(
+        td.expected_coverage(samples, truths, device=cuda),
+        td.expected_coverage(samples, truths, device="cpu"), **tol)
+    on_card = td.point_metrics(samples, truths, device=cuda)
+    for name, ref in td.point_metrics(samples, truths, device="cpu").items():
+        np.testing.assert_allclose(on_card[name], ref, err_msg=name,
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
 def test_training_step_matches_cpu_and_reads_nothing_back(cuda):
     from synference_tpu_torch.train import (TrainConfig, _EnsembleState,
                                             _no_host_sync, train_ensemble)

@@ -53,13 +53,14 @@ def data(request):
 
 def test_pit_and_ranks(data):
     samples, truths = data
-    pit = td.pit_values(samples, truths)
+    pit = td.pit_values(samples, truths, device="cpu")
     np.testing.assert_allclose(pit.numpy(),
                                np.asarray(jd.pit_values(samples, truths)),
                                **TOL)
-    np.testing.assert_array_equal(td.sbc_ranks(samples, truths).numpy(),
-                                  np.asarray(jd.sbc_ranks(samples, truths)))
-    np.testing.assert_allclose(td.pit_ks_statistic(pit),
+    np.testing.assert_array_equal(
+        td.sbc_ranks(samples, truths, device="cpu").numpy(),
+        np.asarray(jd.sbc_ranks(samples, truths)))
+    np.testing.assert_allclose(td.pit_ks_statistic(pit, device="cpu"),
                                jd.pit_ks_statistic(np.asarray(pit)), **TOL)
 
 
@@ -68,25 +69,29 @@ def test_tarp(data, norm):
     samples, truths = data
     key = jax.random.PRNGKey(4)
     u = np.asarray(jax.random.uniform(key, truths.shape))
-    alphas, ecp = td.tarp_coverage(samples, truths, uniforms=u, norm=norm)
+    alphas, ecp = td.tarp_coverage(samples, truths, uniforms=u, norm=norm,
+                                   device="cpu")
     ref_a, ref_e = jd.tarp_coverage(samples, truths, key=key, norm=norm)
     np.testing.assert_allclose(alphas, ref_a, **TOL)
     np.testing.assert_allclose(ecp, ref_e, **TOL)
     if norm:
-        assert td.tarp_deviation(samples, truths, uniforms=u) == pytest.approx(
-            jd.tarp_deviation(samples, truths, key=key), abs=1e-6)
+        assert td.tarp_deviation(
+            samples, truths, uniforms=u, device="cpu") == pytest.approx(
+                jd.tarp_deviation(samples, truths, key=key), abs=1e-6)
     # from a generator: another curve of the same kind
     _, own = td.tarp_coverage(samples, truths,
-                              torch.Generator().manual_seed(0), norm=norm)
+                              torch.Generator().manual_seed(0), norm=norm,
+                              device="cpu")
     assert own.shape == ecp.shape and own[0] == 0.0 and own[-1] <= 1.0
 
 
 def test_coverage_and_point_metrics(data):
     samples, truths = data
-    np.testing.assert_allclose(td.expected_coverage(samples, truths),
-                               jd.expected_coverage(samples, truths), **TOL)
-    out, ref = td.point_metrics(samples, truths), jd.point_metrics(samples,
-                                                                   truths)
+    np.testing.assert_allclose(
+        td.expected_coverage(samples, truths, device="cpu"),
+        jd.expected_coverage(samples, truths), **TOL)
+    out = td.point_metrics(samples, truths, device="cpu")
+    ref = jd.point_metrics(samples, truths)
     assert sorted(out) == sorted(ref)
     for key in ref:
         np.testing.assert_allclose(out[key], ref[key], err_msg=key, **TOL)
@@ -96,7 +101,7 @@ def test_median_interpolates_on_an_even_count():
     samples = np.array([[[1.0], [2.0], [4.0], [8.0]]], np.float32)
     truths = np.array([[3.0]], np.float32)
     # the interpolated median is 3 (torch.median would give 2)
-    assert td.point_metrics(samples, truths)["bias"][0] == 0.0
+    assert td.point_metrics(samples, truths, device="cpu")["bias"][0] == 0.0
     assert jd.point_metrics(samples, truths)["bias"][0] == 0.0
 
 

@@ -27,6 +27,7 @@ import synference_tpu as jst
 import synference_tpu_torch as tt
 from synference_tpu.features import FeatureConfig as JFeatureConfig
 from synference_tpu.train import TrainConfig as JTrainConfig
+from synference_tpu_torch import diagnostics as td
 
 PNAMES = ("log10_mass", "redshift", "peak_age", "tau", "log10_metallicity",
           "tau_v")
@@ -179,6 +180,22 @@ def test_jax_package_loads_a_model_the_port_saved(trained, tmp_path):
     assert again.feature_flags == fitter.feature_flags
 
 
+def test_member_count_comes_from_the_parameters(trained, tmp_path):
+    """The mixture's −log K uses the parameters' leading axis; a saved
+    state that names another count is refused, not mis-normalised."""
+    fitter, _ = trained
+    assert fitter.posterior.n_members == 3
+    path = str(tmp_path / "model.pkl")
+    fitter.save_state(path)
+    with open(path, "rb") as f:
+        state = pickle.load(f)
+    state["n_members"] = 2
+    with open(path, "wb") as f:
+        pickle.dump(state, f)
+    with pytest.raises(ValueError, match="2 members.*carry 3"):
+        tt.SBIFitter.load_saved_model(path, device="cpu")
+
+
 def test_port_runs_train_evaluate_and_members(trained):
     fitter, result = trained
     assert result.val_losses.shape == (3, 3) and result.n_members == 3
@@ -260,6 +277,17 @@ def test_no_fallback_to_the_cpu_without_a_card(library, tmp_path):
         tt.BoxUniform([0.0], [1.0], device="cuda")
     with pytest.raises(errors):
         tt.priors_from_library(library["parameters"], PNAMES, device="cuda")
+    samples = np.zeros((4, 8, 2), np.float32)
+    truths = np.zeros((4, 2), np.float32)
+    for metric in (td.pit_values, td.sbc_ranks, td.tarp_coverage,
+                   td.tarp_deviation, td.expected_coverage,
+                   td.point_metrics):
+        with pytest.raises(errors):
+            metric(samples, truths, device="cuda")
+        with pytest.raises(TypeError, match="device"):
+            metric(samples, truths)
+    with pytest.raises(errors):
+        td.pit_ks_statistic(truths, device="cuda")
     fitter = _port_fitter(library)
     fitter.run_single_sbi(
         "nsf", n_nets=1, train_config=tt.TrainConfig(max_epochs=1,
