@@ -57,6 +57,33 @@ unsorted θ):
    256 objects; `save_state` → `load_saved_model` gives the same `log_prob`
    bits. TARP, PIT-KS and R² after 5 epochs are readings, not gates.
 
+11. library file: `LibraryGenerator.generate(65536, supplementary=(m_uv,
+   sfr_100, mass_weighted_age, t50), device_sampling=False)` on the
+   headline model, SEDs/s; θ equal bit for bit to a numpy recomputation of
+   the host sampler (scipy's Latin hypercube); the supplementary columns
+   finite and, on 256 rows, within the CPU tests' end-to-end bounds of the
+   same rows on the CPU; where h5py imports, `save` → `init_from_hdf5` →
+   `simulator_from_library` (else one line says the HDF5 step did not run);
+12. "auto" and resume: `generate(2^20, zsorted_fused="auto")` on the
+   north-star model probes both window bodies (both times by CUDA events,
+   the choice and its digest printed), counts K1's launches, and equals
+   phase 4's bits when the fused body wins (within the staged-body bound
+   when it loses); a second generator on the simulator does not probe; a
+   2-batch run at the defaults takes K1 without a probe; a
+   4-batch run interrupted after batch 2 by a deliberate exception resumes
+   from its chunk files to the bits of an uninterrupted run;
+13. features: normalisation by a filter, `missing_fraction=0.1` with flag
+   columns and one colour on the phase-4 library on the card, and
+   `transform_observations(missing_mask=...)` on 1024 rows, each against
+   the CPU with the card's masks passed in;
+14. catalogue: on phase 9's fitter, `fit_catalogue` of 1024 noised library
+   rows and 16 garbage rows with the five native OOD methods and the
+   north-star simulator (K2 launches counted), `recover_seds=True` on 64
+   objects, and 256 objects with two bands masked through
+   `MissingPhotometryHandler` over the 2^18-row library (nmc 16): quantile
+   columns finite and ordered, every garbage row flagged, seconds per 1000
+   objects for each step.
+
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
 on the path (with each kernel's share of its bound, and `first_product_ms`:
@@ -977,6 +1004,334 @@ def posterior(tt, fitter, dev):
           "features_from_observations of the loaded model")
 
 
+SUPP = ("m_uv", "sfr_100", "mass_weighted_age", "t50")
+SUPP_MAGS = ("m_uv",)
+# the CPU tests' end-to-end bounds for supplementary quantities of one θ on
+# two devices (tests/test_torch_supplementary.py): medians 1e-4 relative
+# (1e-4 mag), 95th percentiles 2e-3 relative (5e-3 mag)
+TOL_SUPP_MED, TOL_SUPP_P95, TOL_SUPP_MAG_P95 = 1e-4, 2e-3, 5e-3
+# features on the card against the CPU with the same masks: float32
+# rounding, 1e-6 relative, 1e-5 mag absolute (tests/test_torch_features.py)
+TOL_FEAT_REL, TOL_FEAT_ABS = 1e-6, 1e-5
+CATALOGUE_ROWS, GARBAGE_ROWS = 1024, 16
+OOD_NATIVE = ("mahalanobis", "ecod", "hbos", "knn", "pca")
+
+
+class Interrupt(Exception):
+    """Raised on purpose inside a generation run to test its resume."""
+
+
+def host_lhc(n: int, seed: int) -> np.ndarray:
+    """(n, P) θ of the host sampler recomputed with numpy and scipy alone:
+    scipy's Latin hypercube below 10^5 rows, mapped onto PRIOR, the peak age
+    un-logged, in PNAMES order."""
+    from scipy.stats import qmc
+
+    u = qmc.LatinHypercube(d=len(PRIOR),
+                           rng=np.random.default_rng(seed)).random(n)
+    cols = {}
+    for i, (key, (lo, hi)) in enumerate(PRIOR.items()):
+        vals = (lo + (hi - lo) * u[:, i]).astype(np.float32)
+        if key == "log10_peak_age":
+            key, vals = "peak_age", (10.0**vals).astype(np.float32)
+        cols[key] = vals
+    return np.stack([cols[p] for p in PNAMES], axis=1)
+
+
+def supp_stats(got, ref, name):
+    """(median, p95) of |Δ| (magnitudes) or |Δ|/|ref| (the rest)."""
+    d = np.abs(got - ref)
+    if name not in SUPP_MAGS:
+        d = d / np.maximum(np.abs(ref), 1e-30)
+    return float(np.median(d)), float(np.quantile(d, 0.95))
+
+
+def library_file(tt, dev):
+    """Phase 11: a host-sampler library with supplementary quantities on
+    the headline model, and its HDF5 round trip."""
+    import importlib.util
+
+    sim = headline_model(tt, dev, "auto")
+    gen = tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
+                              supplementary=SUPP, device=dev)
+    gen.generate(4096, seed=1, device_sampling=False)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lib = gen.generate(HEADLINE_BATCH, seed=0, device_sampling=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"[library] generate({HEADLINE_BATCH}, supplementary={SUPP}) on "
+        f"the host sampler: {wall:.3f} s = {HEADLINE_BATCH / wall:,.0f} "
+        f"SEDs/s (one batch of {HEADLINE_BATCH}: dense simulate with "
+        f"spectra, then the supplementary quantities)")
+    theta = lib["parameters"].T
+    check(np.array_equal(theta, host_lhc(HEADLINE_BATCH, 0)),
+          "host-sampler θ differs from the numpy recomputation")
+    log("[library] θ equals the numpy/scipy recomputation bit for bit")
+    supp = lib["supplementary_parameters"]
+    check(supp.shape == (len(SUPP), HEADLINE_BATCH)
+          and bool(np.isfinite(supp).all()), "supplementary columns")
+    cpu = headline_model(tt, "cpu", "auto")
+    rows = torch.as_tensor(theta[:256])
+    ref = tt.compute_supplementary(SUPP, cpu, rows, cpu.simulate(
+        rows, want_spectra=True)).numpy().T
+    for j, name in enumerate(SUPP):
+        med, p95 = supp_stats(supp[j, :256], ref[j], name)
+        tol95 = TOL_SUPP_MAG_P95 if name in SUPP_MAGS else TOL_SUPP_P95
+        log(f"[library] {name}: card vs CPU on 256 rows, median {med:.3e} "
+            f"p95 {p95:.3e} ({'mag' if name in SUPP_MAGS else 'relative'};"
+            f" tol {TOL_SUPP_MED}, {tol95})")
+        check(med < TOL_SUPP_MED and p95 < tol95,
+              f"supplementary {name} disagrees with the CPU")
+    if importlib.util.find_spec("h5py") is None:
+        log("[library] h5py is not installed on this machine: the HDF5 "
+            "round trip did not run here (the CPU tests hold it)")
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "library.h5")
+        written = gen.generate(HEADLINE_BATCH, seed=0, device_sampling=False,
+                               out_path=path)
+        fitter = tt.SBIFitter.init_from_hdf5(path, device=dev)
+        back = tt.simulator_from_library(path, grid=sim.grid, device=dev)
+    check(np.array_equal(written["photometry"], lib["photometry"])
+          and np.array_equal(fitter.parameters, theta)
+          and np.array_equal(fitter.supplementary, supp.T)
+          and fitter.supplementary_names == list(SUPP),
+          "HDF5 round trip of the library")
+    check(torch.equal(back.photometry(rows.to(dev)),
+                      sim.photometry(rows.to(dev))),
+          "simulator_from_library photometry")
+    log("[library] save -> init_from_hdf5 -> simulator_from_library: the "
+        "same arrays and the same photometry bits")
+
+
+def auto_and_resume(tt, sim, gen, k1, lib4):
+    """Phase 12: "auto" on the north-star library, and chunk resume."""
+    from synference_tpu_torch import library as tl
+
+    n_batch = int(np.ceil(N_LIBRARY / BATCH))
+    with tempfile.TemporaryDirectory() as tmp:
+        tl.ZSORTED_PROBE_FILE = os.path.join(tmp, "zsorted_probe.json")
+        k1.fused_window_photometry.launches = 0
+        t0 = time.perf_counter()
+        lib = gen.generate(n=N_LIBRARY, seed=0, zsorted_fused="auto")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k1.fused_window_photometry.launches
+        rec = gen.last_probe
+        check(rec is not None and rec["source"] == "probe",
+              f"auto did not probe: {rec}")
+        fused = rec["fused"]
+        log(f"[auto] generate(n={N_LIBRARY}, zsorted_fused='auto') "
+            f"{wall:.3f} s with the probe: staged body {rec['staged_ms']:.4f}"
+            f" ms, fused body (K1) {rec['fused_ms']:.4f} ms per batch of "
+            f"{BATCH} (CUDA events, one warm call each); choice "
+            f"{'fused' if fused else 'staged'}; digest {rec['digest']}; K1 "
+            f"launches {launches}")
+        check(launches == (n_batch + 2 if fused else 2),
+              f"K1 launched {launches} times")
+        if fused:
+            check(np.array_equal(lib["photometry"], lib4["photometry"]),
+                  "auto (fused) differs from phase 4's bits")
+            log("[auto] photometry equals phase 4's bits")
+        else:
+            med, p99, mx, _ = rel_stats(torch.as_tensor(lib["photometry"].T),
+                                        torch.as_tensor(lib4["photometry"].T))
+            log(f"[auto] staged vs phase 4: rel median={med:.3e} "
+                f"p99={p99:.3e} max={mx:.3e}")
+            check(p99 < TOL_STAGED_P99 and mx < TOL_STAGED_MAX,
+                  "auto (staged) disagrees with phase 4")
+        again = tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
+                                    device=sim.device)
+        k1.fused_window_photometry.launches = 0
+        again.generate(n=N_LIBRARY, seed=0)
+        torch.cuda.synchronize()
+        check(again.last_probe["source"] == "simulator",
+              "a second generator probed again")
+        check(k1.fused_window_photometry.launches == (n_batch if fused
+                                                      else 0),
+              "the second run took another body")
+        log(f"[auto] a second generator on the simulator: no probe, K1 "
+            f"launches {k1.fused_window_photometry.launches}")
+        sim.__dict__.pop("_zsorted_fused_probe")
+        short = tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
+                                    device=sim.device)
+        k1.fused_window_photometry.launches = 0
+        short.generate(n=2 * BATCH, seed=7)
+        torch.cuda.synchronize()
+        check(short.last_probe == {"source": "short run", "fused": True}
+              and k1.fused_window_photometry.launches == 2,
+              f"a 2-batch run at the defaults: {short.last_probe}, K1 "
+              f"launches {k1.fused_window_photometry.launches}")
+        log("[auto] a 2-batch run at the defaults: no probe, K1 launches 2")
+
+        args = dict(n=4 * BATCH, seed=5, zsorted_fused=fused)
+        whole = gen.generate(**args)
+        prefix = os.path.join(tmp, "resume")
+        calls = [0]
+
+        def interrupted(*a, **kw):
+            calls[0] += 1
+            if calls[0] == 3:
+                raise Interrupt
+            return type(sim).photometry_zsorted_device(sim, *a, **kw)
+
+        sim.photometry_zsorted_device = interrupted
+        try:
+            gen.generate(resume_path=prefix, **args)
+            check(False, "the interrupted run was not interrupted")
+        except Interrupt:
+            pass
+        finally:
+            del sim.photometry_zsorted_device
+        files = sorted(f for f in os.listdir(tmp) if f.startswith("resume"))
+        check(len(files) == 2, f"chunk files after batch 2: {files}")
+        resumed = gen.generate(resume_path=prefix, **args)
+        check(all(np.array_equal(resumed[k], whole[k])
+                  for k in ("parameters", "photometry")),
+              "the resumed run differs from the uninterrupted one")
+        check(not any(f.startswith("resume") for f in os.listdir(tmp)),
+              "chunk files left after the run")
+        log("[auto] a 4-batch run interrupted after batch 2 resumed from "
+            f"{len(files)} chunk files to the uninterrupted run's bits")
+    return launches
+
+
+def features_on_card(tt, lib, dev):
+    """Phase 13: the rest of the feature configuration on the card."""
+    cfg = tt.FeatureConfig(
+        filter_codes=tuple(CODES), unit="asinh",
+        normalize_method=CODES[4], missing_fraction=0.1, include_flags=True,
+        extra_features=("F115W - F200W",))
+    phot = torch.as_tensor(lib["photometry"].T, device=dev)
+    pipe = tt.FeaturePipeline(cfg)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    pipe.build(gen, phot[:4096])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe.build(gen, phot, parameters=lib["parameters"].T,
+                     parameter_names=PNAMES)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = phot.shape[0]
+    flags = res.features[:, 6:12]
+    log(f"[features] normalised by {CODES[4]}, missing_fraction=0.1 with "
+        f"flags, one colour: {res.features.shape} in {dt:.3f} s; missing "
+        f"share {flags.mean():.4f}; columns {res.feature_names}")
+    check(res.features.shape == (n, 14) and bool(
+        np.isfinite(res.features).all()), "features on the card")
+    check(abs(float(flags.mean()) - 0.1) < 0.005, "missing share")
+    rows = 4096
+    ref = tt.FeaturePipeline(cfg).build(
+        torch.Generator().manual_seed(0), lib["photometry"].T[:rows],
+        missing_mask=flags[:rows]).features
+    got = res.features[:rows]
+    err = np.abs(got - ref)
+    log(f"[features] card vs CPU on {rows} rows with the card's mask: max "
+        f"|Δ| {err.max():.3e} (tol {TOL_FEAT_ABS} absolute or "
+        f"{TOL_FEAT_REL} relative)")
+    check(bool((err <= TOL_FEAT_ABS + TOL_FEAT_REL * np.abs(ref)).all()),
+          "features on the card disagree with the CPU")
+    flux = lib["photometry"].T[:1024] * 1.05
+    mask = (np.random.default_rng(13).uniform(size=flux.shape) < 0.1
+            ).astype(np.float32)
+    outs = [pipe.transform_observations(flux, None, missing_mask=mask,
+                                        device=d) for d in (dev, "cpu")]
+    err = np.abs(outs[0] - outs[1])
+    log(f"[features] transform_observations(missing_mask) on 1024 rows, "
+        f"card vs CPU: max |Δ| {err.max():.3e}")
+    check(outs[0].shape == (1024, 14) and bool(
+        (err <= TOL_FEAT_ABS + TOL_FEAT_REL * np.abs(outs[1])).all()),
+        "transform_observations on the card disagrees with the CPU")
+
+
+def catalogue(tt, fitter, sim, k1, dev):
+    """Phase 14: catalogue fitting on phase 9's fitter."""
+    from synference_tpu_torch.catalogue import MissingPhotometryHandler
+
+    rng = np.random.default_rng(14)
+    sigma = tt.DepthNoiseModel(29.5).sigma_njy
+    idx = rng.choice(fitter.photometry.shape[0], CATALOGUE_ROWS,
+                     replace=False)
+    clean = fitter.photometry[idx]
+    flux = (clean + sigma * rng.standard_normal(clean.shape)).astype(
+        np.float32)
+    garbage = (rng.uniform(1e5, 1e7, (GARBAGE_ROWS, len(CODES)))
+               * rng.choice([-1.0, 1.0], (GARBAGE_ROWS, len(CODES))))
+    flux = np.concatenate([flux, garbage.astype(np.float32)])
+    err = np.full_like(flux, sigma)
+    m = flux.shape[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def ordered(out):
+        for name in fitter.parameter_names:
+            q = [out[f"{name}_q{p}"] for p in (16, 50, 84)]
+            check(all(bool(np.isfinite(c).all()) for c in q)
+                  and bool((q[0] <= q[1]).all() and (q[1] <= q[2]).all()),
+                  f"quantile columns of {name}")
+
+    k1.fused_sed_photometry.launches = 0
+    out, dt = timed(lambda: tt.fit_catalogue(
+        fitter, flux, err, n_samples=256, ood_methods=OOD_NATIVE,
+        simulator=sim))
+    launches = k1.fused_sed_photometry.launches
+    want = -(-m * 64 // 16384)
+    log(f"[catalogue] fit_catalogue({m} objects: {CATALOGUE_ROWS} noised "
+        f"library rows + {GARBAGE_ROWS} garbage; OOD {OOD_NATIVE} over "
+        f"{fitter.features.shape[0]} training rows; 256 draws; reconstructed "
+        f"photometry of 64 draws each): {dt:.3f} s = "
+        f"{1e3 * dt / m:.3f} s per 1000 objects; K2 launches {launches}")
+    check(launches == want, f"K2 launched {launches} times, expected {want}")
+    ordered(out)
+    flagged = out["flag_ood"]
+    log(f"[catalogue] OOD: {int(flagged[:CATALOGUE_ROWS].sum())} of "
+        f"{CATALOGUE_ROWS} library rows and {int(flagged[-GARBAGE_ROWS:].sum())}"
+        f" of {GARBAGE_ROWS} garbage rows flagged; votes of the garbage "
+        f"{out['ood_votes'][-GARBAGE_ROWS:].tolist()}")
+    check(bool(flagged[-GARBAGE_ROWS:].all()), "a garbage row was not flagged")
+    recon = out["_recon_photometry"][:CATALOGUE_ROWS]
+    check(bool(np.isfinite(recon).all()), "reconstructed photometry")
+    z = fitter.parameter_names.index("redshift")
+    truth = fitter.parameters[idx][:, z]
+    r = float(np.corrcoef(out["redshift_q50"][:CATALOGUE_ROWS], truth)[0, 1])
+    log(f"[catalogue] redshift median vs truth on the library rows: r "
+        f"{r:.3f} (a reading: {TRAIN_EPOCHS} epochs)")
+
+    seds, dt = timed(lambda: tt.fit_catalogue(
+        fitter, flux[:64], err[:64], n_samples=256, check_ood=False,
+        simulator=sim, recover_seds=True))
+    q = seds["_recovered_seds"]["fnu_quantiles"]
+    log(f"[catalogue] recover_seds=True on 64 objects (32 draws each, "
+        f"{q.shape[-1]} λ): {dt:.3f} s = {1e3 * dt / 64:.3f} s per 1000 "
+        f"objects")
+    check(q.shape == (64, 3, sim.grid.n_wav) and bool(np.isfinite(q).all())
+          and bool((q[:, 0] <= q[:, 1]).all() and (q[:, 1] <= q[:, 2]).all()),
+          "recovered SED bands")
+
+    n_miss = 256
+    mask = np.zeros((n_miss, len(CODES)), np.float32)
+    for i in range(n_miss):
+        mask[i, rng.choice(len(CODES), 2, replace=False)] = 1.0
+    handler = MissingPhotometryHandler(fitter.photometry, k_neighbors=64,
+                                       nmc=16, device=dev)
+    miss, dt = timed(lambda: tt.fit_catalogue(
+        fitter, np.where(mask == 1.0, np.nan, flux[:n_miss]), err[:n_miss],
+        missing_mask=mask, n_samples=256, check_ood=False,
+        missing_data_handler=handler))
+    log(f"[catalogue] {n_miss} objects with two bands masked, imputed over "
+        f"{fitter.photometry.shape[0]} library rows (k 64, nmc 16): "
+        f"{dt:.3f} s = {1e3 * dt / n_miss:.3f} s per 1000 objects")
+    ordered(miss)
+    check(bool((miss["n_missing"] == 2).all()), "missing-band counts")
+    return launches
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
@@ -1019,6 +1374,15 @@ def main() -> None:
     k3_stats = exact_spectra(tt, pk, dev, sim)
     fitter = train(tt, lib, dev)
     posterior(tt, fitter, dev)
+    for name, phase in (
+            ("11 library file", lambda: library_file(tt, dev)),
+            ("12 auto and resume",
+             lambda: auto_and_resume(tt, sim, gen, k1, lib)),
+            ("13 features", lambda: features_on_card(tt, lib, dev)),
+            ("14 catalogue", lambda: catalogue(tt, fitter, sim, k1, dev))):
+        t0 = time.perf_counter()
+        phase()
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
 
     rows = []
     for name, source, replaces, st in (

@@ -82,5 +82,17 @@ class Cosmology:
     def age_yr(self, z):
         return self.age_gyr(z) * 1.0e9
 
+    def distance_modulus(self, z):
+        """m - M = 5 log10(d_L / 10 pc)."""
+        return 5.0 * torch.log10(self.luminosity_distance_mpc(z) * 1.0e6
+                                 / 10.0)
+
+    def to_dict(self) -> dict:
+        return {"h0": self.h0, "om0": self.om0}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Cosmology":
+        return cls(h0=float(d["h0"]), om0=float(d["om0"]))
+
 
 PLANCK18 = Cosmology()

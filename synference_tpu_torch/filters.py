@@ -70,3 +70,24 @@ class FilterSet:
         for i, f in enumerate(self.filters):
             table[i] = np.interp(lam_ext, f.lam, f.transmission, left=0.0, right=0.0)
         return table, dlog, max_shift
+
+    # -- persistence: the JAX package's layout inside a library's Model group
+    def to_hdf5(self, group) -> None:
+        """Write the curves into an h5py group (attrs `filter_codes`, one
+        `filter_{i}` subgroup of `lam` / `transmission` each)."""
+        group.attrs["filter_codes"] = self.codes
+        for i, f in enumerate(self.filters):
+            g = group.create_group(f"filter_{i}")
+            g.attrs["code"] = f.code
+            g.create_dataset("lam", data=f.lam)
+            g.create_dataset("transmission", data=f.transmission)
+
+    @classmethod
+    def from_hdf5(cls, group) -> "FilterSet":
+        codes = list(group.attrs["filter_codes"])
+        return cls([
+            Filter(code=str(group[f"filter_{i}"].attrs["code"]),
+                   lam=np.asarray(group[f"filter_{i}"]["lam"][:]),
+                   transmission=np.asarray(
+                       group[f"filter_{i}"]["transmission"][:]))
+            for i in range(len(codes))])

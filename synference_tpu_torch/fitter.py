@@ -6,14 +6,21 @@ posteriors, evaluates their calibration, and saves and loads the result.
 `save_state` writes the JAX package's layout (plain Python and numpy only),
 so a file written by either package loads in the other.
 
+A fitter starts from a library: arrays, the dict `LibraryGenerator.generate`
+returns (`from_library`), or an HDF5 file either package wrote
+(`init_from_hdf5`). Feature configs may rewrite the fitted θ columns
+(remove, add supplementary columns, transform); `parameter_names` then
+holds the fitted names.
+
 Not ported yet, each raising NotImplementedError with its ROADMAP item: the
-"nle" and "nre" engines (M11/M13); not present: `init_from_hdf5` (M5),
-spectral features (M10), the simformer, the online engines and the plotting
-and dataframe helpers (M14).
+"nle" and "nre" engines (M11/M13); not present: spectral features (M10),
+the simformer, the online engines and the plotting and dataframe helpers
+(M14).
 """
 
 from __future__ import annotations
 
+import os
 import pickle
 
 import numpy as np
@@ -41,16 +48,27 @@ class SBIFitter:
     """
 
     def __init__(self, photometry: np.ndarray, parameters: np.ndarray,
-                 parameter_names, filter_codes, name: str = "sbi_model", *,
-                 device):
-        """photometry (N, F) in nJy, parameters (N, P); features, training
-        and sampling run on `device`."""
+                 parameter_names, filter_codes, supplementary=None,
+                 supplementary_names=(), spectra=None, wavelengths=None,
+                 name: str = "sbi_model", *, device):
+        """photometry (N, F) in nJy, parameters (N, P), supplementary
+        (N, S), spectra (N, L) on `wavelengths`; features, training and
+        sampling run on `device`."""
         self.device = torch.device(device)
         torch.empty(0, device=self.device)  # raises where the device is absent
         self.photometry = np.asarray(photometry, np.float32)
         self.parameters = np.asarray(parameters, np.float32)
         self.parameter_names = list(parameter_names)
+        # the library's own θ names (parameter_names become the fitted ones)
+        self._raw_parameter_names = list(parameter_names)
         self.filter_codes = list(filter_codes)
+        self.supplementary = (None if supplementary is None
+                              else np.asarray(supplementary))
+        self.supplementary_names = list(supplementary_names)
+        self.spectra = (None if spectra is None
+                        else np.asarray(spectra, np.float32))
+        self.wavelengths = (None if wavelengths is None
+                            else np.asarray(wavelengths))
         self.name = name
         self.engine = "npe"
         self._clear_training_state()
@@ -66,6 +84,33 @@ class SBIFitter:
         self.train_result = None
         self.posterior = None
         self._split = None
+
+    @classmethod
+    def from_library(cls, lib: dict, name: str = "sbi_model", *,
+                     device) -> "SBIFitter":
+        """A fitter over a library dict in the reference schema, as
+        `LibraryGenerator.generate` and `load_library_hdf5` return it."""
+        return cls(
+            photometry=lib["photometry"].T, parameters=lib["parameters"].T,
+            parameter_names=lib["parameter_names"],
+            filter_codes=lib["filter_codes"],
+            supplementary=(lib["supplementary_parameters"].T
+                           if "supplementary_parameters" in lib else None),
+            supplementary_names=lib.get("supplementary_parameter_names", ()),
+            spectra=lib["spectra"].T if "spectra" in lib else None,
+            wavelengths=lib.get("wavelengths"), name=name, device=device)
+
+    @classmethod
+    def init_from_hdf5(cls, path: str, name: str | None = None, *,
+                       device) -> "SBIFitter":
+        """A fitter over a library file that this or the JAX package wrote
+        (the reference schema)."""
+        from .library import load_library_hdf5
+
+        return cls.from_library(
+            load_library_hdf5(path),
+            name=name or os.path.basename(path).rsplit(".", 1)[0],
+            device=device)
 
     def _generator(self, generator, seed: int) -> torch.Generator:
         if generator is not None:
@@ -84,11 +129,14 @@ class SBIFitter:
                                    **config_kwargs)
         self.feature_pipeline = FeaturePipeline(config, noise_models)
         res = self.feature_pipeline.build(
-            self._generator(generator, 0), self.photometry, self.parameters)
+            self._generator(generator, 0), self.photometry, self.parameters,
+            self._raw_parameter_names, supplementary=self.supplementary,
+            supplementary_names=self.supplementary_names)
         self.features = res.features
         self.feature_params = res.parameters
         self.feature_flags = res.flags
         self.feature_source = res.source_index
+        self.parameter_names = list(res.parameter_names)
         return res
 
     # ------------------------------------------------------------------
@@ -258,6 +306,9 @@ class SBIFitter:
         fitter.engine = state.get("engine", "npe")
         fitter.photometry = None
         fitter.parameters = None
+        fitter.supplementary = fitter.spectra = fitter.wavelengths = None
+        fitter.supplementary_names = []
+        fitter._raw_parameter_names = list(fitter.parameter_names)
         fitter._clear_training_state()
         if fitter.engine != "npe":
             raise NotImplementedError(
@@ -281,9 +332,11 @@ class SBIFitter:
 
     # ------------------------------------------------------------------
     def features_from_observations(self, flux, flux_err=None,
-                                   flux_unit="nJy", missing_mask=None):
+                                   flux_unit="nJy", missing_mask=None,
+                                   extra_values=None, norm_values=None):
         """Replay the training feature transform on a catalogue."""
         if self.feature_pipeline is None:
             raise RuntimeError("no feature pipeline; build or load one first")
         return self.feature_pipeline.transform_observations(
-            flux, flux_err, flux_unit, missing_mask, device=self.device)
+            flux, flux_err, flux_unit, missing_mask, extra_values,
+            norm_values, device=self.device)

@@ -36,6 +36,15 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def source_digest() -> str:
+    """sha256 hex digest over every kernel source and header: the identity
+    of a build."""
+    digest = hashlib.sha256()
+    for path in sorted(_CSRC.glob("*.cu*")):
+        digest.update(path.name.encode() + path.read_bytes())
+    return digest.hexdigest()
+
+
 def build_library() -> tuple[pathlib.Path, float, str]:
     """Compile the kernel library if its build is missing or stale.
 
@@ -43,10 +52,7 @@ def build_library() -> tuple[pathlib.Path, float, str]:
     seconds is 0.0 when an up-to-date build was found.
     """
     sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256()
-    for path in sorted(_CSRC.glob("*.cu*")):
-        digest.update(path.name.encode() + path.read_bytes())
-    out = BUILD_DIR / f"libsynference_kernels_{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"libsynference_kernels_{source_digest()[:16]}.so"
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(exist_ok=True)

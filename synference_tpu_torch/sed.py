@@ -91,6 +91,31 @@ class EmissionConfig:
     def dust_params_dict(self) -> dict:
         return dict(self.dust_params)
 
+    def to_dict(self) -> dict:
+        """The JSON record a library's Model group stores (the JAX
+        package's keys)."""
+        return {
+            "incident_type": self.incident_type,
+            "reprocessed_types": list(self.reprocessed_types),
+            "fesc": self.fesc,
+            "dust_law": self.dust_law,
+            "dust_params": dict(self.dust_params),
+            "tau_v_param": self.tau_v_param,
+            "tau_v_bc_param": self.tau_v_bc_param,
+            "age_pivot_log10": self.age_pivot_log10,
+            "dust_emission": self.dust_emission,
+            "dust_temperature": self.dust_temperature,
+            "dust_emissivity": self.dust_emissivity,
+            "igm": self.igm,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EmissionConfig":
+        d = dict(d)
+        d["reprocessed_types"] = tuple(d.get("reprocessed_types", ()))
+        d["dust_params"] = tuple(dict(d.get("dust_params", {})).items())
+        return cls(**d)
+
 
 class BatchSEDSimulator:
     """θ → photometry / spectra forward model over galaxy batches.

@@ -31,6 +31,13 @@ table slab wider than shared memory, and keys that need 32 bits. A K3 row's
 bits do not depend on the batch around it, and its row keys equal their
 plain version.
 
+The quickstart slice on the card: the native OOD scores (float64) and
+`MissingPhotometryHandler` (draws passed in) against the CPU,
+`compute_supplementary` against the CPU on the same simulate() outputs,
+device-sampler resume bit for bit, the "auto" window-body probe (CUDA
+events, cached on the simulator and in its file, a failing K1 raising), and
+"auto" on a run too short to probe taking K1 once per batch.
+
 K1 and K2 share one core (`csrc/sed_tile.cuh`). K1's one launch over a
 batch of sub-chunks is held to the same bound with per-sub-chunk windows
 at unaligned columns, ragged tiles and B = 1, 3, 13; both kernels at 128
@@ -613,3 +620,193 @@ def test_training_step_matches_cpu_and_reads_nothing_back(cuda):
     assert (res.val_losses[-1] < res.val_losses[0] - 0.5).all()
     assert (res.train_losses[-1] < res.train_losses[0] - 0.5).all()
     assert res.params["theta_mean"].device.type == "cuda"
+
+
+# -- the quickstart slice on the card ----------------------------------------
+def _ood_arrays():
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((6, 6))
+    train = rng.standard_normal((3000, 6)) @ a
+    test = rng.standard_normal((200, 6)) @ a
+    test[:10] += 8.0
+    return train, test
+
+
+@pytest.mark.cuda
+def test_ood_scores_card_vs_cpu(cuda):
+    """The native OOD scores in float64 on the card against the CPU: 1e-9
+    relative (ECOD, HBOS, kNN, PCA); Mahalanobis in float32, 1e-4; the vote
+    equal."""
+    from synference_tpu_torch import catalogue as cat
+
+    train, test = _ood_arrays()
+    for name, fn in cat._SCORE_METHODS.items():
+        on_card = fn(torch.as_tensor(train, device=cuda),
+                     torch.as_tensor(test, device=cuda))
+        on_cpu = fn(torch.as_tensor(train), torch.as_tensor(test))
+        for g, r in zip(on_card, on_cpu):
+            assert g.device.type == "cuda" and g.dtype == torch.float64
+            rel = (g.cpu() - r).abs() / r.abs().clamp(min=1e-300)
+            assert float(rel.max()) < 1e-9, (name, float(rel.max()))
+    _, d_card = cat.mahalanobis_ood(train, test, device=cuda)
+    _, d_cpu = cat.mahalanobis_ood(train, test, device="cpu")
+    assert np.abs(d_card - d_cpu).max() < 1e-4 * np.abs(d_cpu).max()
+    methods = ("mahalanobis", "ecod", "hbos", "knn", "pca")
+    flags, votes = cat.ood_vote(train, test, methods=methods, device=cuda)
+    np.testing.assert_array_equal(
+        votes, cat.ood_vote(train, test, methods=methods, device="cpu")[1])
+    assert flags[:10].all()
+
+
+@pytest.mark.cuda
+def test_missing_photometry_card_vs_cpu(cuda):
+    """χ² neighbours and the KDE draw with the draws passed in: 1e-5."""
+    from synference_tpu_torch.catalogue import MissingPhotometryHandler
+
+    rng = np.random.default_rng(1)
+    lib = rng.lognormal(2.0, 1.0, (4000, 7)).astype(np.float32)
+    obs = lib[:64] * rng.uniform(0.9, 1.1, (64, 7)).astype(np.float32)
+    err = 0.05 * obs + 0.1
+    miss = (rng.uniform(size=obs.shape) < 0.2).astype(np.float32)
+    comp = rng.integers(0, 32, (64, 16))
+    jitter = rng.standard_normal((64, 16, 7)).astype(np.float32)
+    out = [MissingPhotometryHandler(lib, k_neighbors=32, nmc=16,
+                                    device=dev).impute(
+        None, obs, err, miss, return_errors=True, comp=comp, jitter=jitter)
+        for dev in (cuda, "cpu")]
+    for g, r in zip(*out):
+        np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_compute_supplementary_card_vs_cpu(cuda):
+    """The 22 quantities on the card against the CPU from the same
+    simulate() outputs: 1e-5 relative (magnitudes 1e-4 mag) where finite,
+    and inf in the same places."""
+    from synference_tpu_torch import supplementary as supp
+
+    theta = torch.as_tensor(_unsorted_theta(512, seed=2))
+    names = sorted(supp.SUPP_FUNCTIONS)
+    cpu_sim, card_sim = _sim("cpu", 3), _sim(cuda, 3)
+    out = cpu_sim.simulate(theta, want_spectra=True)
+    ref = supp.compute_supplementary(names, cpu_sim, theta, out)
+    got = supp.compute_supplementary(
+        names, card_sim, theta.to(cuda), {k: v.to(cuda) for k, v in
+                                          out.items()}).cpu()
+    for j, name in enumerate(names):
+        g, r = got[:, j], ref[:, j]
+        # float32 overflows (n_ion; an EW over an empty continuum window of
+        # this 1024-column grid) are inf on both, as in the JAX package
+        assert torch.equal(torch.isinf(g), torch.isinf(r)), name
+        fin = torch.isfinite(r)
+        g, r = g[fin], r[fin]
+        if name in ("m_uv", "app_m_uv", "u_minus_v", "v_minus_j"):
+            assert float((g - r).abs().max()) < 1e-4, name
+        elif r.numel():
+            rel = (g - r).abs() / r.abs().clamp(min=1e-30)
+            assert float(rel.max()) < 1e-5, (name, float(rel.max()))
+    whole = card_sim.simulate(theta.to(cuda), want_spectra=True)
+    assert torch.isfinite(supp.compute_supplementary(
+        ["m_uv", "t50", "beta_uv"], card_sim, theta.to(cuda), whole)).all()
+
+
+@pytest.mark.cuda
+def test_resume_on_the_card_is_bitwise(cuda, tmp_path, monkeypatch):
+    """A device-sampler run interrupted after two batches resumes to the
+    bits of an uninterrupted run."""
+    sim = _sim(cuda, 3)
+    prior = {"log10_mass": (7.5, 11.0), "redshift": (0.1, 8.0),
+             "log10_peak_age": (7.6, 9.2), "tau": (0.1, 1.2),
+             "log10_metallicity": (-3.9, -1.6), "tau_v": (0.0, 2.0)}
+    gen = tt.LibraryGenerator(sim, prior, unlog_keys=["log10_peak_age"],
+                              device=cuda)
+    args = dict(n=4 * 4096, batch_size=4096, seed=3, zsorted_fused=True)
+    whole = gen.generate(**args)
+    real, calls = np.savez, []
+
+    class Stop(Exception):
+        pass
+
+    def savez(*a, **k):
+        if len(calls) == 2:
+            raise Stop
+        calls.append(a[0])
+        return real(*a, **k)
+
+    prefix = str(tmp_path / "ck")
+    with monkeypatch.context() as m:
+        m.setattr(np, "savez", savez)
+        with pytest.raises(Stop):
+            gen.generate(resume_path=prefix, **args)
+    resumed = gen.generate(resume_path=prefix, **args)
+    for key in ("parameters", "photometry"):
+        np.testing.assert_array_equal(resumed[key], whole[key])
+
+
+@pytest.mark.cuda
+def test_auto_short_run_launches_k1_per_batch(cuda, monkeypatch):
+    """A 2-batch `generate` at the default settings ("auto") takes K1, one
+    launch per batch, without timing the staged body."""
+    from synference_tpu_torch import library as tl
+
+    def no_probe(*a, **k):
+        raise AssertionError("probed a short run")
+
+    monkeypatch.setattr(tl, "_probe_bodies", no_probe)
+    prior = {"log10_mass": (7.5, 11.0), "redshift": (0.1, 8.0),
+             "log10_peak_age": (7.6, 9.2), "tau": (0.1, 1.2),
+             "log10_metallicity": (-3.9, -1.6), "tau_v": (0.0, 2.0)}
+    gen = tt.LibraryGenerator(_sim(cuda, 3), prior,
+                              unlog_keys=["log10_peak_age"], device=cuda)
+    # 16 sub-chunks over the run, as in the probe test below: narrower
+    # runs plan windows as wide as the table and take the dense path
+    args = dict(n=2 * 8192, batch_size=8192, seed=1)
+    before = k1.fused_window_photometry.launches
+    lib = gen.generate(**args)
+    assert k1.fused_window_photometry.launches == before + 2
+    assert gen.last_probe == {"source": "short run", "fused": True}
+    forced = gen.generate(zsorted_fused=True, **args)
+    np.testing.assert_array_equal(lib["photometry"], forced["photometry"])
+
+
+@pytest.mark.cuda
+def test_auto_probe_on_the_card(cuda, tmp_path, monkeypatch):
+    """"auto" times both window bodies once (CUDA events), keeps the
+    choice on the simulator and in the probe file under its digest; a
+    fresh simulator reads the file; a failing K1 propagates out of the
+    probe."""
+    from synference_tpu_torch import library as tl
+    from synference_tpu_torch import sed
+
+    monkeypatch.setattr(tl, "ZSORTED_PROBE_FILE", tmp_path / "probe.json")
+    prior = {"log10_mass": (7.5, 11.0), "redshift": (0.1, 8.0),
+             "log10_peak_age": (7.6, 9.2), "tau": (0.1, 1.2),
+             "log10_metallicity": (-3.9, -1.6), "tau_v": (0.0, 2.0)}
+    args = dict(n=4 * 4096, batch_size=4096, seed=1)
+    gen = tt.LibraryGenerator(_sim(cuda, 3), prior,
+                              unlog_keys=["log10_peak_age"], device=cuda)
+    lib = gen.generate(**args)
+    rec = gen.last_probe
+    assert rec["source"] == "probe" and rec["staged_ms"] > 0
+    assert rec["fused_ms"] > 0 and len(rec["digest"]) == 64
+    forced = gen.generate(zsorted_fused=rec["fused"], **args)
+    np.testing.assert_array_equal(lib["photometry"], forced["photometry"])
+    again = tt.LibraryGenerator(gen.simulator, prior,
+                                unlog_keys=["log10_peak_age"], device=cuda)
+    again.generate(**args)
+    assert again.last_probe["source"] == "simulator"
+    fresh = tt.LibraryGenerator(_sim(cuda, 3), prior,
+                                unlog_keys=["log10_peak_age"], device=cuda)
+    fresh.generate(**args)
+    assert fresh.last_probe["source"] == "file"
+    assert fresh.last_probe["fused"] == rec["fused"]
+
+    def broken(**kw):
+        raise RuntimeError("K1 failed to launch")
+
+    monkeypatch.setattr(sed, "fused_window_photometry_grouped", broken)
+    monkeypatch.setattr(tl, "ZSORTED_PROBE_FILE", tmp_path / "other.json")
+    with pytest.raises(RuntimeError, match="K1 failed"):
+        tt.LibraryGenerator(_sim(cuda, 3), prior,
+                            unlog_keys=["log10_peak_age"],
+                            device=cuda).generate(**args)

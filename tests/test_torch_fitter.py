@@ -253,10 +253,13 @@ def test_single_member_without_support_and_unported_engines(library):
         fitter.run_single_sbi(engine="abc")
     with pytest.raises(NotImplementedError, match="ROADMAP M11"):
         fitter.run_single_sbi("maf", train_config=tt.TrainConfig(max_epochs=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP M6"):
-        fitter.features_from_observations(
-            fitter.photometry[:2], fitter.photometry[:2],
-            missing_mask=np.zeros((2, 7)))
+    # missing-band replay is ported: a mask sets flux and error columns
+    feats = fitter.features_from_observations(
+        fitter.photometry[:2], fitter.photometry[:2],
+        missing_mask=np.eye(2, 7))
+    assert feats.shape == (2, 14)
+    assert feats[0, 0] == feats[0, 7] == feats[1, 1] == 99.0
+    assert (feats[:, 2:7] != 99.0).all()
 
 
 def test_no_fallback_to_the_cpu_without_a_card(library, tmp_path):
@@ -299,3 +302,56 @@ def test_no_fallback_to_the_cpu_without_a_card(library, tmp_path):
     with pytest.raises(errors):
         fitter.feature_pipeline.transform_observations(
             fitter.photometry[:2], fitter.photometry[:2], device="cuda")
+
+
+def test_init_from_hdf5_of_a_jax_library(tmp_path):
+    """`init_from_hdf5` on a library file the JAX package wrote (with
+    supplementary columns): the same arrays and names as the JAX package's
+    fitter; a feature config that moves a supplementary column into θ and
+    transforms another renames the fitted parameters as there."""
+    supp = ("m_uv", "sfr_100", "mass_weighted_age", "t50")
+    grid = jst.make_synthetic_grid(n_ages=16, n_mets=4, n_wav=1024)
+    filt = jst.FilterSet([jst.tophat_filter(c, ct, w) for c, ct, w in
+                          zip(_CODES, _CENTERS, _WIDTHS)])
+    sim = jst.BatchSEDSimulator(grid, filt, PNAMES, photometry_backend="xla")
+    path = str(tmp_path / "jax_library.h5")
+    jst.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
+                         supplementary=supp).generate(
+        n=200, batch_size=128, seed=2, out_path=path)
+    fitter = tt.SBIFitter.init_from_hdf5(path, device="cpu")
+    ref = jst.SBIFitter.init_from_hdf5(path)
+    assert fitter.name == ref.name == "jax_library"
+    assert fitter.parameter_names == ref.parameter_names == list(PNAMES)
+    assert fitter.filter_codes == ref.filter_codes == _CODES
+    assert fitter.supplementary_names == ref.supplementary_names == list(supp)
+    for attr in ("photometry", "parameters", "supplementary"):
+        np.testing.assert_array_equal(getattr(fitter, attr),
+                                      getattr(ref, attr))
+    kw = dict(FEATURES, depths_ab=None, remove_parameters=("tau",),
+              add_parameters=("sfr_100",),
+              parameter_transforms=(("sfr_100", "log10"),),
+              extra_features=("t50",))
+    res = fitter.create_feature_array(tt.FeatureConfig(**kw))
+    jres = ref.create_feature_array(JFeatureConfig(**kw))
+    assert fitter.parameter_names == ref.parameter_names
+    assert fitter.parameter_names[-1] == "log10_sfr_100"
+    assert res.feature_names == jres.feature_names
+    np.testing.assert_allclose(res.features, jres.features, rtol=1e-6,
+                               atol=1e-5)
+    np.testing.assert_allclose(fitter.feature_params, ref.feature_params,
+                               rtol=1e-6)
+    prior = fitter.create_priors()
+    assert prior.names == tuple(fitter.parameter_names)
+
+
+def test_from_library_dict_matches_init_from_hdf5(library, tmp_path):
+    path = str(tmp_path / "port.h5")
+    tt.save_library_hdf5(path, parameters=library["parameters"],
+                         parameter_names=library["parameter_names"],
+                         photometry=library["photometry"],
+                         filter_codes=library["filter_codes"])
+    a = tt.SBIFitter.from_library(library, device="cpu")
+    b = tt.SBIFitter.init_from_hdf5(path, name="named", device="cpu")
+    assert b.name == "named" and a.supplementary is None
+    np.testing.assert_array_equal(a.photometry, b.photometry)
+    np.testing.assert_array_equal(a.parameters, b.parameters)

@@ -3,8 +3,10 @@ its modules pulls in neither `jax` nor the JAX package, and starts no build.
 Checked in a fresh interpreter (this test process imports both packages),
 which imports the modules one after another and records what each added.
 The scripts that drive the port (`chip_smoke.py`, `profile_torch.py`,
-`examples/north_star_torch.py`, `scripts/probe_torch_*.py`) need a card, so
-their import statements are read from their source instead."""
+`examples/north_star_torch.py`, `examples/quickstart_torch.py`,
+`scripts/probe_torch_*.py`) need a card, so their import statements are
+read from their source instead. The optional packages (h5py,
+scikit-learn, pandas, scipy) are imported only where they are used."""
 
 import ast
 import json
@@ -54,8 +56,33 @@ def test_import_builds_nothing(probe):
     assert probe["_built"] == 0
 
 
+_NO_OPTIONAL = """
+import importlib.abc, json, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("h5py", "sklearn", "pandas", "scipy"):
+            raise ImportError(f"{name} is blocked")
+sys.meta_path.insert(0, Block())
+import importlib
+for name in json.loads(sys.argv[1]):
+    importlib.import_module(name)
+print("ok")
+"""
+
+
+def test_imports_without_optional_packages():
+    """h5py, scikit-learn, pandas and scipy are imported where they are
+    used: the card machine has no h5py and no scikit-learn."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_OPTIONAL, json.dumps(MODULES)], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 SCRIPTS = ["chip_smoke.py", "profile_torch.py",
-           "examples/north_star_torch.py"] + sorted(
+           "examples/north_star_torch.py",
+           "examples/quickstart_torch.py"] + sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
         "probe_torch_*.py"))
 
