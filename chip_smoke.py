@@ -83,6 +83,29 @@ unsorted θ):
    `MissingPhotometryHandler` over the 2^18-row library (nmc 16): quantile
    columns finite and ordered, every garbage row flagged, seconds per 1000
    objects for each step.
+15. families and particles: `generate(2^18, zsorted_fused=True)` through
+   K1 (4 launches each) of the north-star model with a delayed-τ SFH and a
+   normal metallicity distribution, and of the main-path model with 100
+   star particles per galaxy (SFZH rows mostly zeros); on each, K1 against
+   its plain version on one batch and the first sub-chunk against the
+   staged body; the particle SFZHs bitwise equal across two batchings; K2
+   against its plain version on 65536 unsorted headline rows of each;
+16. paper-63 width (phase 1's grid with all 63 survey bands): "auto" picks
+   interp (a knot matrix of a few hundred MiB); `conv` answers one
+   65536-row batch through `photometry()` and through the window engine,
+   within the JAX package's conv/interp bound of interp (K2); each route's
+   time;
+17. spectral path at the spectroscopic twin's width: `generate(30000,
+   want_spectra=True)` through the R = 100 `SpectralFeaturePipeline`
+   (the pipeline on 256 spectra against the CPU, max relative < 1e-5),
+   features from the raw spectra with a `SpectralNoiseModel`, an NSF 64 × 8
+   with a 128-wide embedding net to 32 features trained 3 epochs, and its
+   evaluation (readings);
+18. noise models and lines: `create_noise_models_from_catalogue` on a seeded
+   10^5-object catalogue (general models with upper limits), features with
+   them on the phase-4 library, their HDF5 round trip where h5py imports,
+   and `line_quantities` on 65536 young-burst rows against the CPU
+   (relative < 2e-3: one float32 ulp of max_age moves a burst's bins).
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
@@ -1332,6 +1355,401 @@ def catalogue(tt, fitter, sim, k1, dev):
     return launches
 
 
+# -- phases 15-18: the forward model's families and the spectral front end --
+# Phase 15's family models: delayed-τ SFH (τ in years) with a normal
+# metallicity distribution, and the lognormal main-path model with 100 star
+# particles per galaxy.
+FAMILY_PNAMES = ("log10_mass", "redshift", "tau", "log10_metallicity",
+                 "tau_v")
+FAMILY_PRIOR = {"log10_mass": (7.5, 11.0), "redshift": (0.1, 8.0),
+                "tau": (5e7, 3e9), "log10_metallicity": (-3.9, -1.6),
+                "tau_v": (0.0, 2.0)}
+FAMILY_ROWS = 2**18
+N_PARTICLES = 100
+# conv against interp at the paper-63 width: the JAX package's own bound
+# (tests/test_pallas_kernel.py), on bands above 1e-2 of the row maximum
+TOL_CONV_MED, TOL_CONV_P99 = 2e-3, 2e-2
+# the spectral pipeline, card against CPU on the same f_ν: max relative on
+# values above 1e-3 of the row maximum (the appended log10 norm absolute)
+TOL_PIPE = 1e-5
+# line quantities, card against CPU from the same θ (relative). A burst's
+# bin masses are Φ((x − x_b)/σ) differences with x = max_age − t: float32
+# subtracts ~1e9-1e10 yr to reach ~1e6 yr, so one ulp of max_age (512-1024
+# yr, and the two devices' age tables differ by about that) moves them by
+# ~5e-4 of σ (measured 5.25e-4 on an H100; JAX against the port on the CPU
+# 1.5e-4)
+TOL_LINES = 2e-3
+SPEC_N = 30_000
+SPEC_EPOCHS = 3
+NOISE_CATALOGUE = 100_000
+
+
+def family_models(tt, sim):
+    """Phase 15's two north-star models on phase 1's grid and bands."""
+    em = tt.EmissionConfig(reprocessed_types=("total",))
+    fam = tt.BatchSEDSimulator(sim.grid, sim.filters, FAMILY_PNAMES,
+                               sfh="delayed_tau", zdist="normal", emission=em,
+                               device=sim.device)
+    part = tt.BatchSEDSimulator(sim.grid, sim.filters, PNAMES,
+                                sfh="lognormal", zdist="delta", emission=em,
+                                n_particles=N_PARTICLES, particle_seed=3,
+                                device=sim.device)
+    return ((fam, tt.LibraryGenerator(fam, FAMILY_PRIOR, device=sim.device)),
+            (part, tt.LibraryGenerator(part, PRIOR,
+                                       unlog_keys=["log10_peak_age"],
+                                       device=sim.device)))
+
+
+def families_and_particles(tt, k1, sim, dev):
+    """Phase 15: the new SFZH inputs through K1 (a 2¹⁸-row library each) and
+    K2 (65536 unsorted headline rows each), each held to its plain version;
+    one sub-chunk against the staged body; the particle realization bitwise
+    equal across two batchings. Returns {kernel: launches in this phase}."""
+    launches = {"K1": 0, "K2": 0}
+    models = family_models(tt, sim)
+    for name, (fsim, fgen) in zip(("delayed_tau+normal", "particles"),
+                                  models):
+        fgen.generate(n=BATCH, seed=1, zsorted_fused=True)  # warm-up
+        torch.cuda.synchronize()
+        k1.fused_window_photometry.launches = 0
+        t0 = time.perf_counter()
+        lib = fgen.generate(n=FAMILY_ROWS, seed=0, zsorted_fused=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_k1 = k1.fused_window_photometry.launches
+        launches["K1"] += n_k1
+        phot = lib["photometry"]
+        log(f"[families] {name}: generate({FAMILY_ROWS}) {wall:.3f} s = "
+            f"{FAMILY_ROWS / wall:,.0f} SEDs/s; K1 launches {n_k1}")
+        check(n_k1 == FAMILY_ROWS // BATCH,
+              f"K1 launched {n_k1} times for {name}")
+        check(bool(np.isfinite(phot).all()) and bool((phot >= 0).all()),
+              f"{name} photometry not finite and non-negative")
+        theta, sub, bs, kc, w_cols = fgen._draw_sorted(FAMILY_ROWS, BATCH,
+                                                       seed=0)
+        mid = (theta.shape[0] // bs // 2) * bs
+        chunk, sub, kc, w_cols, k0, l0 = fsim._plan_windows(
+            theta[mid:mid + bs], sub, kc, w_cols)
+        g = fsim._window_grouped_args(chunk, sub, w_cols, kc, k0, l0,
+                                      row_offset=mid)
+        if name == "particles":
+            c = g["sfzh"].shape[1]
+            zeros = float((g["sfzh"] == 0).float().mean())
+            log(f"[families] particle SFZH rows: {zeros:.3f} of the {c} "
+                f"cells empty (at most {N_PARTICLES} filled)")
+        out = k1.fused_window_photometry_grouped(**g)
+        torch.cuda.synchronize()
+        ref = k1.fused_window_photometry_grouped_reference(**g)
+        med, p99, mx, abs_err = rel_stats(out, ref)
+        ms = time_ms(lambda: k1.fused_window_photometry_grouped(**g), reps=5)
+        log(f"[families] {name}: K1 vs plain on one batch: rel median="
+            f"{med:.3e} p99={p99:.3e} max={mx:.3e} (tol max<"
+            f"{TOL_KERNEL_MAX}); max abs err={abs_err:.4e} nJy; K1 {ms:.4f} "
+            f"ms per batch")
+        check(mx < TOL_KERNEL_MAX, f"K1 disagrees with its plain version "
+              f"on the {name} SFZHs")
+        rows = lib["parameters"][:, :1024].T.copy()
+        staged = fsim.photometry_zsorted_device(rows, sub_chunk=1024, kc=kc,
+                                                w_cols=w_cols, fused=False)
+        med, p99, mx, _ = rel_stats(torch.as_tensor(phot[:, :1024].T),
+                                    staged)
+        log(f"[families] {name}: first sub-chunk vs staged body: rel "
+            f"median={med:.3e} p99={p99:.3e} max={mx:.3e}")
+        check(p99 < TOL_STAGED_P99 and mx < TOL_STAGED_MAX,
+              f"{name} library disagrees with the staged window body")
+    # the particle realization is a function of (seed, row index, θ) alone
+    psim = models[1][0]
+    theta = headline_theta(dev, n=8192, seed=5)
+    whole, _ = psim._sfzh(psim.theta_dict(theta, row_offset=1000))
+    parts = torch.cat([psim._sfzh(psim.theta_dict(
+        theta[i:i + 3000], row_offset=1000 + i))[0]
+        for i in range(0, 8192, 3000)])
+    check(torch.equal(whole, parts),
+          "particle SFZHs differ between batchings")
+    log("[families] particle SFZHs of 8192 rows: one batch and batches of "
+        "3000 bitwise equal")
+    # K2 on unsorted headline rows with the same families
+    head = headline_model(tt, dev, "auto")
+    for name, kw, names in (
+            ("delayed_tau+normal", dict(sfh="delayed_tau", zdist="normal"),
+             FAMILY_PNAMES),
+            ("particles", dict(sfh="lognormal", zdist="delta",
+                               n_particles=N_PARTICLES), PNAMES)):
+        hsim = tt.BatchSEDSimulator(head.grid, head.filters, names,
+                                    emission=head.emission, device=dev, **kw)
+        theta = headline_theta(dev)
+        if names is FAMILY_PNAMES:  # τ in years for delayed-τ
+            theta = torch.stack([theta[:, 0], theta[:, 1],
+                                 1e8 + 2e9 * theta[:, 3], theta[:, 4],
+                                 theta[:, 5]], dim=1)
+        check(hsim._mega_supported(), f"the {name} headline model skips K2")
+        k1.fused_sed_photometry.launches = 0
+        phot = hsim.photometry(theta)
+        torch.cuda.synchronize()
+        n_k2 = k1.fused_sed_photometry.launches
+        launches["K2"] += n_k2
+        check(n_k2 == 1 and bool(torch.isfinite(phot).all()),
+              f"K2 on the {name} headline rows")
+        k2_vs_plain(k1, hsim, theta, f"families {name}", reps=5)
+    return launches
+
+
+def paper63(tt, k1, sim, dev):
+    """Phase 16: the paper-63 width (phase 1's grid, all 63 survey bands):
+    "auto" picks interp; conv answers one 65536-row batch through
+    `photometry()` and the window engine, within the JAX package's
+    conv/interp bound; each route's time."""
+    filters = tt.load_instrument_filters()
+    t0 = time.perf_counter()
+    auto = tt.BatchSEDSimulator(sim.grid, filters, PNAMES, sfh="lognormal",
+                                zdist="delta", emission=sim.emission,
+                                device=dev)
+    torch.cuda.synchronize()
+    knot_mib = auto._knot_matrix.numel() * 4 / 2**20
+    log(f"[paper63] {len(filters)} bands, F8 {auto._f8}: \"auto\" built in "
+        f"{time.perf_counter() - t0:.1f} s, variant {auto._variant}, knot "
+        f"matrix {knot_mib:.0f} MiB (the JAX package switches to conv above "
+        f"64 MiB)")
+    check(auto._variant == "interp" and knot_mib > 64,
+          "\"auto\" at the paper-63 width")
+    t0 = time.perf_counter()
+    conv = tt.BatchSEDSimulator(sim.grid, filters, PNAMES, sfh="lognormal",
+                                zdist="delta", emission=sim.emission,
+                                photometry_variant="conv", device=dev)
+    torch.cuda.synchronize()
+    log(f"[paper63] conv built in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(16)
+    gen = tt.LibraryGenerator(auto, PRIOR, unlog_keys=["log10_peak_age"],
+                              device=dev)
+    theta = gen.sample_parameters_device(HEADLINE_BATCH, g)
+    z = theta[:, PNAMES.index("redshift")]
+    sorted_theta = theta[torch.sort(z, stable=True).indices]
+    k1.fused_sed_photometry.launches = 0
+    interp = auto.photometry(theta)
+    torch.cuda.synchronize()
+    check(k1.fused_sed_photometry.launches == 1, "interp took K2 once")
+    dense = conv.photometry(theta)
+    window = conv.photometry_zsorted_device(sorted_theta, sub_chunk=1024)
+    torch.cuda.synchronize()
+    for name, out, ref in (("conv photometry()", dense, interp),
+                           ("conv window engine",
+                            window, auto.photometry(sorted_theta))):
+        out_np, ref_np = out.cpu().numpy(), ref.cpu().numpy()
+        check(bool(np.isfinite(out_np).all()), f"{name} not finite")
+        scale = np.abs(ref_np).max(axis=1, keepdims=True)
+        rel = np.abs(out_np - ref_np) / np.maximum(np.abs(ref_np),
+                                                   1e-3 * scale)
+        rel = rel[np.abs(ref_np) > 1e-2 * scale]
+        med, p99 = float(np.median(rel)), float(np.quantile(rel, 0.99))
+        log(f"[paper63] {name} vs interp (K2): rel median={med:.3e} "
+            f"p99={p99:.3e} (tol median<{TOL_CONV_MED} p99<{TOL_CONV_P99})")
+        check(med < TOL_CONV_MED and p99 < TOL_CONV_P99,
+              f"{name} disagrees with interp")
+    times = {
+        "interp photometry() (K2)": time_ms(lambda: auto.photometry(theta),
+                                            reps=5),
+        "conv photometry()": time_ms(lambda: conv.photometry(theta), reps=3,
+                                     warmup=1),
+        "conv window engine (staged)": time_ms(
+            lambda: conv.photometry_zsorted_device(sorted_theta,
+                                                   sub_chunk=1024),
+            reps=3, warmup=1),
+        "interp window engine (K1)": time_ms(
+            lambda: auto.photometry_zsorted_device(sorted_theta,
+                                                   sub_chunk=1024,
+                                                   fused=True), reps=5)}
+    for name, ms in times.items():
+        log(f"[paper63] {name}: {ms:.3f} ms per {HEADLINE_BATCH} rows = "
+            f"{HEADLINE_BATCH / ms * 1e3:,.0f} SEDs/s (CUDA events)")
+
+
+def spectral_path(tt, dev):
+    """Phase 17: the spectroscopic twin's path at its width: a library of
+    spectra through the instrument pipeline, raw-spectra features with a
+    SpectralNoiseModel, an embedding NSF for 3 epochs and its evaluation;
+    the pipeline card against CPU on 256 spectra."""
+    grid = tt.make_synthetic_grid(n_ages=48, n_mets=8, n_wav=2048)
+    sims = {}
+    for d in (dev, "cpu"):
+        s = tt.BatchSEDSimulator(
+            grid, tt.FilterSet([tt.tophat_filter("F200W", 20000.0, 4600.0)]),
+            PNAMES, sfh="lognormal", zdist="delta",
+            emission=tt.EmissionConfig(), device=d)
+        obs = tt.generate_constant_r_grid(100, 6000.0, 53000.0)
+        pipe = tt.SpectralFeaturePipeline(grid.lam, obs, instrument_r=100.0,
+                                          norm_window=(20000.0, 30000.0),
+                                          device=d)
+        sims[str(d)] = (s, pipe)
+    sim, pipe = sims[str(dev)]
+    prior = {"log10_mass": (8.0, 11.0), "redshift": (0.5, 6.0),
+             "log10_peak_age": (7.8, 9.2), "tau": (0.1, 1.0),
+             "log10_metallicity": (-3.5, -1.8), "tau_v": (0.0, 1.5)}
+    gen = tt.LibraryGenerator(sim, prior, unlog_keys=["log10_peak_age"],
+                              spectral_pipeline=pipe, device=dev)
+    gen.generate(8192, batch_size=8192, want_spectra=True, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lib = gen.generate(SPEC_N, batch_size=8192, want_spectra=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_pix = len(obs)
+    log(f"[spectra] generate({SPEC_N}, want_spectra, R=100 pipeline): "
+        f"{wall:.3f} s = {SPEC_N / wall:,.0f} spectra/s; {n_pix} pixels + "
+        f"the norm")
+    check(lib["spectra"].shape == (n_pix + 1, SPEC_N)
+          and bool(np.isfinite(lib["spectra"]).all()), "library spectra")
+    # the pipeline, card against CPU on the same f_ν
+    theta = lib["parameters"][:, :256].T.copy()
+    fnu = sim.simulate(theta, want_spectra=True)["fnu_njy"]
+    z = torch.as_tensor(theta[:, 1])
+    card = pipe(fnu, z.to(dev)).cpu().numpy()
+    ref = sims["cpu"][1](fnu.cpu(), z).numpy()
+    norm_err = float(np.abs(card[:, -1] - ref[:, -1]).max())
+    card, ref = card[:, :-1], ref[:, :-1]
+    sig = ref > 1e-3 * ref.max(axis=1, keepdims=True)
+    rel = float((np.abs(card - ref) / np.abs(ref))[sig].max())
+    log(f"[spectra] pipeline card vs CPU on 256 spectra: max rel {rel:.3e} "
+        f"(tol {TOL_PIPE}), log10 norm max |Δ| {norm_err:.3e}")
+    check(rel < TOL_PIPE and norm_err < TOL_PIPE, "pipeline card vs CPU")
+    fitter = tt.SBIFitter.from_library(lib, name="spectra", device=dev)
+    t0 = time.perf_counter()
+    spec = fitter.spectra[:, :n_pix]
+    feats = fitter.create_feature_array_from_raw_spectra(
+        noise_model=tt.SpectralNoiseModel(0.02 * np.median(spec, axis=0)),
+        crop=(0, n_pix), normalize=("bandpass", 20000.0, 30000.0))
+    torch.cuda.synchronize()
+    log(f"[spectra] raw-spectra features {feats.shape} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    check(feats.shape[1] == n_pix + 1 and feats.shape[0] > 0.99 * SPEC_N,
+          "raw-spectra features")
+    t0 = time.perf_counter()
+    res = fitter.run_single_sbi(
+        "nsf", hidden_features=64, num_transforms=8, embedding_dim=32,
+        embedding_hidden=128,
+        train_config=tt.TrainConfig(max_epochs=SPEC_EPOCHS, batch_size=512,
+                                    stop_after_epochs=5))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    val = np.asarray(res.val_losses)
+    log(f"[spectra] embedding NSF 64 x 8 (embedding 32, hidden 128): "
+        f"{len(val)} epochs in {train_s:.1f} s; validation losses "
+        f"{np.round(val.ravel(), 3).tolist()}")
+    check(bool(np.isfinite(val).all()) and len(val) == SPEC_EPOCHS,
+          "embedding NSF training")
+    t0 = time.perf_counter()
+    report = fitter.evaluate_model(n_samples=128, max_objects=512)
+    torch.cuda.synchronize()
+    log(f"[spectra] evaluation (128 draws, 512 objects) "
+        f"{time.perf_counter() - t0:.2f} s: TARP "
+        f"{report['tarp_deviation']:.4g}, PIT-KS max "
+        f"{max(report['pit_ks']):.3f}, z-R2 {report['point']['r2'][1]:.3f} "
+        f"(readings after {SPEC_EPOCHS} epochs, not gates)")
+    check(np.isfinite(report["tarp_deviation"]), "spectral evaluation")
+
+
+def noise_and_lines(tt, lib, dev):
+    """Phase 18: empirical noise models from a 10⁵-object catalogue,
+    features with them on phase 4's 2²⁰ rows, their HDF5 round trip, and
+    `line_quantities` on 65536 rows, card against CPU."""
+    import importlib.util
+
+    rng = np.random.default_rng(18)
+    cat_f, cat_e = {}, {}
+    for j, code in enumerate(CODES):
+        flux = 10 ** rng.uniform(0, 4, NOISE_CATALOGUE)
+        err = (5.0 + j + 0.05 * flux) * rng.lognormal(0, 0.2, NOISE_CATALOGUE)
+        cat_f[code], cat_e[code] = flux + err * rng.normal(
+            size=NOISE_CATALOGUE), err
+    t0 = time.perf_counter()
+    models = tt.create_noise_models_from_catalogue(
+        cat_f, cat_e, "general", upper_limits=True,
+        treat_as_upper_limits_below=2.0)
+    log(f"[noise] create_noise_models_from_catalogue({NOISE_CATALOGUE} "
+        f"objects x {len(CODES)} bands, general, upper limits): "
+        f"{time.perf_counter() - t0:.3f} s")
+    pipe = tt.FeaturePipeline(tt.FeatureConfig(
+        filter_codes=tuple(CODES), unit="asinh", include_errors=True),
+        noise_models=models)
+    phot = torch.as_tensor(lib["photometry"].T, device=dev)
+    g = torch.Generator(device=dev).manual_seed(18)
+    pipe.build(g, phot[:4096])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe.build(g, phot)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"[noise] features with the empirical models on {phot.shape[0]} "
+        f"rows: {res.features.shape} in {dt:.3f} s")
+    check(bool(np.isfinite(res.features).all()), "empirical-noise features")
+    if importlib.util.find_spec("h5py") is None:
+        log("[noise] h5py is not installed on this machine: the HDF5 round "
+            "trip did not run here (the CPU tests hold it)")
+    else:
+        import h5py
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "noise.h5")
+            with h5py.File(path, "w") as f:
+                for code, m in models.items():
+                    tt.save_noise_model_hdf5(m, f.create_group(code))
+            with h5py.File(path, "r") as f:
+                back = {c: tt.load_noise_model_hdf5(f[c]) for c in models}
+        x = phot[:4096, 0]
+        draws = {k: torch.rand(x.shape, generator=g, device=dev)
+                 for k in models[CODES[0]].DRAWS}
+        a = models[CODES[0]].apply(None, x, draws=draws)
+        b = back[CODES[0]].apply(None, x, draws=draws)
+        check(all(torch.equal(u, v) for u, v in zip(a, b)),
+              "noise model HDF5 round trip")
+        log("[noise] HDF5 round trip: the same noisy fluxes bit for bit")
+    # line quantities, card against CPU, on young bursts (the setting of
+    # tests/test_lines.py): the lines of a history without young stars come
+    # from CDF differences near 1 in its youngest bins, float32 rounding
+    # noise in both packages (ROADMAP queue 3)
+    grid = tt.make_synthetic_grid(n_ages=24, n_mets=4, n_wav=4096,
+                                  line_strength=50.0)
+    rng = np.random.default_rng(18)
+    n = HEADLINE_BATCH
+    theta = torch.as_tensor(np.stack([
+        rng.uniform(8, 10.5, n), rng.uniform(0.5, 4.0, n),
+        rng.uniform(3e6, 8e6, n), rng.uniform(5e5, 2e6, n),
+        rng.uniform(-3.5, -1.6, n), rng.uniform(0.0, 1.0, n)], axis=1),
+        dtype=torch.float32, device=dev)
+
+    out = {}
+    for d in ("cpu", dev):
+        lsim = tt.BatchSEDSimulator(
+            grid, tt.FilterSet([tt.tophat_filter("F200W", 20000.0, 4600.0)]),
+            ("log10_mass", "redshift", "burst_age", "sigma",
+             "log10_metallicity", "tau_v"), sfh="gaussian_burst",
+            emission=tt.EmissionConfig(reprocessed_types=("total",)),
+            device=d)
+        if str(d) != "cpu":
+            lsim.line_quantities(theta[:1024])  # warm-up
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[str(d)] = lsim.line_quantities(theta.to(d))
+    log(f"[lines] line_quantities({n} rows, {len(out['cpu']['ids'])} lines, "
+        f"young bursts) on the card {time.perf_counter() - t0:.3f} s")
+    card, cpu = out[str(dev)], out["cpu"]
+    worst, n_small, small_err = 0.0, 0, 0.0
+    for k in ("luminosity", "flux", "ew_rest", "ew_obs"):
+        check(bool(np.isfinite(card[k]).all()), f"line {k} not finite")
+        # relative where a value reaches 1e-3 of its line's largest
+        floor = 1e-3 * np.abs(cpu[k]).max(axis=0, keepdims=True)
+        sig = np.abs(cpu[k]) > floor
+        diff = np.abs(card[k] - cpu[k])
+        worst = max(worst, float((diff[sig] / np.abs(cpu[k][sig])).max()))
+        n_small += int((~sig).sum())
+        small_err = max(small_err, float(
+            (diff / np.maximum(floor, 1e-300))[~sig].max(initial=0.0)))
+    log(f"[lines] card vs CPU: max rel {worst:.3e} on values above 1e-3 of "
+        f"their line's largest; the {n_small} values below it differ by at "
+        f"most {small_err:.3e} of that floor (tol {TOL_LINES})")
+    check(worst < TOL_LINES and small_err < TOL_LINES,
+          "line quantities card vs CPU")
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
@@ -1379,7 +1797,13 @@ def main() -> None:
             ("12 auto and resume",
              lambda: auto_and_resume(tt, sim, gen, k1, lib)),
             ("13 features", lambda: features_on_card(tt, lib, dev)),
-            ("14 catalogue", lambda: catalogue(tt, fitter, sim, k1, dev))):
+            ("14 catalogue", lambda: catalogue(tt, fitter, sim, k1, dev)),
+            ("15 families and particles",
+             lambda: families_and_particles(tt, k1, sim, dev)),
+            ("16 paper-63 conv and auto", lambda: paper63(tt, k1, sim, dev)),
+            ("17 spectral path", lambda: spectral_path(tt, dev)),
+            ("18 noise models and lines",
+             lambda: noise_and_lines(tt, lib, dev))):
         t0 = time.perf_counter()
         phase()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")

@@ -48,6 +48,12 @@ class FilterSet:
     def __getitem__(self, i) -> Filter:
         return self.filters[i]
 
+    def subset(self, codes: list) -> "FilterSet":
+        """The filters with these codes, in this order (a missing code
+        raises KeyError)."""
+        by_code = {f.code: f for f in self.filters}
+        return FilterSet([by_code[c] for c in codes])
+
     def shifted_table(self, lam_rest: np.ndarray, z_max: float = 25.0):
         """Transmissions on an extended log-λ grid: with λ_obs = λ_rest(1+z),
         a redshift is a shift of s(z) = log10(1+z)/dlog columns.

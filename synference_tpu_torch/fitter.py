@@ -12,10 +12,13 @@ returns (`from_library`), or an HDF5 file either package wrote
 (remove, add supplementary columns, transform); `parameter_names` then
 holds the fitted names.
 
+Spectral features come from library spectra on an instrument grid
+(`create_feature_array_from_raw_spectra`): crop, noise from a
+`SpectralNoiseModel`, and flux normalisation with the log10 norm appended.
+
 Not ported yet, each raising NotImplementedError with its ROADMAP item: the
-"nle" and "nre" engines (M11/M13); not present: spectral features (M10),
-the simformer, the online engines and the plotting and dataframe helpers
-(M14).
+"nle" and "nre" engines (M11/M13); not present: the simformer, the online
+engines and the plotting and dataframe helpers (M14).
 """
 
 from __future__ import annotations
@@ -138,6 +141,90 @@ class SBIFitter:
         self.feature_source = res.source_index
         self.parameter_names = list(res.parameter_names)
         return res
+
+    # ------------------------------------------------------------------
+    def create_feature_array_from_raw_spectra(
+            self, noise_model=None, n_scatters: int = 1,
+            crop: tuple | None = None, crop_lam: tuple | None = None,
+            normalize_pixel: int | None = None, normalize=None,
+            generator: torch.Generator | None = None, draws=None):
+        """Spectral features from the library spectra, which must already be
+        on one instrument grid (`LibraryGenerator(spectral_pipeline=...)`).
+
+        Steps: crop by pixel (`crop`) or wavelength (`crop_lam`, Å); tile
+        `n_scatters` copies and scatter them through `noise_model` (a
+        `SpectralNoiseModel`; its normals from `generator`, seed 0 on the
+        fitter's device when None, or passed as `draws`); normalise by
+        `normalize`: an int pixel (as `normalize_pixel`), ("tophat",
+        centre_Å, width_Å) or ("bandpass", lo_Å, hi_Å) mean flux, or a
+        callable (spectra (B, L), λ (L,)) -> (B,) norms. The norm's
+        log10 |·| is appended as a feature. Wavelength options need the
+        library's `wavelengths`. Rows with a non-finite feature are
+        dropped."""
+        if self.spectra is None:
+            raise RuntimeError("library has no spectra")
+        dev = self.device
+        spec = torch.as_tensor(self.spectra, dtype=torch.float32, device=dev)
+        lam = (None if self.wavelengths is None
+               else np.asarray(self.wavelengths, np.float64))
+        if crop_lam is not None:
+            if lam is None:
+                raise ValueError("crop_lam needs library wavelengths")
+            i0, i1 = np.searchsorted(lam, crop_lam)
+            crop = (int(i0), int(i1))
+        if crop is not None:
+            spec = spec[:, crop[0]:crop[1]]
+            if lam is not None:
+                lam = lam[crop[0]:crop[1]]
+        params = torch.as_tensor(self.parameters, dtype=torch.float32,
+                                 device=dev)
+        reps = max(n_scatters, 1) if (n_scatters > 1
+                                      or noise_model is not None) else 1
+        spec, params = spec.repeat(reps, 1), params.repeat(reps, 1)
+        if noise_model is not None:
+            spec, _ = noise_model.apply(self._generator(generator, 0), spec,
+                                        draws=draws)
+        if normalize is None and normalize_pixel is not None:
+            normalize = int(normalize_pixel)
+        norm_flag = normalize
+        if normalize is not None:
+            if callable(normalize):
+                norm = torch.as_tensor(normalize(spec, lam),
+                                       dtype=torch.float32, device=dev)
+                norm_flag = getattr(normalize, "__name__", "callable")
+            elif isinstance(normalize, int):
+                norm = spec[:, normalize]
+            else:
+                kind = normalize[0]
+                if lam is None:
+                    raise ValueError(
+                        f"normalize={kind!r} needs library wavelengths")
+                if kind == "tophat":
+                    lo = normalize[1] - 0.5 * normalize[2]
+                    hi = normalize[1] + 0.5 * normalize[2]
+                elif kind == "bandpass":
+                    lo, hi = normalize[1], normalize[2]
+                else:
+                    raise ValueError(f"unknown normalize kind {kind!r}")
+                m = (lam >= lo) & (lam <= hi)
+                if not m.any():
+                    raise ValueError(
+                        f"normalize window [{lo}, {hi}] Å misses the grid")
+                m = torch.as_tensor(m, dtype=spec.dtype, device=dev)
+                norm = (spec * m).sum(-1) / m.sum()
+            norm = torch.where(norm == 0, 1.0, norm)
+            spec = torch.cat([spec / norm[:, None],
+                              torch.log10(torch.abs(norm))[:, None]], dim=1)
+        feats = spec.cpu().numpy()
+        good = np.isfinite(feats).all(axis=1)
+        source = np.tile(np.arange(self.spectra.shape[0]), reps)
+        self.features = feats[good]
+        self.feature_params = params.cpu().numpy()[good]
+        self.feature_source = source[good]
+        self.feature_flags = {"spectral": True, "crop": crop,
+                              "normalize": norm_flag,
+                              "n_scatters": n_scatters}
+        return self.features
 
     # ------------------------------------------------------------------
     def create_priors(self, overrides=None, extend_pct: float = 0.0):
@@ -326,8 +413,11 @@ class SBIFitter:
         fitter._set_posterior(params)
         flags = state.get("feature_flags")
         fitter.feature_flags = flags
+        # spectral features (`create_feature_array_from_raw_spectra`) have
+        # no photometric pipeline to replay
         fitter.feature_pipeline = (FeaturePipeline.from_flags(flags)
-                                   if flags else None)
+                                   if flags and not flags.get("spectral")
+                                   else None)
         return fitter
 
     # ------------------------------------------------------------------

@@ -9,14 +9,18 @@ every sample lies inside the prior box.
 
 Parameters are a nested dict/list of tensors in the JAX package's layout:
 `{"flow": {"blocks": [[{"w", "b"}, ...], ...]}, "theta_mean", "theta_std",
-"x_mean", "x_std"}`. Stacked parameters carry a leading member axis on every
+"x_mean", "x_std"}`, plus `"embed": [{"w", "b"}, ...]` with an embedding
+net (`embedding_dim`, `embedding_hidden`, `embedding_layers`): a He-initialised
+ReLU MLP that maps the standardised context to `embedding_dim` features
+before the flow's conditioners (for high-dimensional contexts such as
+spectra). Stacked parameters carry a leading member axis on every
 leaf (`theta_mean` is then 2-D); methods given stacked parameters return
 results with that axis in front, methods given one member's parameters
 return them without it. `params_from_numpy` / `params_to_numpy` carry a tree
 between the packages.
 
 Only `model="nsf"` is ported: the other names of the JAX zoo raise
-NotImplementedError naming ROADMAP M11, the embedding net M10.
+NotImplementedError naming ROADMAP M11.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from .mlp import mlp_apply, mlp_init
 
 __all__ = ["ConditionalFlow", "build_flow", "flatten_params",
            "unflatten_params", "params_from_numpy", "params_to_numpy",
@@ -116,7 +122,9 @@ class ConditionalFlow:
         model: "nsf".
         theta_dim / context_dim: dimensions.
         config: model hyperparameters (hidden_features, num_transforms,
-            num_bins, tail_bound, n_layers) and the optional support bounds.
+            num_bins, tail_bound, n_layers), the optional support bounds and
+            the optional embedding net (embedding_dim, embedding_hidden =
+            128, embedding_layers = 2).
         device: where the flow's constants live and its samples are drawn.
     """
 
@@ -133,12 +141,9 @@ class ConditionalFlow:
 
         self.device = torch.device(self.device)
         cfg = dict(self.config)
-        if cfg.pop("embedding_dim", None) is not None:
-            raise NotImplementedError(
-                "the embedding net for high-dimensional contexts is not "
-                "ported yet (ROADMAP M10)")
-        cfg.pop("embedding_hidden", None)
-        cfg.pop("embedding_layers", None)
+        self._embed_dim = cfg.pop("embedding_dim", None)
+        self._embed_hidden = int(cfg.pop("embedding_hidden", 128))
+        self._embed_layers = int(cfg.pop("embedding_layers", 2))
         lo = cfg.pop("support_low", None)
         hi = cfg.pop("support_high", None)
         if (lo is None) != (hi is None):
@@ -153,8 +158,9 @@ class ConditionalFlow:
                 raise ValueError("support_low must be < support_high")
             self._support = (torch.as_tensor(lo, device=self.device),
                              torch.as_tensor(hi, device=self.device))
+        flow_ctx = int(self._embed_dim or self.context_dim)
         if self.model == "nsf":
-            self._net = make_nsf(self.theta_dim, self.context_dim, **cfg,
+            self._net = make_nsf(self.theta_dim, flow_ctx, **cfg,
                                  device=self.device)
         elif self.model in _UNPORTED_MODELS:
             raise NotImplementedError(
@@ -209,6 +215,11 @@ class ConditionalFlow:
         xm, xs = stats(x_data, self.context_dim)
         params = {"flow": self._net.init(generator, k), "theta_mean": tm,
                   "theta_std": ts, "x_mean": xm, "x_std": xs}
+        if self._embed_dim is not None:
+            sizes = ([self.context_dim]
+                     + [self._embed_hidden] * self._embed_layers
+                     + [int(self._embed_dim)])
+            params["embed"] = mlp_init(generator, sizes, k, zero_last=False)
         return params if n_members is not None else _member(params, 0)
 
     @staticmethod
@@ -219,11 +230,17 @@ class ConditionalFlow:
         return tree_map(lambda a: a.unsqueeze(0), params), False
 
     def _context(self, params, x):
-        """x (B, C) or (K, B, C) -> standardised (K, B, C)."""
+        """x (B, C) or (K, B, C) -> the flow's (K, B, ·) context: x
+        standardised and, with an embedding net, embedded."""
         x = self._tensor(x)
         if x.ndim < 3:
             x = torch.atleast_2d(x).unsqueeze(0)
-        return (x - params["x_mean"].unsqueeze(1)) / params["x_std"].unsqueeze(1)
+        xs = (x - params["x_mean"].unsqueeze(1)) / params["x_std"].unsqueeze(1)
+        if self._embed_dim is None:
+            return xs
+        layers = params["embed"]
+        return mlp_apply(layers, xs.expand(layers[0]["w"].shape[0],
+                                           *xs.shape[1:]))
 
     def _to_base(self, params, theta, x):
         theta = self._tensor(theta)

@@ -4,8 +4,9 @@ A copy of the band table and curve synthesis of `synference_tpu/instruments.py`
 (importing it would pull in the JAX package's `__init__`): flat-top profiles
 with sigmoid edges and a small deterministic in-band ripple, built from
 published band parameters {code: (λ_pivot [Å], bandwidth [Å], peak
-throughput)}. The measured-curve loaders (SVO ascii, HDF5) are not part of
-this package yet.
+throughput)}. Measured curves load from SVO ascii files
+(`load_filters_svo_ascii`) or a filter-collection HDF5 file
+(`load_filters_hdf5`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ __all__ = [
     "NIRCAM_20",
     "realistic_filter",
     "load_instrument_filters",
+    "load_filters_svo_ascii",
+    "load_filters_hdf5",
 ]
 
 _UM = 1.0e4  # μm -> Å
@@ -177,3 +180,122 @@ def load_instrument_filters(codes=None, n_samples: int = 257) -> FilterSet:
     """FilterSet of realistic curves; default = the 63-filter paper survey."""
     codes = list(codes) if codes is not None else list(PAPER_SURVEY_63)
     return FilterSet([realistic_filter(c, n_samples) for c in codes])
+
+
+# ---------------------------------------------------------------------------
+# measured-curve loaders
+# ---------------------------------------------------------------------------
+
+_LAM_NAMES = ("lam", "lams", "lambda", "wavelength", "wavelengths",
+              "Wavelengths", "new_lam")
+_TRANS_NAMES = ("t", "transmission", "trans", "T", "throughput")
+
+
+def load_filters_svo_ascii(paths, codes=None) -> FilterSet:
+    """Measured SVO ascii transmission files -> FilterSet.
+
+    Each file holds two whitespace-separated columns (wavelength [Å],
+    transmission) with `#` comments. `paths` is a directory (its `*.dat`,
+    `*.txt` and `*.ascii` files), a glob pattern or a list of files. A
+    filter's code is the file stem with its first underscore made "/"
+    (`JWST_NIRCam.F200W.dat` -> `JWST/NIRCam.F200W`) unless `codes` gives
+    them."""
+    import glob
+    import os
+
+    if isinstance(paths, (str, os.PathLike)):
+        p = str(paths)
+        if os.path.isdir(p):
+            files = sorted(f for ext in ("*.dat", "*.txt", "*.ascii")
+                           for f in glob.glob(os.path.join(p, ext)))
+        else:
+            files = sorted(glob.glob(p)) or [p]
+    else:
+        files = [str(f) for f in paths]
+    if not files:
+        raise FileNotFoundError(f"no SVO ascii files found at {paths!r}")
+    if codes is not None and len(codes) != len(files):
+        raise ValueError("codes must match the number of files")
+    filters = []
+    for i, path in enumerate(files):
+        data = np.loadtxt(path, comments="#", ndmin=2)
+        if data.shape[1] < 2:
+            raise ValueError(f"{path}: need (wavelength, transmission) "
+                             "columns")
+        order = np.argsort(data[:, 0])
+        if codes is not None:
+            code = str(codes[i])
+        else:
+            stem = os.path.splitext(os.path.basename(path))[0]
+            code = stem.replace("_", "/", 1)
+        filters.append(Filter(code=code, lam=data[order, 0],
+                              transmission=np.maximum(data[order, 1], 0.0)))
+    return FilterSet(filters)
+
+
+def load_filters_hdf5(path, codes=None) -> FilterSet:
+    """A filter-collection HDF5 file -> FilterSet. Layouts, in order of
+    preference:
+
+    1. `FilterSet.to_hdf5`'s (root attribute `filter_codes` and
+       `filter_{i}` groups);
+    2. one group per filter holding a transmission dataset (t,
+       transmission, trans, T or throughput) and its own or a shared root
+       wavelength dataset (lam, lams, lambda, wavelength(s), Wavelengths or
+       new_lam); the code is the group's `filter_code`/`code` attribute or
+       its path;
+    3. a shared root wavelength dataset and one dataset per filter named by
+       its code.
+
+    `codes` selects a subset in that order (a missing code raises)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        if "filter_codes" in f.attrs and "filter_0" in f:
+            fs = FilterSet.from_hdf5(f)
+            return fs.subset(list(codes)) if codes is not None else fs
+
+        def find_lam(node):
+            for n in _LAM_NAMES:
+                if n in node and isinstance(node[n], h5py.Dataset):
+                    return np.asarray(node[n][:], np.float64)
+            return None
+
+        shared_lam = find_lam(f)
+        filters = []
+
+        def walk(node, prefix=""):
+            for name, item in node.items():
+                if isinstance(item, h5py.Group):
+                    tds = next((item[t] for t in _TRANS_NAMES
+                                if t in item
+                                and isinstance(item[t], h5py.Dataset)), None)
+                    if tds is None:
+                        walk(item, prefix + name + "/")
+                        continue
+                    lam = find_lam(item)
+                    lam = shared_lam if lam is None else lam
+                    if lam is None:
+                        raise ValueError(
+                            f"{path}:{name}: no wavelength dataset")
+                    # "/" in a code nests groups: the full path is the code
+                    code = str(item.attrs.get(
+                        "filter_code", item.attrs.get("code", prefix + name)))
+                    filters.append(Filter(
+                        code=code, lam=np.asarray(lam),
+                        transmission=np.maximum(
+                            np.asarray(tds[:], np.float64), 0.0)))
+                elif (isinstance(item, h5py.Dataset)
+                      and name not in _LAM_NAMES and shared_lam is not None
+                      and item.shape == shared_lam.shape):
+                    filters.append(Filter(
+                        code=prefix + name, lam=shared_lam,
+                        transmission=np.maximum(
+                            np.asarray(item[:], np.float64), 0.0)))
+
+        walk(f)
+    if not filters:
+        raise ValueError(f"{path}: no filter curves found (see "
+                         "load_filters_hdf5 for the accepted layouts)")
+    fs = FilterSet(filters)
+    return fs.subset(list(codes)) if codes is not None else fs

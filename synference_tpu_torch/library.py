@@ -12,7 +12,12 @@ Counterpart of `synference_tpu/library.py`. Two generation paths, chosen by
   `draw_from_hypercube`, bit for bit as the JAX package draws it for the
   same seed, then moved to the device. Z-sorted runs go through the same
   window engine with one plan for the run; the rest through the dense
-  `simulate`.
+  `simulate`. Emission-line columns (`emission_lines`) come from
+  `BatchSEDSimulator.line_quantities` per batch; spectra pass through a
+  `spectra.SpectralFeaturePipeline` (`spectral_pipeline`) onto an
+  instrument grid, recorded as `Wavelengths`. Every batch numbers its rows
+  from its offset in the run, so particle SFZHs follow the rows' global
+  indices.
 
 The window body of z-sorted runs is K1 (the fused body) or the staged body;
 `zsorted_fused="auto"` times both once per configuration on the card and
@@ -322,7 +327,8 @@ def _load_chunks(resume_path: str, meta: dict) -> list:
                             else _HOST_SAMPLER)}
             if got != meta:
                 break
-            chunks.append({k: ck[k] for k in ("phot", "spec", "supp")
+            chunks.append({k: ck[k] for k in ("phot", "spec", "supp",
+                                              "lines")
                            if k in ck.files})
     return chunks
 
@@ -432,8 +438,12 @@ class LibraryGenerator:
         supplementary: names of `supplementary.SUPP_FUNCTIONS` recorded per
             row (needs the dense spectra, so the host path).
         engine: "lhc", "sobol", "halton" or "random".
-        spectral_pipeline, emission_lines: not ported (ROADMAP M10 and
-            M9); anything but None / () raises.
+        spectral_pipeline: a `spectra.SpectralFeaturePipeline`; with
+            `want_spectra` the stored spectra are its output on its
+            instrument grid (needs a redshift parameter).
+        emission_lines: line ids of the grid's line tables; each adds
+            `line_flux_{id}` [erg/s/cm²] and `line_ew_{id}` (observed EW,
+            Å) supplementary columns, after any `supplementary` ones.
         embed_grid: store the grid's spectra in the Model group (a
             self-contained file); by default only its name, axes and
             content hash.
@@ -445,14 +455,6 @@ class LibraryGenerator:
                  engine: str = "lhc", spectral_pipeline=None,
                  emission_lines: tuple = (), embed_grid: bool = False, *,
                  device):
-        if spectral_pipeline is not None:
-            raise NotImplementedError(
-                "spectral_pipeline (spectra on an instrument grid) is not "
-                "ported yet (ROADMAP M10)")
-        if emission_lines:
-            raise NotImplementedError(
-                "emission_lines (BatchSEDSimulator.line_quantities) are not "
-                "ported yet (ROADMAP M9)")
         self.device = torch.device(device)
         if self.device != simulator.device:
             raise ValueError(f"generator device {self.device} differs from "
@@ -467,6 +469,8 @@ class LibraryGenerator:
         self.param_ranges = dict(param_ranges)
         self.unlog_keys = list(unlog_keys or [])
         self.supplementary = tuple(supplementary)
+        self.spectral_pipeline = spectral_pipeline
+        self.emission_lines = tuple(emission_lines)
         self.engine = engine
         self.embed_grid = bool(embed_grid)
         # the last "auto" resolution: its source ("probe", "file",
@@ -538,7 +542,8 @@ class LibraryGenerator:
             lib = self._empty_library(want_spectra)
             self._save(out_path, lib)
             return lib
-        device_ok = (not wide and self.engine in ("lhc", "random")
+        device_ok = (not wide and not self.emission_lines
+                     and self.engine in ("lhc", "random")
                      and "redshift" in sim.param_names
                      and sim._window_supported())
         if device_sampling is None:
@@ -546,9 +551,9 @@ class LibraryGenerator:
         elif device_sampling and not device_ok:
             raise ValueError(
                 "device_sampling=True, but this generation needs the host "
-                "sampler (spectra or supplementary quantities, a scipy QMC "
-                "engine, a fixed redshift, or a model the window engine "
-                "cannot run)")
+                "sampler (spectra, supplementary quantities or emission "
+                "lines, a scipy QMC engine, a fixed redshift, or a model the "
+                "window engine cannot run)")
         if device_sampling:
             lib = self._generate_device(n, batch_size, seed, resume_path,
                                         zsorted_fused)
@@ -583,41 +588,64 @@ class LibraryGenerator:
                     zsorted_fused, sub, kc, w_cols, theta_dev[:batch_size],
                     n_batches)
 
-                def batch_fn(t):
+                def batch_fn(t, i):
                     return {"photometry_njy": sim.photometry_zsorted_device(
-                        t, sub_chunk=sub, kc=kc, w_cols=w_cols, fused=fuse)}
+                        t, sub_chunk=sub, row_offset=i, kc=kc,
+                        w_cols=w_cols, fused=fuse)}
         if batch_fn is None:
             theta_dev, row_order = self._padded(theta, n_pad), "input"
             self._check_fused_request(zsorted_fused)
 
-            def batch_fn(t):
-                return sim.simulate(t, want_spectra=wide)
+            def batch_fn(t, i):
+                return sim.simulate(t, want_spectra=wide, row_offset=i)
 
         meta = {"n": n, "batch_size": batch_size, "seed": seed,
                 "order": row_order, "sampler": _HOST_SAMPLER}
 
         def run(i):
             t = theta_dev[i:i + batch_size]
-            out = batch_fn(t)
+            out = batch_fn(t, i)
             arrays = {"phot": out["photometry_njy"]}
             if want_spectra:
                 arrays["spec"] = out["fnu_njy"]
+                if self.spectral_pipeline is not None:
+                    z = t[:, sim.param_names.index("redshift")]
+                    arrays["spec"] = self.spectral_pipeline(out["fnu_njy"], z)
             if self.supplementary:
                 from .supplementary import compute_supplementary
 
                 arrays["supp"] = compute_supplementary(self.supplementary, sim,
                                                        t, out)
+            if self.emission_lines:
+                lq = sim.line_quantities(t, self.emission_lines, row_offset=i)
+                arrays["lines"] = torch.as_tensor(
+                    np.concatenate([lq["flux"], lq["ew_obs"]], axis=1))
             return arrays
 
         chunks = self._run_batches(run, n_pad, batch_size, meta, resume_path)
         lib = self._library(theta, chunks["phot"][:n])
         if want_spectra:
             lib["spectra"] = chunks["spec"][:n].T
-            lib["wavelengths"] = np.asarray(sim.grid.lam)
-        if self.supplementary:
-            lib["supplementary_parameters"] = chunks["supp"][:n].T
-            lib["supplementary_parameter_names"] = list(self.supplementary)
+            lib["wavelengths"] = self._wavelengths()
+        supp = [chunks[k][:n].T for k in ("supp", "lines") if k in chunks]
+        if supp:
+            lib["supplementary_parameters"] = np.concatenate(supp, axis=0)
+            lib["supplementary_parameter_names"] = self._supp_names()
         return lib
+
+    def _wavelengths(self) -> np.ndarray:
+        """The grid of the stored spectra: the pipeline's instrument grid,
+        else the simulator's rest grid."""
+        if self.spectral_pipeline is not None:
+            return np.asarray(self.spectral_pipeline.obs_lam.cpu())
+        return np.asarray(self.simulator.grid.lam)
+
+    def _supp_names(self) -> list:
+        """Supplementary column names: the quantities, then the line fluxes
+        and the line EWs."""
+        return (list(self.supplementary)
+                + [f"line_flux_{i}" for i in self.emission_lines]
+                + [f"line_ew_{i}" for i in self.emission_lines])
 
     def _generate_device(self, n, batch_size, seed, resume_path,
                          zsorted_fused) -> dict:
@@ -631,17 +659,18 @@ class LibraryGenerator:
             fuse = self._choose_zsorted_fused(zsorted_fused, sub, kc, w_cols,
                                               theta[:bs], n_pad // bs)
 
-            def chunk_fn(t):
+            def chunk_fn(t, row_offset):
                 return sim.photometry_zsorted_device(
-                    t, sub_chunk=sub, kc=kc, w_cols=w_cols, fused=fuse)
+                    t, sub_chunk=sub, row_offset=row_offset, kc=kc,
+                    w_cols=w_cols, fused=fuse)
         else:  # the window is the whole table: the dense path
             self._check_fused_request(zsorted_fused)
             chunk_fn = sim.photometry
         meta = {"n": n, "batch_size": bs, "seed": seed, "order": "zsorted",
                 "sampler": _DEVICE_SAMPLER}
         chunks = self._run_batches(
-            lambda i: {"phot": chunk_fn(theta[i:i + bs])}, n_pad, bs, meta,
-            resume_path)
+            lambda i: {"phot": chunk_fn(theta[i:i + bs], row_offset=i)},
+            n_pad, bs, meta, resume_path)
         return self._library(theta[:n].cpu().numpy(), chunks["phot"][:n])
 
     def _draw_sorted(self, n: int, batch_size: int, seed: int):
@@ -784,12 +813,13 @@ class LibraryGenerator:
         lib = self._library(np.zeros((0, len(sim.param_names)), np.float32),
                             np.zeros((0, len(sim.filters)), np.float32))
         if want_spectra:
-            lib["spectra"] = np.zeros((sim.grid.n_wav, 0), np.float32)
-            lib["wavelengths"] = np.asarray(sim.grid.lam)
-        if self.supplementary:
-            lib["supplementary_parameters"] = np.zeros(
-                (len(self.supplementary), 0), np.float32)
-            lib["supplementary_parameter_names"] = list(self.supplementary)
+            lib["wavelengths"] = self._wavelengths()
+            lib["spectra"] = np.zeros((len(lib["wavelengths"]), 0), np.float32)
+        names = self._supp_names()
+        if names:
+            lib["supplementary_parameters"] = np.zeros((len(names), 0),
+                                                       np.float32)
+            lib["supplementary_parameter_names"] = names
         return lib
 
     def _save(self, out_path: str | None, lib: dict) -> None:

@@ -16,8 +16,15 @@ The exact route (`roll`/`bank`) snaps each shift to 1/8 column, s4 = 8m + rs
 rs read at offset m (`build_subshift_table`): K3, `shift_photometry_num`
 (`csrc/shift_num.cu`), one kernel for both variant names. It visits the rows
 in shift order (`shift_row_order`) and reads the table from its
-band-adjacent copy (`band_adjacent_table`). The table-free
-`conv` engine is not ported yet (ROADMAP M9).
+band-adjacent copy (`band_adjacent_table`).
+
+The table-free `conv` engine (`conv_photometry_num`) computes the same knot
+numerators without a stored knot matrix: row k of the matrix IS the
+extended filter table read at offset k·δ, M[l, k, f] = G[f, l + kδ], so each
+chunk of knots is gathered from G, multiplied and released. With per-filter
+support columns it takes the windowed form (`_conv_num_windowed`), where
+each group of filters reads only the λ window that can reach it. It is
+plain PyTorch: a strided correlation, not a TPU kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ __all__ = [
     "KNOT_DELTA",
     "KNOT_INTERP_ORDER",
     "build_knot_matrix_device",
+    "conv_photometry_num",
     "build_den_table",
     "build_subshift_table",
     "shift_decompose",
@@ -409,3 +417,106 @@ def _knot_interp(vals, s, n_knots: int, delta: int, order: int):
     h01 = -2.0 * t3 + 3.0 * t2
     h11 = t3 - t2
     return h00 * v0 + h10 * m0 + h01 * v1 + h11 * m1
+
+
+def _bf16(x):
+    """x rounded to bf16 and back: the knot products' input type."""
+    return x.to(torch.bfloat16).float()
+
+
+def conv_photometry_num(fnu_w, ext_table, n_knots: int, s,
+                        delta: int = KNOT_DELTA,
+                        order: int = KNOT_INTERP_ORDER,
+                        chunk_knots: int = 16, l_offset: int = 0,
+                        filter_cols=None, group_filters: int = 8):
+    """(B, F) numerators from chunked on-the-fly knot products, the same
+    numbers as the interp variant's knot product without a stored knot
+    matrix.
+
+    Args:
+        fnu_w: (B, L) flux × dλ/λ on rest columns l_offset .. l_offset+L−1.
+        ext_table: (F, n_cols) transmissions at λ0·10^{jΔ}
+            (`FilterSet.shifted_table`).
+        s: (B,) real column shifts log10(1+z)/Δ.
+        filter_cols: optional per-filter (c0, c1) nonzero column ranges of
+            `ext_table`; given, the windowed engine runs.
+    Inputs of each product are rounded to bf16 and accumulated in fp32, as
+    in `fused_sed.knot_product`. Pair with the den knots of
+    `build_den_table` interpolated the same way.
+    """
+    b, n_l = fnu_w.shape
+    f = ext_table.shape[0]
+    need = l_offset + n_l + (n_knots - 1) * delta + 1
+    if ext_table.shape[1] < need:
+        ext_table = torch.nn.functional.pad(
+            ext_table, (0, need - ext_table.shape[1]))
+    g_t = _bf16(ext_table.T)  # (n_cols, F)
+    fw = _bf16(fnu_w)
+    if filter_cols is not None:
+        num_all = _conv_num_windowed(fw, g_t, n_knots, delta, chunk_knots,
+                                     l_offset, filter_cols, group_filters)
+        return _knot_interp(num_all, s, n_knots, delta, order)
+    l_idx = torch.arange(l_offset, l_offset + n_l,
+                         device=fw.device)[:, None]  # (L, 1)
+    chunks = []
+    for k0 in range(0, n_knots, chunk_knots):
+        kc = min(chunk_knots, n_knots - k0)
+        col = (k0 + torch.arange(kc, device=fw.device)) * delta
+        m = g_t[l_idx + col[None, :]]  # (L, Kc, F), released after the product
+        chunks.append((fw @ m.reshape(n_l, kc * f)).reshape(b, kc, f))
+    return _knot_interp(torch.cat(chunks, dim=1), s, n_knots, delta, order)
+
+
+def _conv_num_windowed(fw, g_t, n_knots: int, delta: int, chunk_knots: int,
+                       l_offset: int, filter_cols, group_filters: int):
+    """(B, K, F) windowed conv numerators.
+
+    For filter f with support [c0_f, c1_f) on the extended table,
+    num[b, k, f] = Σ_l fw[b, l]·G[f, l + kδ] is nonzero only for l in
+    [c0_f − kδ, c1_f − kδ). Filters sorted by c0 form groups of
+    `group_filters`; each (group, knot chunk) is one (B, V) @ (V, Kc·Fg)
+    product over a window of V columns, the same V for every pair (the
+    widened columns meet zero transmission). fw is zero-padded on the blue
+    side so every window lies inside it.
+    """
+    b, n_l = fw.shape
+    f = g_t.shape[1]
+    c0 = np.array([c[0] for c in filter_cols])
+    c1 = np.array([c[1] for c in filter_cols])
+    order_f = np.argsort(c0, kind="stable")
+    groups = []
+    for gi in range(0, f, group_filters):
+        idx = order_f[gi:gi + group_filters]
+        groups.append((idx, int(c0[idx].min()), int(c1[idx].max())))
+    v_win = (max(a1 - a0 for _, a0, a1 in groups)
+             + (chunk_knots - 1) * delta)
+    plan = []  # (k0, kc, [(idx, w_start), ...])
+    w_min = l_offset
+    for k0 in range(0, n_knots, chunk_knots):
+        kc = min(chunk_knots, n_knots - k0)
+        row = []
+        for idx, _, a1 in groups:
+            w_start = min(a1 - k0 * delta, l_offset + n_l) - v_win
+            w_min = min(w_min, w_start)
+            row.append((idx, w_start))
+        plan.append((k0, kc, row))
+    fw_pad = torch.nn.functional.pad(fw, (l_offset - w_min, 0))
+    dev = fw.device
+    chunk_outs = []
+    for k0, kc, row in plan:
+        col = (k0 + torch.arange(kc, device=dev)) * delta
+        per_group = []
+        for idx, w_start in row:
+            win = fw_pad[:, w_start - w_min:w_start - w_min + v_win]
+            # columns below l_offset lie in the zero pad: the clamped G rows
+            # they gather multiply zeros
+            j = torch.clamp(torch.arange(w_start, w_start + v_win,
+                                         device=dev), min=0)[:, None]
+            g = g_t[:, torch.as_tensor(idx, device=dev)]
+            m = g[j + col[None, :]]  # (V, Kc, Fg)
+            per_group.append((win @ m.reshape(v_win, kc * len(idx)))
+                             .reshape(b, kc, len(idx)))
+        chunk_outs.append(torch.cat(per_group, dim=2))
+    num_sorted = torch.cat(chunk_outs, dim=1)  # (B, K, F sorted)
+    inv = torch.as_tensor(np.argsort(order_f), device=dev)
+    return num_sorted[:, :, inv]

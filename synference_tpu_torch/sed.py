@@ -17,16 +17,28 @@ order. Three photometry routes, picked by `photometry_backend` and
   the whole λ support in one kernel) when `_mega_supported`, else the plain
   knot path (`_photometry_fused`); spectra calls integrate the observed
   f_ν against the plain knot matrix;
+- "pallas" + "conv": the same knot numerators without a stored knot
+  matrix (`conv_photometry_num`, plain torch), the IGM as a per-galaxy row
+  lerp;
 - "pallas" + "roll" / "bank": exact numerators at the 1/8-column snapped
   shift from K3 (`ops/photometry_kernel.py`), one kernel for both names.
 
-The window engine (`photometry_zsorted_device`) takes θ rows sorted by
-redshift: each sub-chunk reads only a window of λ columns and knots, through
-K1 (`fused=True`) or the staged plain body. When a window would be the whole
-table it takes the dense path.
+The window engine (`photometry_zsorted_device`, and its host form
+`photometry_zsorted`) takes θ rows sorted by redshift: each sub-chunk reads
+only a window of λ columns and knots, through K1 (`fused=True`, interp
+only) or the staged plain body (interp and conv; conv builds its knot
+matrix when the engine first runs). When a window would be the whole table
+it takes the dense path.
 
-Not ported (NotImplementedError names the ROADMAP item): the table-free
-`conv` engine and particle SFZHs (M9).
+"auto" keeps the interp knot matrix at any size on every device: the JAX
+package switches to conv above 64 MiB only to stay under its TPU
+compile-request cap. Particle SFZHs (`n_particles`) draw each row's star
+particles from a counter-based hash of (particle_seed, the row's global
+index, θ's bits, particle number), so a row's realization depends on the
+seed, its index in the run and θ only, whatever the batching: the JAX
+package's `jax.random` stream cannot be matched. `line_quantities` gives
+per-line luminosities, fluxes and equivalent widths from the grid's line
+tables.
 """
 
 from __future__ import annotations
@@ -44,14 +56,15 @@ from .igm import igm_transmission
 from .ops.fused_sed import (fused_sed_photometry,
                             fused_window_photometry_grouped, knot_product,
                             prepare_megakernel_tables, window_ratio)
-from .ops.photometry_kernel import (KNOT_INTERP_ORDER, N_SUB,
+from .ops.photometry_kernel import (KNOT_INTERP_ORDER, N_SUB, _knot_interp,
                                     build_den_table, build_knot_matrix_device,
-                                    build_subshift_table, shift_decompose,
-                                    shift_photometry_num)
+                                    build_subshift_table, conv_photometry_num,
+                                    shift_decompose, shift_photometry_num)
 from .sfh import make_age_sampling, sfh_weights, zdist_weights
 from .units import C_AA_S
 
-__all__ = ["EmissionConfig", "BatchSEDSimulator"]
+__all__ = ["EmissionConfig", "BatchSEDSimulator", "particle_uniforms",
+           "particle_cells", "particle_counts_sfzh"]
 
 _FOUR_PI = 4.0 * np.pi
 # elements per IGM evaluation: rows × λ × 39 Lyman-series terms, bounding
@@ -59,8 +72,66 @@ _FOUR_PI = 4.0 * np.pi
 _IGM_CHUNK_ELEMS = 1 << 24
 _IGM_ROWS = 512  # rows of the T_igm(λ_rest, z) table over log10(1+z)
 _XLA_CHUNK = 1024  # galaxies per exact-path step (bounds the (B, F, L) slices)
-# knot-matrix size above which the JAX package's "auto" variant picks conv
-_CONV_KNOT_BYTES = 64 * 1024 * 1024
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x, m: int):
+    """(x · m) mod 2³² for int64 x in [0, 2³²) without int64 overflow: m is
+    split into 16-bit halves."""
+    lo = x * (m & 0xFFFF)
+    hi = ((x * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _hash32(x):
+    """A 32-bit integer finaliser (lowbias32) on int64 tensors holding
+    values in [0, 2³²): the counter-based generator of particle draws."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def particle_uniforms(seed: int, rows, theta, n: int):
+    """(B, n) float64 uniforms in [0, 1) for rows with global indices `rows`
+    (B,) int64 and parameters `theta` (B, P), whose float32 bit patterns are
+    folded in: a pure function of (seed, row index, θ, particle number), 53
+    bits each, the same on every device and for any batching."""
+    dev = rows.device
+    h_seed = int(_hash32(torch.tensor(int(seed) & _MASK32)))
+    h_row = _hash32(_hash32((rows & _MASK32) ^ h_seed) ^ (rows >> 32))
+    bits = theta.float().contiguous().view(torch.int32).to(
+        torch.int64) & _MASK32
+    for j in range(bits.shape[1]):
+        h_row = _hash32(h_row ^ bits[:, j])
+    j = _hash32(torch.arange(n, dtype=torch.int64, device=dev))
+    a = _hash32(h_row[:, None] ^ j[None, :])
+    b = _hash32(a ^ 0x9E3779B9)
+    return ((a >> 5).double() * 67108864.0 + (b >> 6).double()) / 2.0**53
+
+
+def particle_cells(weights, seed: int, rows, theta, n: int):
+    """(B, n) int64 cell indices: n categorical draws per row over the
+    (B, C) non-negative `weights`, by inverse CDF (float64 cumulative sum)
+    at `particle_uniforms`. Rows with no weight draw uniformly."""
+    w = weights.double()
+    empty = w.sum(dim=1, keepdim=True) <= 0.0
+    w = torch.where(empty, 1.0, w)
+    cdf = torch.cumsum(w, dim=1)
+    target = particle_uniforms(seed, rows, theta, n) * cdf[:, -1:]
+    cells = torch.searchsorted(cdf, target.contiguous(), right=True)
+    return torch.clamp(cells, max=w.shape[1] - 1)
+
+
+def particle_counts_sfzh(cells, n_cells: int, n: int):
+    """(B, n) cell draws -> (B, n_cells) float32 SFZH of unit mass: the
+    count of draws in each cell over n (the JAX package's bookkeeping)."""
+    counts = torch.zeros(cells.shape[0], n_cells, dtype=torch.float32,
+                         device=cells.device)
+    counts.scatter_add_(1, cells, torch.ones(cells.shape, dtype=torch.float32,
+                                             device=cells.device))
+    return counts / n
 
 
 @dataclass(frozen=True)
@@ -127,17 +198,21 @@ class BatchSEDSimulator:
             per-galaxy path) or "auto": "pallas" on a CUDA device, else
             "xla".
         photometry_variant: "interp" (knot product + shift interpolation),
+            "conv" (the same numerators without a stored knot matrix),
             "roll" / "bank" (exact numerators, both K3) or "auto"
-            ("interp"). "conv", and "auto" where the JAX package would pick
-            conv (knot matrix above 64 MiB), raise NotImplementedError.
+            ("interp" at any knot-matrix size).
         photometry_knot_delta: knot spacing in λ columns; None = constant
             ~0.009 dex physical spacing.
         photometry_interp_order: 1 (lerp) or 3 (monotone cubic, default).
-        n_particles: particle SFZHs; not ported, must be None.
+        n_particles: draw this many star particles per galaxy from its
+            parametric SFZH (None: use the SFZH itself); `particle_seed`
+            seeds the draws (see `particle_cells`).
         device: where every table lives and every batch runs. Required.
 
-    The window engine needs the "interp" tables and runs whatever the
-    backend; the backend picks the dense path's route.
+    The window engine needs the "interp" or "conv" tables and runs whatever
+    the backend; the backend picks the dense path's route. Calls that take
+    `row_offset` number their rows from it: particle draws follow each
+    row's global index.
     """
 
     # tables another simulator's arrays (the JAX package's, as numpy) can
@@ -164,12 +239,10 @@ class BatchSEDSimulator:
         photometry_knot_delta: int | None = None,
         photometry_interp_order: int | None = None,
         n_particles: int | None = None,
+        particle_seed: int = 0,
         *,
         device,
     ):
-        if n_particles is not None:
-            raise NotImplementedError(
-                "particle SFZHs (n_particles) are not ported yet (ROADMAP M9)")
         if not grid.is_log_uniform:
             grid = grid.resampled_loglam()
         dev = torch.device(device)
@@ -182,6 +255,8 @@ class BatchSEDSimulator:
         self.emission = emission or EmissionConfig()
         self.cosmology = cosmology
         self.fixed_params = dict(fixed_params or {})
+        self.n_particles = None if n_particles is None else int(n_particles)
+        self.particle_seed = int(particle_seed)
         f32 = torch.float32
 
         self._sampling = make_age_sampling(grid.age_bin_edges_yr, dev, n_age_sub)
@@ -257,12 +332,12 @@ class BatchSEDSimulator:
         self._interp_order = (KNOT_INTERP_ORDER if photometry_interp_order
                               is None else int(photometry_interp_order))
         n_knots_est = int(self._max_shift // self._knot_delta) + 2
-        self._variant = self._pick_variant(photometry_variant, n_knots_est)
+        self._variant = self._pick_variant(photometry_variant)
 
         self._lam_support = None
         self._subshift_table = None
         self._knot_matrix = self._m_igm = None
-        if self._variant == "interp":
+        if self._variant in ("interp", "conv"):
             self._build_knot_tables(lam, wlam, n_knots_est)
             ms_den = max(self._max_shift,
                          (self._n_knots - 1) * self._knot_delta)
@@ -274,36 +349,31 @@ class BatchSEDSimulator:
         self._den_table = torch.as_tensor(
             build_den_table(filters, lam, wlam, self._filter_dlog, ms_den),
             device=dev)
-        if self._variant == "interp":
+        if self._variant in ("interp", "conv"):
             rows = np.minimum(
                 np.arange(self._n_knots) * self._knot_delta * N_SUB,
                 self._den_table.shape[0] - 1)
             self._den_knots = self._den_table[torch.as_tensor(rows)].clone()
             self._derive_tables()
 
-    def _pick_variant(self, requested: str, n_knots_est: int) -> str:
-        """The photometry variant, without the JAX package's silent switches
-        (auto → conv, bank → roll): conv is not ported, and roll and bank
-        are one kernel here."""
+    @staticmethod
+    def _pick_variant(requested: str) -> str:
+        """The photometry variant, without the JAX package's silent switches:
+        "auto" is "interp" at any knot-matrix size (the JAX package picks
+        conv above 64 MiB for its TPU compile-request cap), and roll and bank
+        are one kernel here (no bank → roll switch)."""
         if requested == "auto":
-            knot_bytes = self.grid.n_wav * n_knots_est * self._f8 * 4
-            if knot_bytes > _CONV_KNOT_BYTES:
-                raise NotImplementedError(
-                    f"the knot matrix would take {knot_bytes} bytes, where "
-                    "the JAX package switches to the table-free 'conv' "
-                    "engine, which is not ported yet (ROADMAP M9); pass "
-                    "photometry_variant='interp' or 'roll'")
             return "interp"
-        if requested == "conv":
-            raise NotImplementedError(
-                "photometry_variant='conv' is not ported yet (ROADMAP M9)")
-        if requested not in ("interp", "roll", "bank"):
+        if requested not in ("interp", "conv", "roll", "bank"):
             raise ValueError(f"unknown photometry_variant {requested!r}")
         return requested
 
     def _build_knot_tables(self, lam, wlam, n_knots_est: int) -> None:
-        """The interp tables: λ-support trimming, the knot matrix (plain and
-        IGM-baked) and the trimmed spectra, dust curve and dλ/λ."""
+        """The interp and conv tables: λ-support trimming, the trimmed
+        spectra, dust curve and dλ/λ, each filter's support columns on the
+        extended table, and for interp the knot matrix (plain and
+        IGM-baked); conv builds its window knot matrix on first use
+        (`_window_knot_matrix`)."""
         grid, filters = self.grid, self.filters
         # λ-support trimming: rest columns no filter reaches at any knot
         # shift contribute nothing to any numerator
@@ -319,10 +389,18 @@ class BatchSEDSimulator:
         # rest-column range the filters occupy at z=0: the window engine
         # places each sub-chunk's λ window from it
         self._filter_support_cols = (int(m0), int(m1))
-        self._knot_matrix, self._n_knots = build_knot_matrix_device(
-            filters, lam, self._filter_dlog, self._max_shift, grid.n_wav,
-            self.device, delta=self._knot_delta, l_range=self._lam_support)
-        self._m_igm = self._bake_igm_into_knots(self._knot_matrix)
+        table = self._filter_table.cpu().numpy()
+        self._filter_cols = tuple(
+            (int(nz[0]), int(nz[-1]) + 1) if len(nz) else (0, 1)
+            for nz in (np.nonzero(row > 0.0)[0] for row in table))
+        if self._variant == "interp":
+            self._knot_matrix, self._n_knots = build_knot_matrix_device(
+                filters, lam, self._filter_dlog, self._max_shift, grid.n_wav,
+                self.device, delta=self._knot_delta,
+                l_range=self._lam_support)
+            self._m_igm = self._bake_igm_into_knots(self._knot_matrix)
+        else:
+            self._n_knots = int(self._max_shift // self._knot_delta) + 2
         l0, l1 = self._sup
         em = self.emission
         types = em.reprocessed_types or (em.incident_type,)
@@ -364,12 +442,34 @@ class BatchSEDSimulator:
                 * igm.T[:, :, None]).reshape(n_rows, self._n_knots * f8)
 
     def _derive_tables(self) -> None:
-        """The kernels' views of the interp tables, shared by K1's windows
-        and K2: spectra with dλ/λ folded in, the IGM-baked knot matrix in
-        bf16 and the den knots padded to F8 columns."""
-        self._mega_tables = prepare_megakernel_tables(
-            self._t_mix, self._wlam_sup, self._dust_curve_sup, self._m_igm,
-            self._den_knots, self._f8)
+        """The den knots padded to F8 columns and, for interp, the kernels'
+        views of its tables, shared by K1's windows and K2: spectra with
+        dλ/λ folded in and the IGM-baked knot matrix in bf16."""
+        den = torch.zeros(self._den_knots.shape[0], self._f8,
+                          dtype=torch.float32, device=self.device)
+        den[:, :self._den_knots.shape[1]] = self._den_knots
+        self._den_f8 = den
+        self._mega_tables = None
+        if self._variant == "interp":
+            self._mega_tables = prepare_megakernel_tables(
+                self._t_mix, self._wlam_sup, self._dust_curve_sup,
+                self._m_igm, self._den_knots, self._f8)
+
+    def _window_knot_matrix(self):
+        """The window engine's IGM-baked knot matrix: interp's own; conv
+        builds it on first use and keeps it in bf16 (the knot product's
+        input type; fp32 would double its memory)."""
+        if self._variant == "interp":
+            return self._m_igm
+        if getattr(self, "_conv_m_igm", None) is None:
+            table, n_knots = build_knot_matrix_device(
+                self.filters, self.grid.lam, self._filter_dlog,
+                self._max_shift, self.grid.n_wav, self.device,
+                delta=self._knot_delta, l_range=self._lam_support)
+            assert n_knots == self._n_knots
+            self._conv_m_igm = self._bake_igm_into_knots(table).to(
+                torch.bfloat16)
+        return self._conv_m_igm
 
     def load_state(self, arrays: dict) -> None:
         """Overwrite tables with another simulator's (e.g. the JAX package's,
@@ -406,7 +506,8 @@ class BatchSEDSimulator:
                 self._components[name[1]] = new
             else:
                 setattr(self, f"_{name}", new)
-        if self._variant == "interp":
+        if self._variant in ("interp", "conv"):
+            self._conv_m_igm = None
             self._derive_tables()
 
     # ------------------------------------------------------------------
@@ -434,19 +535,24 @@ class BatchSEDSimulator:
     # ------------------------------------------------------------------
     # θ plumbing
     # ------------------------------------------------------------------
-    def theta_dict(self, theta):
-        """(B, P) θ -> {name: (B,) tensor}, merged with fixed params; names
-        prefixed "log10_" also provide the unlogged alias."""
+    def theta_dict(self, theta, row_offset: int = 0):
+        """(B, P) θ -> {name: (B,) tensor}, merged with fixed params (an
+        array-valued one, such as dense-basis `fractions`, becomes (B, N));
+        names prefixed "log10_" also provide the unlogged alias. "_row_idx"
+        holds each row's global index, `row_offset` + its position."""
         b = theta.shape[0]
         d = {n: theta[:, i].contiguous()
              for i, n in enumerate(self.param_names)}
         for k, v in self.fixed_params.items():
-            d.setdefault(k, torch.full((b,), float(v), dtype=torch.float32,
-                                       device=theta.device))
+            v = torch.as_tensor(np.asarray(v, np.float32),
+                                device=theta.device)
+            d.setdefault(k, v.expand(b, *v.shape).contiguous())
         for k in list(d.keys()):
             if k.startswith("log10_"):
                 d.setdefault(k[6:], 10.0 ** d[k])
         d["_theta"] = theta
+        d["_row_idx"] = int(row_offset) + torch.arange(
+            b, dtype=torch.int64, device=theta.device)
         return d
 
     @staticmethod
@@ -491,6 +597,14 @@ class BatchSEDSimulator:
             w_ax = self._axis_delta_weights(ax_vals, params[ax_name])
             sfzh = sfzh[..., None] * w_ax.reshape(
                 w_ax.shape[0], *([1] * (sfzh.ndim - 1)), -1)
+        if self.n_particles is not None:
+            # multinomial particle realization over the cells
+            flat = sfzh.reshape(sfzh.shape[0], -1)
+            cells = particle_cells(flat, self.particle_seed,
+                                   params["_row_idx"], params["_theta"],
+                                   self.n_particles)
+            sfzh = particle_counts_sfzh(cells, flat.shape[1],
+                                        self.n_particles).reshape(sfzh.shape)
         sfzh = sfzh * mass.reshape(-1, *([1] * (sfzh.ndim - 1)))
         b = sfzh.shape[0]
         sfh_mass = sfzh.reshape(b, sfzh.shape[1], -1).sum(dim=2)
@@ -622,9 +736,10 @@ class BatchSEDSimulator:
         """(B, L) f_ν, (B,) z -> (B, F): the spectra path's filter integral.
 
         "xla": `_photometry_one`. "pallas": interp integrates against the
-        plain knot matrix with den knots interpolated at the same knots;
-        roll and bank take K3's exact numerators at the 1/8-column snapped
-        shift over the exact den of that shift."""
+        plain knot matrix, conv against the extended filter table, both with
+        den knots interpolated at the same knots; roll and bank take K3's
+        exact numerators at the 1/8-column snapped shift over the exact den
+        of that shift."""
         if self.photometry_backend != "pallas":
             return self._photometry_one(fnu_njy, z)
         n_f = len(self.filters)
@@ -633,22 +748,44 @@ class BatchSEDSimulator:
         if self._variant == "interp":
             l0, l1 = self._sup
             acc = knot_product(fnu_w[:, l0:l1], self._knot_matrix)
-            return window_ratio(acc, self._mega_tables["den"], s, None,
+            return window_ratio(acc, self._den_f8, s, None,
                                 self._n_knots, self._knot_delta,
                                 self._interp_order)[:, :n_f]
+        if self._variant == "conv":
+            l0, l1 = self._sup
+            return self._conv_ratio(fnu_w[:, l0:l1], s)
         s4 = shift_decompose(s, self._max_shift)
         num = shift_photometry_num(fnu_w, self._subshift_table, s4)[:, :n_f]
         return num / torch.clamp(self._den_table[s4.long()], min=1.0e-30)
 
+    def _conv_ratio(self, fw, s):
+        """(B, L_sup) flux × dλ/λ over the λ support + (B,) shifts -> (B, F)
+        num/den of the conv engine (windowed over each filter's support)."""
+        num = conv_photometry_num(
+            fw, self._filter_table, self._n_knots, s, delta=self._knot_delta,
+            order=self._interp_order, l_offset=self._sup[0],
+            filter_cols=self._filter_cols)
+        den = _knot_interp(self._den_knots, s, self._n_knots,
+                           self._knot_delta, self._interp_order)
+        return num / torch.clamp(den, min=1.0e-30)
+
     def _photometry_fused(self, lnu, z):
         """(B, L_sup) support-trimmed rest L_ν + (B,) z -> (B, F) nJy over
-        the whole knot table (the plain route K2 replaces): the IGM rides
-        the IGM-baked knot matrix, and the observed-frame scale is a scalar
-        per galaxy because photometry is linear in f_ν."""
+        the whole knot table (the plain route K2 replaces): for interp the
+        IGM rides the IGM-baked knot matrix, for conv it is a per-galaxy row
+        lerp over the support; the observed-frame scale is a scalar per
+        galaxy because photometry is linear in f_ν."""
+        s = self._shift_of_z(z)
+        if self._variant == "conv":
+            l0, l1 = self._sup
+            t_igm = self._igm_transmission(1.0 + z)
+            if not isinstance(t_igm, float):
+                t_igm = t_igm[:, l0:l1]
+            return (self._conv_ratio(lnu * t_igm * self._wlam_sup, s)
+                    * self._scale_of_z(z)[:, None])
         acc = knot_product(lnu * self._wlam_sup, self._m_igm)
-        return window_ratio(acc, self._mega_tables["den"], self._shift_of_z(z),
-                            self._scale_of_z(z), self._n_knots,
-                            self._knot_delta,
+        return window_ratio(acc, self._den_f8, s, self._scale_of_z(z),
+                            self._n_knots, self._knot_delta,
                             self._interp_order)[:, :len(self.filters)]
 
     def _mega_supported(self) -> bool:
@@ -673,19 +810,20 @@ class BatchSEDSimulator:
     # z-sorted window engine
     # ------------------------------------------------------------------
     def _window_supported(self) -> bool:
-        """The window bodies need the interp tables, a static fesc and one
-        dust screen."""
+        """The window bodies need the interp or conv tables, a static fesc
+        and one dust screen."""
         em = self.emission
-        return (self._variant == "interp"
+        return (self._variant in ("interp", "conv")
                 and not isinstance(em.fesc, str)
                 and not (float(em.fesc) != 0.0 and em.reprocessed_types)
                 and em.tau_v_bc_param is None
                 and not em.dust_emission)
 
     def _window_mega_supported(self) -> bool:
-        """Extra gate for the fused body (K1): interpolation order 1 or 3 and
-        at most 128 bands (the knot product is bf16 in this package)."""
-        return (self._window_supported()
+        """Extra gate for the fused body (K1): the interp variant,
+        interpolation order 1 or 3 and at most 128 bands (the knot product
+        is bf16 in this package)."""
+        return (self._window_supported() and self._variant == "interp"
                 and self._interp_order in (1, 3)
                 and self._f8 <= 128)
 
@@ -725,11 +863,11 @@ class BatchSEDSimulator:
             0, self._l_sup - w_cols)
         return k0, l0
 
-    def _window_inputs(self, theta):
-        """Per-row inputs of the fused window body for z-sorted θ: (sfzh,
+    def _window_inputs(self, theta, row_offset: int = 0):
+        """Per-row inputs of the window bodies for z-sorted θ: (sfzh,
         absolute shift s, τ_V, observed-frame scale, static fesc)."""
         em = self.emission
-        params = self.theta_dict(theta)
+        params = self.theta_dict(theta, row_offset)
         sfzh, _ = self._sfzh(params)
         z = self._param(params, "redshift", 0.0)
         tau_v = (params[em.tau_v_param] if em.tau_v_param is not None
@@ -741,7 +879,7 @@ class BatchSEDSimulator:
         """Per sub-chunk of `theta` (n_sub·sub z-sorted rows on the device),
         yield (row slice, λ-column slice, knot-column slice, keyword
         arguments of `fused_window_photometry`, the one-sub-chunk K1);
-        k0/l0 are the host-int window starts."""
+        k0/l0 are the host-int window starts. Interp only."""
         delta, f8 = self._knot_delta, self._f8
         tables = self._mega_tables
         sfzh, s_abs, tau_v, scale, fesc = self._window_inputs(theta)
@@ -758,17 +896,18 @@ class BatchSEDSimulator:
                 f8=f8, order=self._interp_order, fesc=fesc)
 
     def _window_grouped_args(self, theta, sub: int, w_cols: int, kc: int,
-                             k0, l0) -> dict:
+                             k0, l0, row_offset: int = 0) -> dict:
         """Keyword arguments of `fused_window_photometry_grouped` for every
         sub-chunk of `theta` at once (K1, one launch)."""
-        sfzh, s_abs, tau_v, scale, fesc = self._window_inputs(theta)
+        sfzh, s_abs, tau_v, scale, fesc = self._window_inputs(theta,
+                                                              row_offset)
         return dict(sfzh=sfzh, s=s_abs, tau_v=tau_v, scale=scale,
                     tables=self._mega_tables, k0=k0, l0=l0, sub=sub,
                     w_cols=w_cols, kc=kc, delta=self._knot_delta,
                     f8=self._f8, order=self._interp_order, fesc=fesc)
 
     def _zsorted_run_raw(self, theta, sub: int, w_cols: int, kc: int, k0,
-                         l0, fused: bool = False):
+                         l0, fused: bool = False, row_offset: int = 0):
         """Run a window body over every sub-chunk -> (n_sub·sub, F).
 
         `fused=True` launches K1 once for all sub-chunks; `fused=False` runs
@@ -778,28 +917,35 @@ class BatchSEDSimulator:
         """
         if fused:
             out = fused_window_photometry_grouped(
-                **self._window_grouped_args(theta, sub, w_cols, kc, k0, l0))
+                **self._window_grouped_args(theta, sub, w_cols, kc, k0, l0,
+                                            row_offset))
             return out[:, :len(self.filters)]
         em = self.emission
         fesc = float(em.fesc)
+        delta, f8 = self._knot_delta, self._f8
+        m_igm = self._window_knot_matrix()
+        sfzh, s_abs, tau_v, scale, _ = self._window_inputs(theta, row_offset)
         out = torch.empty(theta.shape[0], len(self.filters),
                           dtype=torch.float32, device=theta.device)
-        for r, cols, knots, a in self._window_calls(theta, sub, w_cols, kc,
-                                                    k0, l0):
-            lnu = a["sfzh"] @ self._t_mix[:, cols]
-            att = torch.exp(-a["tau_v"][:, None] * a["curve_w"][None, :])
+        for i, (k, l) in enumerate(zip(k0, l0)):
+            r = slice(i * sub, (i + 1) * sub)
+            cols = slice(l, l + w_cols)
+            lnu = sfzh[r] @ self._t_mix[:, cols]
+            att = torch.exp(-tau_v[r, None] * self._dust_curve_sup[None, cols])
             if em.reprocessed_types:  # the gate makes fesc 0 here
                 lnu = lnu * att
             else:
                 lnu = lnu * (fesc + (1.0 - fesc) * att)
             fw = lnu * self._wlam_sup[None, cols]
-            acc = knot_product(fw, self._m_igm[cols, knots])
-            phot = window_ratio(acc, a["den_w"], a["s_rel"], a["scale"],
-                                kc, a["delta"], a["order"])
+            acc = knot_product(fw, m_igm[cols, k * f8:(k + kc) * f8])
+            phot = window_ratio(acc, self._den_f8[k:k + kc],
+                                s_abs[r] - float(k * delta), scale[r], kc,
+                                delta, self._interp_order)
             out[r] = phot[:, :out.shape[1]]
         return out
 
     def photometry_zsorted_device(self, theta, sub_chunk: int = 1024,
+                                  row_offset: int = 0,
                                   kc: int | None = None,
                                   w_cols: int | None = None,
                                   fused: bool = False,
@@ -826,10 +972,32 @@ class BatchSEDSimulator:
         theta, sub, kc, w_cols, k0, l0 = self._plan_windows(
             theta, sub_chunk, kc, w_cols, validate_plan)
         if k0 is None:  # the window is the whole table
-            return self.photometry(theta[:b])
+            return self.photometry(theta[:b], row_offset=row_offset)
         out = self._zsorted_run_raw(theta, sub, w_cols, kc, k0, l0,
-                                    fused=fused)
+                                    fused=fused, row_offset=row_offset)
         return out[:b]
+
+    def photometry_zsorted(self, theta, sub_chunk: int = 1024,
+                           row_offset: int = 0, kc: int | None = None,
+                           w_cols: int | None = None, fused: bool = False):
+        """Host form of the window engine: θ (B, P) host array with rows
+        sorted by ascending redshift (checked) -> (B, F) numpy photometry
+        [nJy]. Planned on the device by `_plan_windows`; a supplied
+        (kc, w_cols) is validated against the batch. Unsorted θ raises: call
+        `photometry` for it."""
+        theta = np.atleast_2d(np.asarray(theta, np.float32))
+        if "redshift" in self.param_names:
+            z = theta[:, self.param_names.index("redshift")]
+            if np.any(np.diff(z) < 0.0):
+                raise ValueError(
+                    "photometry_zsorted needs rows sorted by ascending "
+                    "redshift; sort θ (library row order is exchangeable) "
+                    "or use .photometry()")
+        out = self.photometry_zsorted_device(
+            theta, sub_chunk=sub_chunk, row_offset=row_offset, kc=kc,
+            w_cols=w_cols, fused=fused,
+            validate_plan=kc is not None and w_cols is not None)
+        return out.cpu().numpy()
 
     def _plan_windows(self, theta, sub_chunk: int, kc: int | None = None,
                       w_cols: int | None = None, validate_plan: bool = False):
@@ -874,13 +1042,13 @@ class BatchSEDSimulator:
     # ------------------------------------------------------------------
     # public batched API (the dense path)
     # ------------------------------------------------------------------
-    def _core(self, theta, want_spectra: bool, fused: bool = False):
+    def _core(self, theta, want_spectra: bool, fused: bool = False,
+              row_offset: int = 0):
         """θ (B, P) -> dict of (B, ...) outputs before the filter integral.
 
         `fused`: photometry only; skip `_observe` and return the λ-support
-        rest L_ν (the IGM rides the baked knot matrix, the distance scale is
-        applied after the band ratio)."""
-        params = self.theta_dict(theta)
+        rest L_ν (the distance scale is applied after the band ratio)."""
+        params = self.theta_dict(theta, row_offset)
         sfzh, sfh_mass = self._sfzh(params)
         z = self._param(params, "redshift", 0.0)
         if fused:
@@ -896,29 +1064,32 @@ class BatchSEDSimulator:
                        sfzh=sfzh)
         return out
 
-    def simulate(self, theta, want_spectra: bool = False):
+    def simulate(self, theta, want_spectra: bool = False,
+                 row_offset: int = 0):
         """θ (B, P) in any row order -> dict of (B, ...) tensors on the
         device: "photometry_njy" (B, F), and with `want_spectra` also
         "fnu_njy", "lnu", "lnu_intrinsic" (B, L), "sfh_mass" (B, A) and
-        "sfzh" (B, C).
+        "sfzh" (B, C). Row i has global index `row_offset` + i.
 
-        Photometry-only calls on the pallas backend with the interp variant
-        run K2 when `_mega_supported`, else `_photometry_fused`; every other
-        call observes the full spectra and integrates them
+        Photometry-only calls on the pallas backend with the interp or conv
+        variant take the λ support's rest L_ν: interp runs K2 when
+        `_mega_supported`, else `_photometry_fused`; every other call
+        observes the full spectra and integrates them
         (`_photometry_batch`)."""
         theta = torch.as_tensor(theta, dtype=torch.float32, device=self.device)
         theta = torch.atleast_2d(theta)
         fused = (not want_spectra and self.photometry_backend == "pallas"
-                 and self._variant == "interp")
+                 and self._variant in ("interp", "conv"))
         if fused and self._mega_supported():
             em = self.emission
-            params = self.theta_dict(theta)
+            params = self.theta_dict(theta, row_offset)
             sfzh, _ = self._sfzh(params)
             z = self._param(params, "redshift", 0.0)
             tau_v = (params[em.tau_v_param] if em.tau_v_param is not None
                      else torch.zeros_like(z))
             return {"photometry_njy": self._photometry_mega(sfzh, z, tau_v)}
-        res = self._core(theta, want_spectra, fused=fused)
+        res = self._core(theta, want_spectra, fused=fused,
+                         row_offset=row_offset)
         z = res.pop("_z")
         if fused:
             return {"photometry_njy": self._photometry_fused(res["_lnu"], z)}
@@ -927,9 +1098,128 @@ class BatchSEDSimulator:
             out.update(res)
         return out
 
-    def photometry(self, theta):
+    def photometry(self, theta, row_offset: int = 0):
         """θ (B, P) -> (B, F) photometry [nJy]."""
-        return self.simulate(theta)["photometry_njy"]
+        return self.simulate(theta, row_offset=row_offset)["photometry_njy"]
+
+    # ------------------------------------------------------------------
+    # emission lines
+    # ------------------------------------------------------------------
+    def _line_tables(self, ids: tuple):
+        """Per selection of line ids, cached: (λ_line, dust curve at the
+        lines, line luminosity, continuum and incident-continuum tables
+        (C, Nl) scaled by 1e-10, float32 on the device)."""
+        cache = self.__dict__.setdefault("_line_cache", {})
+        if ids in cache:
+            return cache[ids]
+        lines = self.grid.lines
+        ids_all = list(lines["ids"])
+        sel = np.asarray([ids_all.index(i) for i in ids], np.int64)
+        n_all = len(ids_all)
+        lam_l_np = np.asarray(lines["wavelength"])[sel]
+        dev, f32 = self.device, torch.float32
+        lam_l = torch.as_tensor(lam_l_np.astype(np.float32), device=dev)
+        # 1e-10: L up to ~1e33/Msun × 1e11 Msun overflows fp32 otherwise
+        lum10 = torch.as_tensor(
+            lines["luminosity"].reshape(-1, n_all)[:, sel] * 1e-10,
+            dtype=f32, device=dev)
+        cont10 = torch.as_tensor(
+            lines["continuum"].reshape(-1, n_all)[:, sel] * 1e-10,
+            dtype=f32, device=dev)
+        em = self.emission
+        curve_l = attenuation_curve(em.dust_law, lam_l, em.dust_params_dict())
+        # incident continuum at the line wavelengths: with fesc > 0 the
+        # realized continuum also holds the escaped incident light
+        inc = self.grid.spectra[em.incident_type]
+        inc = inc.reshape(-1, inc.shape[-1])
+        lam_np = np.asarray(self.grid.lam)
+        j_hi = np.clip(np.searchsorted(lam_np, lam_l_np), 1, len(lam_np) - 1)
+        w_hi = (lam_l_np - lam_np[j_hi - 1]) / (lam_np[j_hi]
+                                               - lam_np[j_hi - 1])
+        inc10 = torch.as_tensor(
+            (inc[:, j_hi - 1] * (1.0 - w_hi) + inc[:, j_hi] * w_hi) * 1e-10,
+            dtype=f32, device=dev)
+        # IGM at the lines: the lerp weights of λ_line on the rest grid
+        i = torch.clamp(torch.searchsorted(self._lam, lam_l, right=True), 1,
+                        self._lam.shape[0] - 1)
+        x0, x1 = self._lam[i - 1], self._lam[i]
+        frac = torch.where(lam_l < self._lam[0], 0.0,
+                           torch.where(lam_l > self._lam[-1], 1.0,
+                                       (lam_l - x0) / (x1 - x0)))
+        cache[ids] = (lam_l, curve_l, lum10, cont10, inc10, (i, frac), sel)
+        return cache[ids]
+
+    def line_quantities(self, theta, line_ids=None, row_offset: int = 0):
+        """Per-galaxy emission-line quantities from the grid's line tables.
+
+        Line luminosity and continuum are SFZH contractions against the
+        (C, Nl) tables, then the dust screen (birth-cloud aware), the
+        channel mixing of `_line_mixing`, the IGM at the observed line
+        wavelength and the distance. The numbers describe the realized
+        spectrum when `emission.reprocessed_types` holds a nebular
+        component.
+
+        Returns a dict with "ids" and (B, Nl) numpy arrays: "luminosity"
+        [erg/s, float64, dust-attenuated rest frame], "flux" [erg/s/cm²,
+        observed], "ew_rest" and "ew_obs" [Å].
+        """
+        if self.grid.lines is None:
+            raise ValueError(
+                "grid has no line tables (grid.lines is None); load a grid "
+                "whose HDF5 carries a lines/ group")
+        ids = tuple(line_ids) if line_ids is not None else tuple(
+            self.grid.lines["ids"])
+        lam_l, curve_l, lum10, cont10, inc10, (i_l, f_l), sel = (
+            self._line_tables(ids))
+        theta = torch.atleast_2d(torch.as_tensor(
+            theta, dtype=torch.float32, device=self.device))
+        em = self.emission
+        params = self.theta_dict(theta, row_offset)
+        sfzh, _ = self._sfzh(params)
+        tau_v = (params[em.tau_v_param][:, None] if em.tau_v_param is not None
+                 else torch.zeros_like(sfzh[:, :1]))
+        att = torch.exp(-tau_v * curve_l)
+        if em.tau_v_bc_param is not None:
+            tau_bc = params[em.tau_v_bc_param][:, None]
+            sf_y, sf_o = self._split_sfzh(sfzh)
+            att_y = torch.exp(-(tau_v + tau_bc) * curve_l)
+            lum = (sf_y @ lum10) * att_y + (sf_o @ lum10) * att
+            cont = (sf_y @ cont10) * att_y + (sf_o @ cont10) * att
+        else:
+            lum = (sfzh @ lum10) * att
+            cont = (sfzh @ cont10) * att
+        lum, cont_total = self._line_mixing(params, lum, cont, sfzh @ inc10,
+                                            sel, sfzh=sfzh, att=att)
+        z = self._param(params, "redshift", 0.0)
+        zp1 = 1.0 + z
+        t_grid = self._igm_transmission(zp1)
+        t_l = (1.0 if isinstance(t_grid, float)
+               else t_grid[:, i_l - 1] * (1.0 - f_l) + t_grid[:, i_l] * f_l)
+        inv_d = (1.0 / self._d19_of_z(z))[:, None]
+        # L in 1e10 erg/s and d in 1e19 cm: divide by d19² before the
+        # 1e-28/(4π) prefactor, which underflows fp32 on its own
+        flux = (lum * t_l * inv_d * inv_d) * (1.0e-28 / _FOUR_PI)
+        # EW = L_line λ²/(c L_cont); dividing first keeps c·L_cont in range
+        ew_rest = (lum / torch.clamp(cont_total, min=1.0e-30)) * (
+            lam_l**2 / C_AA_S)
+        return {
+            "ids": list(ids),
+            "luminosity": lum.cpu().numpy().astype(np.float64) * 1.0e10,
+            "flux": flux.cpu().numpy(),
+            "ew_rest": ew_rest.cpu().numpy(),
+            "ew_obs": (ew_rest * zp1[:, None]).cpu().numpy(),
+        }
+
+    def _line_mixing(self, params, lum, cont, inc_cont, sel, sfzh=None,
+                     att=None):
+        """Channel mixing of the line quantities (as `_apply_emission`): the
+        lines ride the reprocessed channel, the realized continuum adds the
+        escaped incident light unattenuated. Returns (line luminosity,
+        continuum), (B, Nl) each."""
+        em = self.emission
+        fesc = (params[em.fesc][:, None] if isinstance(em.fesc, str)
+                else float(em.fesc))
+        return (1.0 - fesc) * lum, fesc * inc_cont + (1.0 - fesc) * cont
 
     def __call__(self, theta):
         return self.photometry(theta)

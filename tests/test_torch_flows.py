@@ -312,9 +312,56 @@ def test_spec_round_trip_and_unported_models():
     for name in ("maf", "mdn", "ncsf", "cnf", "realnvp"):
         with pytest.raises(NotImplementedError, match="ROADMAP M11"):
             tbase.build_flow(name, 3, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP M10"):
-        tbase.build_flow("nsf", 3, 2, device="cpu", embedding_dim=8)
+    # the embedding net is ported: its configuration rides the spec
+    emb = tbase.build_flow("nsf", 3, 40, device="cpu", **CFG, embedding_dim=8,
+                           embedding_hidden=12)
+    spec = emb.spec()
+    assert spec == jbase.build_flow("nsf", 3, 40, **CFG, embedding_dim=8,
+                                    embedding_hidden=12).spec()
+    again = tbase.ConditionalFlow.from_spec(spec, "cpu")
+    params = again.init(torch.Generator().manual_seed(0))
+    assert [tuple(layer["w"].shape) for layer in params["embed"]] == [
+        (12, 40), (12, 12), (8, 12)]
     with pytest.raises(ValueError, match="unknown flow model"):
         tbase.build_flow("nope", 3, 2, device="cpu")
     with pytest.raises(ValueError, match="come together"):
         tbase.build_flow("nsf", 3, 2, device="cpu", support_low=(0, 0, 0))
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_embedding_net_matches_jax(layers):
+    """The embedding net (`embedding_dim`) with the JAX package's weights:
+    log_prob and samples at the NSF's bound (1e-4), the JAX tree layout
+    ("embed": [{"w", "b"}, ...], He-initialised, no zero last layer) and
+    gradients through the embedding."""
+    cfg = dict(CFG, embedding_dim=6, embedding_hidden=16,
+               embedding_layers=layers)
+    jflow = jbase.build_flow("nsf", 2, 48, **cfg)
+    flow = tbase.build_flow("nsf", 2, 48, device="cpu", **cfg)
+    theta, x = _data(2, 48)
+    members = [_perturbed(jflow.init(jax.random.PRNGKey(s), theta, x), s)
+               for s in range(2)]
+    own = flow.init(torch.Generator().manual_seed(0), theta, x, n_members=2)
+    assert (jax.tree_util.tree_structure(members[0])
+            == jax.tree_util.tree_structure(_np(tbase.params_to_numpy(
+                tbase._member(own, 0)))))
+    assert float(own["embed"][-1]["w"].abs().sum()) > 0.0
+    params = tbase.params_from_numpy(_stack(members), "cpu")
+    lp = flow.log_prob(params, theta, x)
+    key = jax.random.PRNGKey(4)
+    n = 8
+    keys = jax.random.split(key, 4)
+    base = np.stack([np.asarray(jax.random.normal(k, (n, 2))) for k in keys])
+    drawn = flow.sample_batch(params, x[:4], n,
+                              base=np.broadcast_to(base, (2,) + base.shape))
+    for k, member in enumerate(members):
+        np.testing.assert_allclose(lp[k].numpy(),
+                                   np.asarray(jflow.log_prob(member, theta, x)),
+                                   atol=1e-4)
+        np.testing.assert_allclose(
+            drawn[k].numpy(), np.asarray(jflow.sample_batch(member, key,
+                                                            x[:4], n)),
+            atol=1e-4)
+    leaf = params["embed"][0]["w"].requires_grad_(True)
+    flow.log_prob(params, theta, x).sum().backward()
+    assert leaf.grad is not None and float(leaf.grad.abs().sum()) > 0.0

@@ -4,7 +4,7 @@ Checked in a fresh interpreter (this test process imports both packages),
 which imports the modules one after another and records what each added.
 The scripts that drive the port (`chip_smoke.py`, `profile_torch.py`,
 `examples/north_star_torch.py`, `examples/quickstart_torch.py`,
-`scripts/probe_torch_*.py`) need a card, so their import statements are
+`examples/spectra_quickstart_torch.py`, `scripts/probe_torch_*.py`) need a card, so their import statements are
 read from their source instead. The optional packages (h5py,
 scikit-learn, pandas, scipy) are imported only where they are used."""
 
@@ -47,6 +47,12 @@ def probe():
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+def test_every_module_is_probed():
+    """The probe covers every module of the package, `spectra.py` too."""
+    assert "synference_tpu_torch.spectra" in MODULES
+    assert "synference_tpu_torch.noise_models" in MODULES
+
+
 @pytest.mark.parametrize("module", MODULES)
 def test_no_jax_in_sys_modules(probe, module):
     assert probe[module] == [], probe[module]
@@ -82,7 +88,8 @@ def test_imports_without_optional_packages():
 
 SCRIPTS = ["chip_smoke.py", "profile_torch.py",
            "examples/north_star_torch.py",
-           "examples/quickstart_torch.py"] + sorted(
+           "examples/quickstart_torch.py",
+           "examples/spectra_quickstart_torch.py"] + sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
         "probe_torch_*.py"))
 

@@ -692,13 +692,22 @@ def test_probe_propagates_a_failing_body(port_gen, monkeypatch):
 
 
 def test_generator_options_not_ported_raise(port_gen):
+    """spectral_pipeline and emission_lines are ported (held to the JAX
+    package in tests/test_torch_spectra.py and test_torch_lines.py): they
+    are kept, and emission lines take the host sampler."""
     sim = port_gen.simulator
-    with pytest.raises(NotImplementedError, match="M10"):
-        tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
-                            spectral_pipeline=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M9"):
-        tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
-                            emission_lines=("Ha",), device="cpu")
+    pipe = tt.SpectralFeaturePipeline(
+        sim.grid.lam, tt.generate_constant_r_grid(100, 6000.0, 53000.0),
+        device="cpu")
+    gen = tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
+                              spectral_pipeline=pipe, device="cpu")
+    assert gen.spectral_pipeline is pipe
+    np.testing.assert_array_equal(gen._wavelengths(), pipe.obs_lam.numpy())
+    gen = tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
+                              emission_lines=("Ha",), device="cpu")
+    assert gen._supp_names() == ["line_flux_Ha", "line_ew_Ha"]
+    with pytest.raises(ValueError, match="device_sampling=True"):
+        gen.generate(8, device_sampling=True)
     with pytest.raises(ValueError, match="unknown supplementary"):
         tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
                             supplementary=("nope",), device="cpu")

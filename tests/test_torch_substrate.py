@@ -260,5 +260,14 @@ def test_sfh_and_zdist_weights():
     zr = jax.vmap(lambda d: js.zdist_weights("delta", d, mets))(
         {k: jnp.asarray(v) for k, v in p.items()})
     _close(zp, zr, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP M2"):
-        ts.sfh_weights("delayed_tau", {}, samp_t)
+    # the other families are ported too (tests/test_torch_sfh_families.py
+    # holds each to the JAX package); delayed-τ on the same draws, with τ in
+    # years
+    pd = dict(p, tau=(p["tau"] * 1e9).astype(np.float32))
+    dt = ts.sfh_weights("delayed_tau", {k: torch.as_tensor(v) for k, v in
+                                        pd.items()}, samp_t)
+    dr = jax.vmap(lambda d: js.sfh_weights("delayed_tau", d, samp_j))(
+        {k: jnp.asarray(v) for k, v in pd.items()})
+    _close(dt, dr, atol=5e-6)
+    with pytest.raises(ValueError, match="unknown SFH family"):
+        ts.sfh_weights("nope", {}, samp_t)

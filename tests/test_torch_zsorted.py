@@ -15,6 +15,7 @@ bf16 rounding flips); fused vs fused median < 2e-3, p99 < 5e-3.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import synference_tpu as jst
 import synference_tpu_torch as tt
@@ -148,6 +149,28 @@ def test_padding_non_multiple_batch(sims):
     np.testing.assert_allclose(out[:1280].numpy(), head.numpy(), rtol=1e-6)
 
 
+def test_host_form_parity_vs_fused(sims):
+    """`photometry_zsorted` (the host-call form, planned on the device) as
+    `tests/test_zsorted.py::test_parity_vs_fused`: against the dense fused
+    interp photometry (the JAX simulator's, the port's being the exact
+    route on the CPU) at that test's bound (p99 < 2e-3) and against the JAX
+    package's host form at the staged-vs-staged bound, with padding."""
+    jsim, tsim, _ = sims
+    for n, seed in ((1536, 0), (1228, 3)):
+        theta = _sorted_theta(n, seed=seed)
+        port = tsim.photometry_zsorted(theta, sub_chunk=128)
+        assert isinstance(port, np.ndarray) and port.shape == (n, len(_CODES))
+        rel = _rel(port, jsim.photometry(jnp.asarray(theta)))
+        assert np.quantile(rel, 0.99) < 2e-3
+        rel = _rel(port, jsim.photometry_zsorted(theta, sub_chunk=128))
+        assert np.median(rel) < 1e-4 and np.quantile(rel, 0.99) < 2e-3
+    with pytest.raises(ValueError, match="sorted"):
+        tsim.photometry_zsorted(_sorted_theta(64)[::-1].copy())
+    with pytest.raises(ValueError, match="smaller than this batch needs"):
+        tsim.photometry_zsorted(_sorted_theta(1536), sub_chunk=128, kc=4,
+                                w_cols=64)
+
+
 def test_undersized_plan_is_rejected(sims):
     """A caller-supplied plan smaller than the batch needs would clamp the
     windows and return wrong fluxes; validate_plan turns that into an
@@ -163,13 +186,17 @@ def test_undersized_plan_is_rejected(sims):
 
 
 def test_unported_paths_raise(sims):
+    """conv and particle SFZHs are ported now: both run the window engine
+    (tests/test_torch_conv.py and test_torch_particles.py hold them to the
+    JAX package); bad state still raises."""
     _, tsim, _ = sims
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-        tt.BatchSEDSimulator(tsim.grid, tsim.filters, PNAMES, device="cpu",
-                             photometry_variant="conv")
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-        tt.BatchSEDSimulator(tsim.grid, tsim.filters, PNAMES, device="cpu",
-                             n_particles=64)
+    theta = _sorted_theta(512, seed=4)
+    for kw in (dict(photometry_variant="conv"), dict(n_particles=64)):
+        sim = tt.BatchSEDSimulator(tsim.grid, tsim.filters, PNAMES,
+                                   device="cpu", **kw)
+        assert sim._window_supported()
+        out = sim.photometry_zsorted_device(theta, sub_chunk=128)
+        assert out.shape == (512, len(_CODES)) and torch.isfinite(out).all()
     with pytest.raises(KeyError, match="unknown state"):
         tsim.load_state({"spectra": np.zeros(3)})
     with pytest.raises(ValueError, match="shape"):
