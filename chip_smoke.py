@@ -2,7 +2,7 @@
 """Card smoke test of the PyTorch/CUDA port (`synference_tpu_torch`).
 
 Drives the port's paths once on one NVIDIA card. The mock-library path and
-the NPE path on top of it (features, NSF ensemble training, posterior
+the inference paths on top of it (features, NSF ensemble training, posterior
 sampling, calibration metrics, a saved model) run at the north-star width (64 ages × 12 metallicities × 10⁴ λ grid, 7
 NIRCam bands, lognormal SFH, delta-Z, Calzetti screen, Inoue14 IGM); the
 dense simulator path at `bench.py`'s headline width (48 ages × 8
@@ -106,10 +106,37 @@ unsorted θ):
    them on the phase-4 library, their HDF5 round trip where h5py imports,
    and `line_quantities` on 65536 young-burst rows against the CPU
    (relative < 2e-3: one float32 ulp of max_age moves a burst's bins).
+   Phase 16 also times K1 and K2 alone at this width beside their bounds
+   (`k1_bound` summed over the sub-chunks, `bound` for K2).
+19. flow zoo: every registry name of the JAX package (maf, made, nsf,
+   realnvp, affine_coupling, nice, mdn, gaussian, ncsf, naf, unaf, sospf,
+   gf, cnf) at the widths of `scripts/zoo_sweep.py`, as NPE (support-aware)
+   on every 16th row of the phase-4 library (65536 rows, 14 features), 2
+   members, 2 epochs at batch 2048: every loss finite; `log_prob` card vs
+   CPU < 1e-4 on 256 rows; every draw inside the prior box; inverse then
+   forward of the flow proper recovers its base draws (maf, nsf, realnvp,
+   nice, ncsf: fp64 max and fp32 p99.9 < 1e-4; naf, unaf, sospf by
+   bisection: fp64 max < 1e-4; gf a reading); ms per step and raw draws/s;
+20. NLE and NRE: `run_single_sbi("nsf", engine="nle"|"nre",
+   hidden_features=69, num_transforms=15, n_nets=8)` 3 epochs on phase 9's
+   2^18 rows; `sample_posterior` of 256 held-out objects x 256 draws by
+   batched MCMC (64 walkers, burn-in 256, thin 2): draws inside the box,
+   acceptance in (0, 1), R-hat and ESS finite, s per 1000 objects and
+   likelihood rows/s; the loop's sync guard raises on a readback; a 16-step
+   chain on 8 objects from the same draws, card vs CPU; `save_state` ->
+   `load_saved_model` gives the same `_loglike` bits; `fit_catalogue` has
+   the three MCMC columns; TARP, PIT-KS and the share of R-hat > 1.1 are
+   readings;
+21. online engines: `run_online_sbi` "snpe", "snle", "snre" with the
+   headline model's `photometry()` (K2) and asinh features as the
+   simulator, 2 rounds of 4096, NSF 32 x 4 (MLP 32 for snre), one member:
+   K2 launches in every round, every round's loss finite, the posterior's
+   draws for x_obs inside the box; seconds per round.
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
-on the path (with each kernel's share of its bound, and `first_product_ms`:
+on the path (with its launches on the main path and on phases 19-21 by
+phase, each kernel's share of its bound, and `first_product_ms`:
 the fp32 first product alone as one cuBLAS `torch.matmul` with TF32 off, a
 yardstick for the kernels' core that the port never calls); the last line
 is `{"ok": true, "device": {...}}`.
@@ -767,10 +794,11 @@ def host_reading(dev) -> str:
             f"one-element kernel")
 
 
-def training_parts(flow, theta, x, n_val: int):
-    """One optimiser step and one validation pass over `n_val` rows of the
-    north-star ensemble, as `train_ensemble` runs them, on freshly
-    initialised members: (step, validate, state)."""
+def training_parts(flow, theta, x, n_val: int, n_nets: int = N_NETS):
+    """One optimiser step and one validation pass over `n_val` rows of an
+    `n_nets`-member ensemble of `flow` (the north-star one by default), as
+    `train_ensemble` runs them, on freshly initialised members: (step,
+    validate, state)."""
     from synference_tpu_torch import train as tr
 
     dev = flow.device
@@ -778,9 +806,9 @@ def training_parts(flow, theta, x, n_val: int):
     theta = torch.as_tensor(theta, dtype=torch.float32, device=dev)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    state = tr._new_state(flow, theta, x, cfg, N_NETS, g)
+    state = tr._new_state(flow, theta, x, cfg, n_nets, g)
     loss_fn = tr._npe_loss(flow)
-    rows = torch.randint(0, theta.shape[0], (N_NETS, cfg.batch_size),
+    rows = torch.randint(0, theta.shape[0], (n_nets, cfg.batch_size),
                          generator=g, device=dev)
 
     def step():
@@ -1561,6 +1589,7 @@ def paper63(tt, k1, sim, dev):
     for name, ms in times.items():
         log(f"[paper63] {name}: {ms:.3f} ms per {HEADLINE_BATCH} rows = "
             f"{HEADLINE_BATCH / ms * 1e3:,.0f} SEDs/s (CUDA events)")
+    paper63_bounds(k1, auto, theta, sorted_theta)
 
 
 def spectral_path(tt, dev):
@@ -1750,6 +1779,398 @@ def noise_and_lines(tt, lib, dev):
           "line quantities card vs CPU")
 
 
+# -- phases 19-21: the flow zoo, the NLE/NRE engines, the online engines ----
+# Phase 19: every registry name at the widths of scripts/zoo_sweep.py
+# (MODELS; "affine_coupling" at realnvp's), as NPE on every 16th row of the
+# phase-4 library. "gaussian" is not among the names whose width
+# run_single_sbi sets (the JAX package's rule), so it keeps the default 50.
+ZOO_MODELS = {
+    "nsf": dict(hidden_features=50, num_transforms=8),
+    "maf": dict(hidden_features=50, num_transforms=8),
+    "mdn": dict(hidden_features=64, num_components=8),
+    "gaussian": dict(),
+    "made": dict(hidden_features=64),
+    "realnvp": dict(hidden_features=50, num_transforms=8),
+    "affine_coupling": dict(hidden_features=50, num_transforms=8),
+    "nice": dict(hidden_features=50, num_transforms=8),
+    "ncsf": dict(hidden_features=50, num_transforms=8),
+    "naf": dict(hidden_features=40, num_transforms=3),
+    "unaf": dict(hidden_features=40, num_transforms=3),
+    "sospf": dict(hidden_features=40, num_transforms=3),
+    "gf": dict(hidden_features=40, num_transforms=4),
+    "cnf": dict(hidden_features=64, num_steps=12),
+}
+ZOO_STRIDE, ZOO_NETS, ZOO_EPOCHS = 16, 2, 2
+ZOO_CLOSED_FORM = ("maf", "nsf", "realnvp", "nice", "ncsf")
+ZOO_BISECTION = ("naf", "unaf", "sospf")
+# inverse then forward of the bisection families: 50 halvings of [-512, 512]
+# end within 1024/2^50 of the root in exact arithmetic, so what is left is
+# the float rounding of T near its flat spots: held, in fp64, to 1e-4 like
+# the closed-form inverses (the fp32 round trip is a reading)
+TOL_BISECT = 1e-4
+# Phase 20: NLE and NRE at the north-star width on phase 9's 2^18 rows
+ENGINE_EPOCHS = 3
+MCMC_OBJECTS, MCMC_DRAWS = 256, 256
+# a 16-step chain on 8 objects from the same draws, card against CPU: the
+# log-density differs in its last float32 bits between the devices, so an
+# accept decision within that distance of its uniform can go the other way
+# and the walker's object diverges from then on; the states of every object
+# whose chains did not branch agree to 1e-4, and at most one of the 8 may
+# branch
+TOL_CHAIN = 1e-4
+# Phase 21: the online engines on the headline model's photometry
+ONLINE_SIMS, ONLINE_ROUNDS = 4096, 2
+
+
+def zoo_round_trip(flow, params, xs, dev, dtype, n: int = 64):
+    """|base − forward(inverse(base))| of the flow proper on `n` draws for
+    each of `xs`'s contexts, in `dtype` (torus distance for ncsf)."""
+    from synference_tpu_torch.flows.base import tree_map
+
+    k = params["theta_mean"].shape[0]
+    g = torch.Generator(device=dev).manual_seed(19)
+    with torch.no_grad():
+        ctx = flow._context(params, xs).unsqueeze(2).expand(
+            -1, -1, n, -1).reshape(k, xs.shape[0] * n, -1).to(dtype)
+        base = flow._net.draw_base(g, (k, ctx.shape[1])).to(dtype)
+        net = tree_map(lambda a: a.to(dtype), params["flow"])
+        back, _ = flow._net.forward(net, flow._net.inverse(net, base, ctx),
+                                    ctx)
+    d = back - base
+    if flow.model == "ncsf":
+        tb = flow._net.tail_bound
+        d = torch.remainder(d + tb, 2.0 * tb) - tb
+    return d.abs().flatten()
+
+
+def flow_zoo(tt, lib, dev):
+    """Phase 19: every registry name as NPE on north-star features."""
+    from synference_tpu_torch.flows.base import (ConditionalFlow,
+                                                 params_from_numpy,
+                                                 params_to_numpy)
+
+    fitter = tt.SBIFitter(
+        photometry=lib["photometry"].T[::ZOO_STRIDE],
+        parameters=lib["parameters"].T[::ZOO_STRIDE],
+        parameter_names=lib["parameter_names"],
+        filter_codes=lib["filter_codes"], device=dev)
+    fitter.create_feature_array(tt.FeatureConfig(
+        filter_codes=tuple(CODES), unit="asinh", depths_ab=(29.5,) * 7,
+        n_scatters=1, include_errors=True))
+    fitter.create_priors()
+    idx = fitter.split_dataset()["test"][:256]
+    xs = torch.as_tensor(fitter.features[idx], device=dev)
+    truths = fitter.feature_params[idx]
+    lo, hi = fitter.prior.low.cpu().numpy(), fitter.prior.high.cpu().numpy()
+    cpu = torch.device("cpu")
+    log(f"[zoo] {fitter.features.shape[0]} rows x "
+        f"{fitter.features.shape[1]} features, {len(PNAMES)} θ; "
+        f"{ZOO_NETS} members, {ZOO_EPOCHS} epochs at batch 2048, fp32 (TF32 "
+        f"off)")
+    for model, kw in ZOO_MODELS.items():
+        t0 = time.perf_counter()
+        res = fitter.run_single_sbi(
+            model, n_nets=ZOO_NETS, train_config=tt.TrainConfig(
+                batch_size=2048, learning_rate=7e-4, max_epochs=ZOO_EPOCHS),
+            **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        flow, params = fitter.flow, res.params
+        check(bool(np.isfinite(res.train_losses).all()
+                   and np.isfinite(res.val_losses).all()),
+              f"{model}: non-finite loss")
+        # one optimiser step alone, as train_ensemble runs it
+        tr_idx = fitter._split["train"]
+        step, _, _ = training_parts(flow, fitter.feature_params[tr_idx],
+                                    fitter.features[tr_idx], 2048,
+                                    n_nets=ZOO_NETS)
+        step()
+        ms_step = host_ms(lambda: [step() for _ in range(5)], 3) / 5
+        # raw draws/s of the flow alone
+        g = torch.Generator(device=dev).manual_seed(19)
+        with torch.no_grad():
+            flow.sample_batch(params, xs[:8], 64, g)  # warm-up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            draws = flow.sample_batch(params, xs, 64, g)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        n_raw = ZOO_NETS * xs.shape[0] * 64
+        d = draws.cpu().numpy()
+        check(bool(np.isfinite(d).all() and (d >= lo).all()
+                   and (d <= hi).all()),
+              f"{model}: a draw lies outside the prior box")
+        # log_prob on the card against the same parameters on the CPU
+        flow_cpu = ConditionalFlow.from_spec(flow.spec(), cpu)
+        with torch.no_grad():
+            lp = flow.log_prob(params, truths, xs).cpu()
+            lp_cpu = flow_cpu.log_prob(
+                params_from_numpy(params_to_numpy(params), cpu), truths,
+                xs.cpu())
+        check(bool(torch.isfinite(lp).all()), f"{model}: non-finite log_prob")
+        lp_err = float((lp - lp_cpu).abs().max())
+        check(lp_err < TOL_FLOW, f"{model}: log_prob card vs CPU {lp_err}")
+        line = (f"[zoo] {model} {kw}: fit {wall:.2f} s, val "
+                f"{np.round(res.val_losses[-1].astype(float), 3).tolist()}; "
+                f"{ms_step:.3f} ms per step (host clock); {n_raw} raw draws "
+                f"in {dt:.4f} s = {n_raw / dt:,.0f} draws/s; log_prob card "
+                f"vs CPU max |Δ| {lp_err:.3e} (tol {TOL_FLOW})")
+        if model in ZOO_CLOSED_FORM + ZOO_BISECTION + ("gf",):
+            e32 = zoo_round_trip(flow, params, xs[:64], dev, torch.float32)
+            e64 = zoo_round_trip(flow, params, xs[:64], dev, torch.float64)
+            p999 = float(e32.kthvalue(int(0.999 * e32.numel())).values)
+            line += (f"; inverse then forward: fp64 max {float(e64.max()):.3e}"
+                     f", fp32 p99.9 {p999:.3e} max {float(e32.max()):.3e}")
+            if model in ZOO_CLOSED_FORM:
+                check(float(e64.max()) < TOL_FLOW and p999 < TOL_FLOW,
+                      f"{model}: inverse then forward misses the base draws")
+            elif model in ZOO_BISECTION:
+                check(float(e64.max()) < TOL_BISECT,
+                      f"{model}: bisection inverse misses the base draws")
+        log(line)
+
+
+def engines(tt, fitter, dev):
+    """Phase 20: NLE and NRE at the north-star width, batched MCMC."""
+    from synference_tpu_torch import diagnostics as td
+    from synference_tpu_torch.flows.base import (ConditionalFlow,
+                                                 params_from_numpy,
+                                                 params_to_numpy)
+    from synference_tpu_torch.mcmc import run_batched_mcmc
+    from synference_tpu_torch.ratio import RatioEstimator
+
+    idx = fitter._split["test"][:MCMC_OBJECTS]
+    xs, truths = fitter.features[idx], fitter.feature_params[idx]
+    lo, hi = fitter.prior.low.cpu().numpy(), fitter.prior.high.cpu().numpy()
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(20)
+    for engine in ("nle", "nre"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fitter.run_single_sbi(
+            "nsf", engine=engine, hidden_features=69, num_transforms=15,
+            n_nets=N_NETS, train_config=tt.TrainConfig(
+                batch_size=2048, learning_rate=7e-4,
+                max_epochs=ENGINE_EPOCHS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        post = fitter.posterior
+        check(bool(np.isfinite(res.train_losses).all()
+                   and np.isfinite(res.val_losses).all()),
+              f"{engine}: non-finite loss")
+        log(f"[{engine}] {fitter.flow.spec()['config']} x{N_NETS}: "
+            f"{ENGINE_EPOCHS} epochs of {res.history['steps_per_epoch']} "
+            f"steps in {wall:.2f} s with split and init; val per epoch "
+            f"{[round(float(v), 3) for v in res.val_losses.mean(axis=1)]}"
+            f" (member mean)")
+        fitter.sample_posterior(xs[:8], 64)  # warm-up, not timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draws = fitter.sample_posterior(xs, MCMC_DRAWS)
+        dt = time.perf_counter() - t0
+        steps = post.burn_in + -(-MCMC_DRAWS // post.n_walkers) * post.thin
+        rows = MCMC_OBJECTS * post.n_walkers * (1 + steps)
+        check(draws.shape == (MCMC_OBJECTS, MCMC_DRAWS, len(PNAMES))
+              and bool(np.isfinite(draws).all() and (draws >= lo).all()
+                       and (draws <= hi).all()),
+              f"{engine}: a draw lies outside the prior box")
+        acc = post.last_acceptance
+        check(0.0 < acc < 1.0, f"{engine}: acceptance {acc}")
+        rhat, ess = post.last_diagnostics["rhat"], post.last_diagnostics["ess"]
+        check(bool(np.isfinite(rhat).all() and np.isfinite(ess).all()),
+              f"{engine}: non-finite R-hat or ESS")
+        pit = td.pit_values(draws, truths, device=dev)
+        pit_ks = td.pit_ks_statistic(pit, device=dev)
+        log(f"[{engine}] sample_posterior({MCMC_OBJECTS} objects x "
+            f"{MCMC_DRAWS}), {post.n_walkers} walkers, burn-in "
+            f"{post.burn_in}, thin {post.thin} ({steps} steps, "
+            f"{2 * steps} half-steps): {dt:.3f} s = "
+            f"{1e3 * dt / MCMC_OBJECTS:.3f} s per 1000 objects, {rows} "
+            f"likelihood rows = {rows / dt:,.0f} rows/s (host clock); "
+            f"acceptance {acc:.4f}; R-hat median {np.median(rhat):.3f} max "
+            f"{rhat.max():.3f}, share of objects above {post.rhat_warn} "
+            f"{float((rhat.max(axis=1) > post.rhat_warn).mean()):.3f}; ESS "
+            f"min {ess.min():.1f} median {np.median(ess):.1f}; readings "
+            f"after {ENGINE_EPOCHS} epochs: TARP "
+            f"{td.tarp_deviation(draws, truths, device=dev):.4f}, PIT-KS "
+            f"{[round(float(v), 3) for v in pit_ks]}")
+
+        # the loop's sync guard is live: a log-density that reads back raises
+        def reads_back(theta, x):
+            ll = post._loglike(theta, x)
+            float(ll.sum())  # waits for the card
+            return ll
+
+        raised = False
+        try:
+            run_batched_mcmc(reads_back, fitter.prior, xs[:2], n_walkers=8,
+                             n_steps=2, burn_in=0)
+        except RuntimeError as e:
+            raised = "synchroniz" in str(e)
+        check(raised, f"{engine}: a readback inside the MCMC loop did not "
+              "raise")
+
+        # a 16-step chain on 8 objects from the same draws, card vs CPU
+        m, w, n_steps = 8, post.n_walkers, 16
+        half = w // 2
+        u = rng.uniform(size=(m, w, len(PNAMES))).astype(np.float32)
+        chain_draws = {
+            "walkers": lo + u * (hi - lo),
+            "stretch": rng.uniform(size=(n_steps, 2, m, half)).astype(
+                np.float32),
+            "partner": rng.integers(0, half, (n_steps, 2, m, half)),
+            "accept": rng.uniform(size=(n_steps, 2, m, half)).astype(
+                np.float32)}
+        spec = fitter.flow.spec()
+        est_cpu = (RatioEstimator.from_spec(spec, cpu) if engine == "nre"
+                   else ConditionalFlow.from_spec(spec, cpu))
+        params_cpu = params_from_numpy(params_to_numpy(post.params), cpu)
+        post_cpu = type(post)(est_cpu, params_cpu,
+                              tt.BoxUniform.from_dict(fitter.prior.to_dict(),
+                                                      cpu))
+        with torch.no_grad():
+            s_card, a_card = run_batched_mcmc(
+                post._loglike, fitter.prior, xs[:m], n_walkers=w,
+                n_steps=n_steps, burn_in=0, thin=1, draws=chain_draws)
+            s_cpu, a_cpu = run_batched_mcmc(
+                post_cpu._loglike, post_cpu.prior, xs[:m], n_walkers=w,
+                n_steps=n_steps, burn_in=0, thin=1, draws=chain_draws)
+        per_obj = (s_card.cpu() - s_cpu).abs().amax(dim=(1, 2))
+        same = per_obj < TOL_CHAIN
+        log(f"[{engine}] 16-step chain on {m} objects from the same draws, "
+            f"card vs CPU: max |Δ| per object "
+            f"{[float(f'{v:.3e}') for v in per_obj.tolist()]}; acceptance "
+            f"{float(a_card):.5f} vs {float(a_cpu):.5f} (tol {TOL_CHAIN} on "
+            f"all but at most one object)")
+        check(int(same.sum()) >= m - 1, f"{engine}: chains card vs CPU")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{engine}.pkl")
+            fitter.save_state(path)
+            loaded = tt.SBIFitter.load_saved_model(path, device=dev)
+        th = torch.as_tensor(truths, device=dev)
+        xd = torch.as_tensor(xs, device=dev)
+        with torch.no_grad():
+            same_bits = torch.equal(loaded.posterior._loglike(th, xd),
+                                    post._loglike(th, xd))
+        log(f"[{engine}] save_state -> load_saved_model: _loglike bitwise "
+            f"equal: {same_bits}")
+        check(same_bits and loaded.engine == engine,
+              f"{engine}: the reloaded model differs")
+
+        sigma = tt.DepthNoiseModel(29.5).sigma_njy
+        clean = fitter.photometry[idx]
+        flux = (clean + sigma * rng.standard_normal(clean.shape)).astype(
+            np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tt.fit_catalogue(fitter, flux, np.full_like(flux, sigma),
+                               n_samples=MCMC_DRAWS, check_ood=False)
+        dt = time.perf_counter() - t0
+        cols = ("mcmc_rhat_max", "mcmc_ess_min", "flag_mcmc_unconverged")
+        check(all(c in out and out[c].shape == (MCMC_OBJECTS,) for c in cols),
+              f"{engine}: fit_catalogue lacks the MCMC columns")
+        log(f"[{engine}] fit_catalogue({MCMC_OBJECTS} objects): {dt:.3f} s = "
+            f"{1e3 * dt / MCMC_OBJECTS:.3f} s per 1000 objects; "
+            f"{int(out['flag_mcmc_unconverged'].sum())} flagged unconverged")
+
+
+def online_engines(tt, k1, dev):
+    """Phase 21: SNPE, SNLE and SNRE on the headline model's photometry
+    followed by asinh features; returns K2's launches over the phase."""
+    sim = headline_model(tt, dev, "auto")
+    fp = tt.FeaturePipeline(tt.FeatureConfig(
+        filter_codes=tuple(f"F{i}" for i in range(7)), unit="asinh",
+        depths_ab=(29.5,) * 7, n_scatters=1, include_errors=True))
+    lo = [7.5, 0.05, 5e7, 0.1, -3.9, 0.0]
+    hi = [11.0, 10.0, 1e9, 1.2, -1.5, 3.0]
+    theta_true = torch.tensor([[10.0, 2.0, 3e8, 0.5, -2.5, 0.5]], device=dev)
+    g_noise = torch.Generator(device=dev).manual_seed(21)
+    calls = []
+
+    def simulate(theta):
+        before = k1.fused_sed_photometry.launches
+        phot = sim.photometry(theta)
+        calls.append((time.perf_counter(),
+                      k1.fused_sed_photometry.launches - before))
+        return fp.build(g_noise, phot, parameters=theta).features
+
+    x_obs = simulate(theta_true)[0]
+    sim.photometry(headline_theta(dev, 1024))  # warm-up
+    total = 0
+    for engine, model, kw in (
+            ("snpe", "nsf", dict(hidden_features=32, num_transforms=4)),
+            ("snle", "nsf", dict(hidden_features=32, num_transforms=4)),
+            ("snre", "mlp", dict(hidden_features=32))):
+        fitter = tt.SBIFitter(np.ones((2, 7)), np.zeros((2, 6)), PNAMES,
+                              [f"F{i}" for i in range(7)], device=dev)
+        fitter.prior = tt.BoxUniform(lo, hi, PNAMES, device=dev)
+        calls.clear()
+        k1.fused_sed_photometry.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post, data, hist = fitter.run_online_sbi(
+            simulate, x_obs, engine=engine, model_type=model,
+            n_rounds=ONLINE_ROUNDS, sims_per_round=ONLINE_SIMS,
+            train_config=tt.TrainConfig(batch_size=512, learning_rate=1e-3,
+                                        max_epochs=20, stop_after_epochs=5),
+            generator=torch.Generator(device=dev).manual_seed(21),
+            verbose=False, **kw)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = k1.fused_sed_photometry.launches
+        total += launches
+        per_round = [c[1] for c in calls]
+        stamps = [c[0] for c in calls] + [t_end]
+        check(len(per_round) == ONLINE_ROUNDS and min(per_round) >= 1,
+              f"{engine}: K2 launches per round {per_round}")
+        check(all(np.isfinite(h["best_val"]) for h in hist),
+              f"{engine}: a round's loss is not finite")
+        s = post.sample(x_obs, 256, torch.Generator(device=dev).manual_seed(3))
+        s = s.cpu().numpy()
+        spread = data["theta"][1].std(0) / data["theta"][0].std(0)
+        check(bool(np.isfinite(s).all() and (s >= np.float32(lo)).all()
+                   and (s <= np.float32(hi)).all()),
+              f"{engine}: a posterior draw lies outside the box")
+        log(f"[online] {engine} ({model} {kw}): {ONLINE_ROUNDS} rounds of "
+            f"{ONLINE_SIMS} simulations in {t_end - t0:.2f} s; seconds per "
+            f"round from its simulation to the next "
+            f"{np.round(np.diff(stamps), 3).tolist()} (host clock); best "
+            f"val per round {[round(h['best_val'], 3) for h in hist]}; K2 "
+            f"launches per round {per_round}; round-2 θ spread / round-1 "
+            f"{[round(float(v), 3) for v in spread]}; posterior median "
+            f"{[float(f'{v:.4g}') for v in np.median(s, axis=0)]} vs truth "
+            f"{[float(f'{v:.4g}') for v in theta_true[0].tolist()]}")
+    return total
+
+
+def paper63_bounds(k1, auto, theta, sorted_theta):
+    """K1 and K2 alone at the paper-63 width (F8 64), beside their bounds
+    computed with `k1_bound` / `bound` at these shapes."""
+    a = k2_args(auto, theta)
+    b, c = a["sfzh"].shape
+    n_l = a["sed_w"].shape[1]
+    k2b = bound(flops_fp32=2.0 * b * c * n_l,
+                flops_bf16=2.0 * b * n_l * 4 * a["f8"],
+                nbytes=4 * (b * c + c * n_l + n_l + a["kc"] * a["f8"] + 3 * b
+                            + b * a["f8"]) + 2 * n_l * a["kc"] * a["f8"])
+    k2_ms = time_ms(lambda: k2_call(k1, a), reps=5)
+    chunk, sub, kc, w_cols, k0, l0 = auto._plan_windows(sorted_theta, 1024)
+    subs = [s for *_, s in auto._window_calls(chunk, sub, w_cols, kc, k0, l0)]
+    bounds = [k1_bound(s) for s in subs]
+    k1b = sum(x["bound_ms"] for x in bounds)
+    by = ("operations" if all(x["bound_by"] == "operations" for x in bounds)
+          else "bytes")
+    g = auto._window_grouped_args(chunk, sub, w_cols, kc, k0, l0)
+    k1_ms = time_ms(lambda: k1.fused_window_photometry_grouped(**g), reps=5)
+    log(f"[paper63] K2 alone (B={b} C={c} L_sup={n_l} F8={a['f8']}): "
+        f"{k2_ms:.4f} ms against a bound of {k2b['bound_ms']:.4f} ms "
+        f"({k2b['bound_by']}), share {k2b['bound_ms'] / k2_ms:.3f}; K1 alone "
+        f"({len(k0)} sub-chunks, W={w_cols}, kc={kc}): {k1_ms:.4f} ms "
+        f"against the sum of its sub-chunks' bounds {k1b:.4f} ms ({by}), "
+        f"share {k1b / k1_ms:.3f} (CUDA events)")
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
@@ -1807,24 +2228,49 @@ def main() -> None:
         t0 = time.perf_counter()
         phase()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    # this slice's paths, each kernel's count set to 0 before them: phases
+    # 19-20 train on phase 4's library and launch no kernel; phase 21
+    # launches K2 in every round's simulations
+    k1.fused_window_photometry.launches = 0
+    k1.fused_sed_photometry.launches = 0
+    pk.shift_photometry_num.launches = 0
+    for name, phase in (("19 flow zoo", lambda: flow_zoo(tt, lib, dev)),
+                        ("20 NLE and NRE", lambda: engines(tt, fitter, dev))):
+        t0 = time.perf_counter()
+        phase()
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    k2_19_20 = k1.fused_sed_photometry.launches
+    t0 = time.perf_counter()
+    k2_online = online_engines(tt, k1, dev)
+    log(f"[phase] 21 online engines: {time.perf_counter() - t0:.1f} s")
+    by_phase = {"K1": {"4": k1_stats["launches"],
+                       "19-21": k1.fused_window_photometry.launches},
+                "K2": {"6": k2_stats["launches"], "19-20": k2_19_20,
+                       "21": k2_online},
+                "K3": {"8": k3_stats["launches"],
+                       "19-21": pk.shift_photometry_num.launches}}
+    for key, st in (("K1", k1_stats), ("K2", k2_stats), ("K3", k3_stats)):
+        st["launches"] = sum(by_phase[key].values())
 
     rows = []
-    for name, source, replaces, st in (
-            ("K1 fused_window_photometry_grouped", "fused_window.cu",
+    for key, name, source, replaces, st in (
+            ("K1", "K1 fused_window_photometry_grouped", "fused_window.cu",
              "synference_tpu/ops/fused_sed.py:167", k1_stats),
-            ("K2 fused_sed_photometry", "fused_sed.cu",
+            ("K2", "K2 fused_sed_photometry", "fused_sed.cu",
              "synference_tpu/ops/fused_sed.py:167", k2_stats),
-            ("K3 shift_photometry_num", "shift_num.cu",
+            ("K3", "K3 shift_photometry_num", "shift_num.cu",
              "synference_tpu/ops/photometry_kernel.py:342 and :233",
              k3_stats)):
         share = st["bound_ms"] / st["ms"]
         log(f"[summary] {name}: {st['ms']:.4f} ms against a bound of "
             f"{st['bound_ms']:.4f} ms ({st['bound_by']}): share of bound "
-            f"{share:.3f}; {st['launches']} launches on the main path")
+            f"{share:.3f}; {st['launches']} launches on the main path and this "
+            f"slice's paths {by_phase[key]}")
         rows.append({
             "name": name, "route": "cuda",
             "source": f"synference_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": st["launches"],
+            "launches_by_phase": by_phase[key],
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"],

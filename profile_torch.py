@@ -23,7 +23,11 @@ Builds `chip_smoke.py`'s north-star model on the card and prints:
    hidden units, 15 transforms, 8 members as batched weights, batch 2048 per
    member, fp32 with TF32 off) on features of a 2^17-row library: kernels
    launched per step, device busy share, the top device operations; and
-   the host-clock time of a step and of the validation pass.
+   the host-clock time of a step and of the validation pass;
+8. the same trace of the batched MCMC of the NLE posterior at the
+   north-star width (NSF 69 × 15 × 8 members modelling the 14 features
+   given θ, 256 objects, 64 walkers): 8 steps (16 half-steps of 8192 rows
+   per member), kernels per half-step and the device busy share.
 
 Run from the repository root on a machine with a card:
 
@@ -145,6 +149,40 @@ def training_profile(tt, gen, dev, steps: int = 20) -> None:
                    reps=3)
 
 
+def mcmc_profile(tt, gen, dev, steps: int = 8) -> None:
+    """Batched MCMC of an NLE posterior at the north-star width, traced."""
+    from synference_tpu_torch.flows.base import build_flow
+    from synference_tpu_torch.mcmc import run_batched_mcmc
+
+    lib = gen.generate(n=2**16, seed=0)
+    fitter = tt.SBIFitter(lib["photometry"].T, lib["parameters"].T,
+                          lib["parameter_names"], lib["filter_codes"],
+                          device=dev)
+    fitter.create_feature_array(tt.FeatureConfig(
+        filter_codes=tuple(smoke.CODES), unit="asinh", depths_ab=(29.5,) * 7,
+        n_scatters=1, include_errors=True))
+    prior = fitter.create_priors()
+    flow = build_flow("nsf", theta_dim=fitter.features.shape[1],
+                      context_dim=len(fitter.parameter_names), device=dev,
+                      hidden_features=69, num_transforms=15)
+    params = flow.init(torch.Generator(device=dev).manual_seed(0),
+                       fitter.features, fitter.feature_params,
+                       n_members=smoke.N_NETS)
+    post = tt.LikelihoodPosterior(flow, params, prior)
+    xs = fitter.features[:256]
+
+    def run():
+        with torch.no_grad():
+            run_batched_mcmc(post._loglike, prior, xs, n_walkers=64,
+                             n_steps=steps, burn_in=0, thin=1)
+
+    print(f"[mcmc] NLE NSF 69x15 x{smoke.N_NETS}, 256 objects x 64 walkers, "
+          f"{steps} steps ({2 * steps} half-steps): "
+          f"{smoke.host_ms(run, 3) / (2 * steps):.3f} ms per half-step "
+          f"(host clock, median of 3 runs)", flush=True)
+    device_profile(run, f"batched MCMC, {2 * steps} half-steps")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2**20)
@@ -175,6 +213,7 @@ def main() -> None:
                    f"want_spectra=True), variant roll", reps=10)
     del roll
     training_profile(tt, gen, dev)
+    mcmc_profile(tt, gen, dev)
 
 
 if __name__ == "__main__":

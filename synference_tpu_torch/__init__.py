@@ -2,10 +2,11 @@
 
 The mock-library forward path (θ draws → SFZH → windowed photometry →
 features; HDF5 libraries with supplementary quantities that the JAX package
-reads, chunk resume), the NPE path on top of it (`SBIFitter`: NSF ensemble
-training, posterior sampling, calibration metrics, saved models that the JAX
-package reads), catalogue fitting (`fit_catalogue`: OOD vote, missing-band
-imputation, reconstructed photometry) and the dense simulator path
+reads, chunk resume), the inference paths on top of it (`SBIFitter`: the
+whole flow zoo, NPE with direct sampling, NLE and NRE with batched-MCMC
+posteriors, the online engines SNPE/SNLE/SNRE, calibration metrics, saved
+models that the JAX package reads), catalogue fitting (`fit_catalogue`: OOD
+vote, missing-band imputation, reconstructed photometry) and the dense simulator path
 (`BatchSEDSimulator.photometry` / `simulate` on θ in any order, spectra
 included, and `recover_sed`) with every SFH and metallicity family,
 particle SFZHs, emission-line quantities and the conv engine, the
@@ -37,8 +38,12 @@ from .noise_models import (AsinhEmpiricalNoiseModel, DepthNoiseModel,
                            NoiseModel, SpectralNoiseModel,
                            create_noise_models_from_catalogue,
                            load_noise_model_hdf5, save_noise_model_hdf5)
-from .posterior import DirectPosterior, EnsemblePosterior
+from .mcmc import run_batched_mcmc, split_rhat_ess
+from .online import run_online_snle, run_online_snpe, run_online_snre
+from .posterior import (DirectPosterior, EnsemblePosterior,
+                        LikelihoodPosterior, RatioPosterior)
 from .priors import BoxUniform, priors_from_library
+from .ratio import RatioEstimator, build_ratio_estimator, nre_loss
 from .recovery import recover_sed
 from .sed import BatchSEDSimulator, EmissionConfig
 from .spectra import SpectralFeaturePipeline, generate_constant_r_grid
@@ -63,4 +68,8 @@ __all__ = [
     "SpectralNoiseModel", "create_noise_models_from_catalogue",
     "load_noise_model_hdf5", "save_noise_model_hdf5",
     "SpectralFeaturePipeline", "generate_constant_r_grid",
+    "LikelihoodPosterior", "RatioPosterior", "RatioEstimator",
+    "build_ratio_estimator", "nre_loss", "run_batched_mcmc",
+    "split_rhat_ess", "run_online_snpe", "run_online_snle",
+    "run_online_snre",
 ]

@@ -20,12 +20,13 @@ Counterpart of `synference_tpu/catalogue.py`:
   through a noise model.
 
 Randomness comes from a `torch.Generator`, or draws passed in (`base=` for
-posterior normals, `comp=` / `jitter=` for the KDE draw). The MCMC
-convergence columns of the JAX package's `fit_catalogue` wait for the MCMC
-posteriors (ROADMAP M13).
+posterior normals, `comp=` / `jitter=` for the KDE draw). A posterior
+sampled by MCMC (NLE, NRE) adds its per-object convergence columns.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -463,7 +464,8 @@ class MissingPhotometryHandler:
         """(M, n_samples, P) posterior draws pooled over each object's
         imputations. `feature_fn(flux (B, F), err (B, F)) -> (B, D)` turns
         imputed vectors into features; `base` holds the posterior's base
-        normals for the M·nmc imputed objects."""
+        normals for the M·nmc imputed objects (flow posteriors; an MCMC
+        posterior draws from `generator`)."""
         imputed, sig = self.impute(generator, flux_njy, err_njy, missing_mask,
                                    return_errors=True, comp=comp,
                                    jitter=jitter)
@@ -471,8 +473,9 @@ class MissingPhotometryHandler:
         feats = feature_fn(imputed.reshape(m * nmc, n_f),
                            sig.reshape(m * nmc, n_f))
         per = -(-n_samples // nmc)  # never fewer draws than asked
+        kw = {} if base is None else {"base": base}
         with torch.no_grad():
-            samples = posterior.sample_batch(feats, per, generator, base=base)
+            samples = posterior.sample_batch(feats, per, generator, **kw)
         return samples.reshape(m, nmc * per, -1)[:, :n_samples]
 
 
@@ -552,15 +555,18 @@ def fit_catalogue(fitter, flux, flux_err, flux_unit: str = "nJy",
 
     Returns a dict of columns: `{param}_q{percent}` per fitted parameter and
     quantile, `flag_ood` / `ood_votes`, `n_missing`,
-    `sampling_acceptance`, and the raw draws under "_samples" and the
-    features under "_features". With `simulator`, also
+    `sampling_acceptance` (flow posteriors), `mcmc_rhat_max`,
+    `mcmc_ess_min` and `flag_mcmc_unconverged` (MCMC posteriors: R̂ above
+    the posterior's `rhat_warn` or not finite), and the raw draws under
+    "_samples" and the features under "_features". With `simulator`, also
     `recon_{filter}_q{p}` from `recon_draws` draws per object (and
     "_recon_photometry"); with `recover_seds`, SED bands under
     "_recovered_seds".
 
     Objects with missing bands are pooled over imputations when a
     `missing_data_handler` is given. Draws come from `generator` (seed 0 on
-    the fitter's device when None), or the posterior's base normals `base`.
+    the fitter's device when None), or the posterior's base normals `base`
+    (flow posteriors).
     """
     if generator is None:
         generator = torch.Generator(device=fitter.device).manual_seed(0)
@@ -588,7 +594,7 @@ def fit_catalogue(fitter, flux, flux_err, flux_unit: str = "nJy",
         samples = missing_data_handler.process_observations(
             generator, fitter.posterior, feature_fn, flux_njy, err_njy,
             missing_mask, n_samples, base=base).cpu().numpy()
-    else:
+    elif hasattr(fitter.posterior, "sample_batch_with_acceptance"):
         with torch.no_grad():
             samples, acc = fitter.posterior.sample_batch_with_acceptance(
                 feats, n_samples, generator, base=base)
@@ -596,6 +602,22 @@ def fit_catalogue(fitter, flux, flux_err, flux_unit: str = "nJy",
         # in-support fraction of the raw flow draws per object: well below
         # 1 flags posterior mass clipped onto the prior's faces
         out["sampling_acceptance"] = acc.cpu().numpy()
+    else:
+        with torch.no_grad():
+            samples = fitter.posterior.sample_batch(
+                feats, n_samples, generator).cpu().numpy()
+    # MCMC-sampled posteriors (NLE, NRE) leave per-object convergence
+    # diagnostics: columns and a flag, so that a chain set that has not
+    # converged cannot feed wrong quantiles into the table silently
+    diag = getattr(fitter.posterior, "last_diagnostics", None)
+    if diag is not None and diag["rhat"].shape[0] == len(samples):
+        with warnings.catch_warnings():  # all-NaN rows of a short chain
+            warnings.simplefilter("ignore", RuntimeWarning)
+            out["mcmc_rhat_max"] = np.nanmax(diag["rhat"], axis=1)
+            out["mcmc_ess_min"] = np.nanmin(diag["ess"], axis=1)
+        out["flag_mcmc_unconverged"] = (
+            ~np.isfinite(out["mcmc_rhat_max"])
+            | (out["mcmc_rhat_max"] > fitter.posterior.rhat_warn))
     for i, name in enumerate(fitter.parameter_names):
         for q in quantiles:
             out[f"{name}_q{int(round(q * 100))}"] = np.quantile(

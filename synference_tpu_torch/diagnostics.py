@@ -10,8 +10,10 @@ serves both `evaluate_posterior` and `evaluate_members_fused`.
 Medians and quantiles interpolate linearly between order statistics, and
 standard deviations and variances are population ones, as in the JAX package.
 TARP's reference points take their uniforms from a generator or from an array
-passed in. c2st, lc2st, the misspecification check, feature importance, the
-Fisher forecast and score compression wait for ROADMAP M13/M14.
+passed in. `evaluate_posterior` serves flow posteriors and, without the
+acceptance columns, the MCMC-sampled ones. c2st, lc2st, the misspecification
+check, feature importance, the Fisher forecast and score compression wait
+for ROADMAP M13-rest/M14.
 """
 
 from __future__ import annotations
@@ -301,24 +303,32 @@ def evaluate_posterior(posterior, xs, truths,
                        batched_rounds: int = 4,
                        coverage_levels=_LEVELS, base=None,
                        tarp_uniforms=None) -> dict:
-    """Full validation report for a flow posterior on held-out (x, θ)
-    pairs: point metrics, PIT KS per parameter, TARP deviation, mean
-    log-prob of the truths (also leakage-corrected), coverage table, and the
-    sampling acceptance with a warning when the flow leaks.
+    """Full validation report for a posterior on held-out (x, θ) pairs:
+    point metrics, PIT KS per parameter, TARP deviation, mean log-prob of
+    the truths, coverage table.
 
-    `base` (the shape `posterior.sample_batch_with_acceptance` takes) and
-    `tarp_uniforms` (M, P) replace the generator's draws (seed 0 when all
-    are None).
-    """
-    dev = posterior.flow.device
+    A flow posterior (one with `sample_batch_with_acceptance`) also reports
+    the sampling acceptance, with a warning when the flow leaks, and the
+    leakage-corrected log-prob; `base` (the shape that method takes) replaces
+    its base draws. Any other posterior (the MCMC-sampled NLE and NRE ones)
+    is sampled with `sample_batch` and reports neither; its `mean_log_prob`
+    is None when no truth has a finite log-prob. `tarp_uniforms` (M, P)
+    replace the generator's draws (seed 0 on the posterior's device when
+    all are None)."""
+    flow_posterior = hasattr(posterior, "sample_batch_with_acceptance")
+    dev = posterior.prior.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     xs = torch.atleast_2d(_f32(xs, dev))
     truths = torch.atleast_2d(_f32(truths, dev))
     levels = tuple(float(v) for v in coverage_levels)
     with torch.no_grad():
-        samples, acc = posterior.sample_batch_with_acceptance(
-            xs, n_samples, generator, batched_rounds, base)
+        if flow_posterior:
+            samples, acc = posterior.sample_batch_with_acceptance(
+                xs, n_samples, generator, batched_rounds, base)
+        else:
+            samples = posterior.sample_batch(xs, n_samples, generator)
+            acc = torch.ones(xs.shape[0], device=dev)
         uniforms = _tarp_uniforms(truths.shape, generator, tarp_uniforms,
                                   dev)
         lp = posterior.log_prob(truths, xs)
@@ -329,20 +339,27 @@ def evaluate_posterior(posterior, xs, truths,
         "pit_ks": out["pit_ks"].tolist(),
         "tarp_deviation": float(out["tarp_deviation"]),
         "mean_log_prob": float(out["mean_log_prob"]),
-        "mean_log_prob_normalized": float(out["mean_log_prob_normalized"]),
         "frac_outside_support": float(out["frac_outside_support"]),
         "coverage": out["coverage"].tolist(),
         "coverage_levels": list(levels),
         "n_samples": int(n_samples),
-        "sampling_acceptance_mean": float(out["acc_mean"]),
-        "sampling_acceptance_min": float(out["acc_min"]),
-        "frac_clipped": float(1.0 - out["acc_mean"]),
     }
-    if report["sampling_acceptance_min"] < 0.5:
-        warnings.warn(
-            f"posterior leakage: min in-support acceptance "
-            f"{report['sampling_acceptance_min']:.2f} (< 0.5); clipped "
-            "samples pile mass on the prior faces", stacklevel=2)
+    if not flow_posterior:
+        if report["frac_outside_support"] == 1.0:
+            report["mean_log_prob"] = None
+    else:
+        report.update({
+            "mean_log_prob_normalized": float(
+                out["mean_log_prob_normalized"]),
+            "sampling_acceptance_mean": float(out["acc_mean"]),
+            "sampling_acceptance_min": float(out["acc_min"]),
+            "frac_clipped": float(1.0 - out["acc_mean"]),
+        })
+        if report["sampling_acceptance_min"] < 0.5:
+            warnings.warn(
+                f"posterior leakage: min in-support acceptance "
+                f"{report['sampling_acceptance_min']:.2f} (< 0.5); clipped "
+                "samples pile mass on the prior faces", stacklevel=2)
     if parameter_names is not None:
         report["parameter_names"] = list(parameter_names)
     return report

@@ -1,8 +1,11 @@
 """`SBIFitter`: the top-level amortised-inference workflow.
 
-Counterpart of `synference_tpu/fitter.py` for the NPE engine: it holds the
-library, builds features, trains flow ensembles on its device, produces
-posteriors, evaluates their calibration, and saves and loads the result.
+Counterpart of `synference_tpu/fitter.py`: it holds the library, builds
+features, trains estimators on its device for the three engines ("npe": a
+flow q(θ|x) sampled directly; "nle": a flow likelihood q(x|θ) and "nre": a
+classifier log-ratio, both sampled by batched MCMC), runs the online
+engines (`run_online_sbi`: SNPE, SNLE, SNRE), produces posteriors,
+evaluates their calibration, and saves and loads the result.
 `save_state` writes the JAX package's layout (plain Python and numpy only),
 so a file written by either package loads in the other.
 
@@ -16,9 +19,8 @@ Spectral features come from library spectra on an instrument grid
 (`create_feature_array_from_raw_spectra`): crop, noise from a
 `SpectralNoiseModel`, and flux normalisation with the log10 norm appended.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item: the
-"nle" and "nre" engines (M11/M13); not present: the simformer, the online
-engines and the plotting and dataframe helpers (M14).
+Not present: the simformer (a saved one raises NotImplementedError naming
+ROADMAP M14) and the plotting and dataframe helpers (M14).
 """
 
 from __future__ import annotations
@@ -29,12 +31,15 @@ import pickle
 import numpy as np
 import torch
 
+from . import online
 from .diagnostics import evaluate_members_fused, evaluate_posterior
 from .features import FeatureConfig, FeaturePipeline
 from .flows.base import (ConditionalFlow, build_flow, params_from_numpy,
                          params_to_numpy, tree_leaves, tree_map)
-from .posterior import DirectPosterior, EnsemblePosterior
+from .posterior import (DirectPosterior, EnsemblePosterior,
+                        LikelihoodPosterior, RatioPosterior)
 from .priors import BoxUniform, priors_from_library
+from .ratio import RatioEstimator, build_ratio_estimator, nre_loss
 from .train import TrainConfig, train_ensemble
 
 __all__ = ["SBIFitter"]
@@ -46,6 +51,7 @@ class SBIFitter:
         fitter = SBIFitter(photometry, parameters, names, codes, device="cuda")
         fitter.create_feature_array(FeatureConfig(...))
         result = fitter.run_single_sbi(model_type="nsf", n_nets=3)
+        # or engine="nle" / "nre", sampled by batched MCMC
         samples = fitter.sample_posterior(x_obs, n_samples=1000)
         report = fitter.evaluate_model()
     """
@@ -267,20 +273,24 @@ class SBIFitter:
                        generator: torch.Generator | None = None,
                        epoch_callback=None, support_aware: bool = True,
                        **model_kwargs):
-        """Train the estimator q(θ|x) and build its posterior.
+        """Train the estimator and build its posterior.
 
-        support_aware: reparametrise the flow onto the prior box by a logit
-        transform, so that every sample is in-support by construction.
-        `generator` (seed 42 on the fitter's device when None) drives the
-        split, the initial weights and the shuffles.
+        Engines: "npe" trains q(θ|x) and samples it directly; "nle" trains
+        the flow likelihood q(x|θ) (the flow's "θ" slot holds the features,
+        its context θ) and "nre" a classifier log-ratio (`model_type` is
+        ignored; `hidden_features` becomes at least 64, `num_layers` and
+        `net` go in `model_kwargs`); both sample by batched MCMC.
+        `hidden_features` and `num_transforms` reach the flows that take
+        them, as in the JAX package.
+
+        support_aware (npe only): reparametrise the flow onto the prior box
+        by a logit transform, so that every sample is in-support by
+        construction. `generator` (seed 42 on the fitter's device when None)
+        drives the split, the initial weights and the shuffles.
         """
         engine = engine.lower()
         if engine not in ("npe", "nle", "nre"):
             raise ValueError(f"unknown engine {engine!r}")
-        if engine != "npe":
-            raise NotImplementedError(
-                f"engine {engine!r} is not ported yet (ROADMAP M11 for its "
-                "estimators, M13 for its MCMC-sampled posterior)")
         if self.features is None:
             self.create_feature_array()
         if self.prior is None:
@@ -288,37 +298,114 @@ class SBIFitter:
         if self._split is None:
             self.split_dataset(test_fraction)
 
-        cfg = dict(model_kwargs, hidden_features=hidden_features,
-                   num_transforms=num_transforms)
-        if support_aware:
-            cfg.setdefault("support_low", tuple(
-                self.prior.low.cpu().numpy().astype(np.float64)))
-            cfg.setdefault("support_high", tuple(
-                self.prior.high.cpu().numpy().astype(np.float64)))
-        self.flow = build_flow(model_type, theta_dim=len(self.parameter_names),
-                               context_dim=self.features.shape[1],
-                               device=self.device, **cfg)
+        theta_dim, x_dim = len(self.parameter_names), self.features.shape[1]
+        cfg = dict(model_kwargs)
+        loss_fn = None
+        if engine == "nre":
+            cfg.setdefault("hidden_features", max(hidden_features, 64))
+            self.flow = build_ratio_estimator(theta_dim, x_dim,
+                                              device=self.device, **cfg)
+            loss_fn = nre_loss(self.flow)
+        else:
+            if model_type in ("maf", "nsf", "ncsf", "realnvp", "nice", "naf",
+                              "unaf", "sospf", "gf"):
+                cfg.update(hidden_features=hidden_features,
+                           num_transforms=num_transforms)
+            elif model_type in ("mdn", "cnf", "made"):
+                cfg.setdefault("hidden_features", hidden_features)
+            if engine == "nle":
+                self.flow = build_flow(model_type, theta_dim=x_dim,
+                                       context_dim=theta_dim,
+                                       device=self.device, **cfg)
+            else:
+                if support_aware:
+                    cfg.setdefault("support_low", tuple(
+                        self.prior.low.cpu().numpy().astype(np.float64)))
+                    cfg.setdefault("support_high", tuple(
+                        self.prior.high.cpu().numpy().astype(np.float64)))
+                self.flow = build_flow(model_type, theta_dim=theta_dim,
+                                       context_dim=x_dim, device=self.device,
+                                       **cfg)
 
         tr_idx = self._split["train"]
         source = self.feature_source
+        theta_tr, x_tr = self.feature_params[tr_idx], self.features[tr_idx]
+        if engine == "nle":  # the trainer's "θ" slot holds the modelled x
+            theta_tr, x_tr = x_tr, theta_tr
         self.train_result = train_ensemble(
-            self.flow, self.feature_params[tr_idx], self.features[tr_idx],
+            self.flow, theta_tr, x_tr,
             generator=self._generator(generator, 42),
             config=train_config or TrainConfig(), n_nets=n_nets,
             groups=None if source is None else source[tr_idx],
-            epoch_callback=epoch_callback)
+            loss_fn=loss_fn, epoch_callback=epoch_callback)
         self.engine = engine
         self._set_posterior(self.train_result.params)
         return self.train_result
 
     def _set_posterior(self, stacked_params):
+        """The engine's posterior over stacked parameters; one member's
+        parameters lose the member axis."""
+        params = stacked_params
         if tree_leaves(stacked_params)[0].shape[0] == 1:
-            self.posterior = DirectPosterior(
-                self.flow, tree_map(lambda a: a[0], stacked_params),
-                self.prior)
+            params = tree_map(lambda a: a[0], stacked_params)
+        if self.engine == "nle":
+            self.posterior = LikelihoodPosterior(self.flow, params,
+                                                 self.prior)
+        elif self.engine == "nre":
+            self.posterior = RatioPosterior(self.flow, params, self.prior)
+        elif params is not stacked_params:
+            self.posterior = DirectPosterior(self.flow, params, self.prior)
         else:
             self.posterior = EnsemblePosterior(self.flow, stacked_params,
                                                self.prior)
+
+    # ------------------------------------------------------------------
+    def run_online_sbi(self, simulate_fn, x_obs, engine: str = "snpe",
+                       model_type: str = "nsf", n_rounds: int = 3,
+                       sims_per_round: int = 2000, train_config=None,
+                       generator: torch.Generator | None = None,
+                       verbose: bool = True, **model_kwargs):
+        """Sequential SBI focused on one observation: "snpe" (truncated
+        proposals, a flow q(θ|x)), "snle" (a flow q(x|θ), MCMC) or "snre"
+        (a classifier log-ratio, MCMC; `model_type` picks its net among
+        "mlp", "resnet", "linear", else "mlp"). `simulate_fn` maps θ
+        (B, P) on the fitter's device to features (B, D) matching `x_obs`.
+        The draws and the training come from `generator` (seed 0 on the
+        fitter's device when None). Returns (posterior, {"theta": [...],
+        "x": [...]} per round as numpy, per-round history)."""
+        engine = engine.lower()
+        if engine not in ("snpe", "npe", "snle", "nle", "snre", "nre"):
+            raise ValueError(f"unknown online engine {engine!r}")
+        if self.prior is None:
+            self.create_priors()
+        theta_dim = len(self.parameter_names)
+        x_dim = np.atleast_1d(np.asarray(x_obs)).shape[-1]
+        generator = self._generator(generator, 0)
+        kw = dict(n_rounds=n_rounds, sims_per_round=sims_per_round,
+                  train_config=train_config, generator=generator,
+                  verbose=verbose)
+        if engine in ("snpe", "npe"):
+            self.flow = build_flow(model_type, theta_dim=theta_dim,
+                                   context_dim=x_dim, device=self.device,
+                                   **model_kwargs)
+            run, self.engine = online.run_online_snpe, "npe"
+        elif engine in ("snle", "nle"):
+            self.flow = build_flow(model_type, theta_dim=x_dim,
+                                   context_dim=theta_dim, device=self.device,
+                                   **model_kwargs)
+            run, self.engine = online.run_online_snle, "nle"
+        else:
+            net = model_type if model_type in ("mlp", "resnet", "linear") \
+                else "mlp"
+            self.flow = build_ratio_estimator(theta_dim, x_dim, net=net,
+                                              device=self.device,
+                                              **model_kwargs)
+            run, self.engine = online.run_online_snre, "nre"
+        self.train_result = None
+        posterior, data, hist = run(simulate_fn, self.prior, self.flow,
+                                    x_obs, **kw)
+        self.posterior = posterior
+        return posterior, data, hist
 
     # ------------------------------------------------------------------
     def sample_posterior(self, xs, n_samples: int = 1000,
@@ -347,6 +434,9 @@ class SBIFitter:
         `diagnostics.evaluate_members_fused`); needs n_nets > 1."""
         if self.train_result is None or self.train_result.n_members < 2:
             raise ValueError("evaluate_members needs an n_nets>1 ensemble")
+        if self.engine != "npe":
+            raise ValueError("evaluate_members needs an npe ensemble (its "
+                             "members are flow posteriors q(θ|x))")
         idx = self._split["test"][:max_objects]
         return evaluate_members_fused(
             self.flow, self.train_result.params, self.prior,
@@ -357,8 +447,10 @@ class SBIFitter:
     # ------------------------------------------------------------------
     def save_state(self, path: str):
         """Persist flow spec, parameters, prior and feature flags in the JAX
-        package's layout: a pickle of plain Python and numpy."""
-        if self.train_result is None:
+        package's layout: a pickle of plain Python and numpy. After an
+        online run (no training result) the posterior's parameters are
+        saved, with a member axis."""
+        if self.posterior is None:
             raise RuntimeError("nothing to save: train a model first")
         state = {
             "name": self.name,
@@ -368,13 +460,23 @@ class SBIFitter:
             "filter_codes": self.filter_codes,
             "feature_flags": self.feature_flags,
             "flow_spec": self.flow.spec(),
-            "params": params_to_numpy(self.train_result.params),
-            "n_members": self.train_result.n_members,
-            "train_history": {
-                "train_losses": np.asarray(self.train_result.train_losses),
-                "val_losses": np.asarray(self.train_result.val_losses),
-            },
         }
+        if self.train_result is not None:
+            state.update({
+                "params": params_to_numpy(self.train_result.params),
+                "n_members": self.train_result.n_members,
+                "train_history": {
+                    "train_losses": np.asarray(
+                        self.train_result.train_losses),
+                    "val_losses": np.asarray(self.train_result.val_losses),
+                },
+            })
+        else:
+            params = self.posterior.params
+            if params["theta_mean"].ndim == 1:
+                params = tree_map(lambda a: a.unsqueeze(0), params)
+            state.update({"params": params_to_numpy(params),
+                          "n_members": int(params["theta_mean"].shape[0])})
         with open(path, "wb") as f:
             pickle.dump(state, f)
 
@@ -397,12 +499,14 @@ class SBIFitter:
         fitter.supplementary_names = []
         fitter._raw_parameter_names = list(fitter.parameter_names)
         fitter._clear_training_state()
-        if fitter.engine != "npe":
+        if fitter.engine not in ("npe", "nle", "nre"):
             raise NotImplementedError(
                 f"saved engine {fitter.engine!r} is not ported yet (ROADMAP "
-                "M13 for nle/nre posteriors, M14 for the simformer)")
-        fitter.flow = ConditionalFlow.from_spec(state["flow_spec"],
-                                                fitter.device)
+                "M14 for the simformer)")
+        spec = state["flow_spec"]
+        fitter.flow = (RatioEstimator.from_spec(spec, fitter.device)
+                       if spec.get("model") == "nre"
+                       else ConditionalFlow.from_spec(spec, fitter.device))
         fitter.prior = BoxUniform.from_dict(state["prior"], fitter.device)
         params = params_from_numpy(state["params"], fitter.device)
         k = int(tree_leaves(params)[0].shape[0])

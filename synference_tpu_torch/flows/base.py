@@ -8,8 +8,10 @@ deviation, floored at 1e-6) and folds the Jacobian into `log_prob`; with
 every sample lies inside the prior box.
 
 Parameters are a nested dict/list of tensors in the JAX package's layout:
-`{"flow": {"blocks": [[{"w", "b"}, ...], ...]}, "theta_mean", "theta_std",
-"x_mean", "x_std"}`, plus `"embed": [{"w", "b"}, ...]` with an embedding
+`{"flow": ..., "theta_mean", "theta_std", "x_mean", "x_std"}`, where "flow"
+is the family's own tree (`{"blocks": [...]}` for the coupling, MAF and
+monotone flows, with "g" beside it for "unaf"; `{"mlp": [...]}` for "mdn";
+`{"layers": [...]}` for "gf" and "cnf"), plus `"embed": [{"w", "b"}, ...]` with an embedding
 net (`embedding_dim`, `embedding_hidden`, `embedding_layers`): a He-initialised
 ReLU MLP that maps the standardised context to `embedding_dim` features
 before the flow's conditioners (for high-dimensional contexts such as
@@ -19,8 +21,12 @@ results with that axis in front, methods given one member's parameters
 return them without it. `params_from_numpy` / `params_to_numpy` carry a tree
 between the packages.
 
-Only `model="nsf"` is ported: the other names of the JAX zoo raise
-NotImplementedError naming ROADMAP M11.
+Every name of the JAX zoo is built, with its defaults: "maf", "made" (one
+MAF block), "nsf", "realnvp" / "affine_coupling", "nice" (affine coupling
+with the log-scale clamped to 0), "mdn", "gaussian" (one component), "ncsf",
+"naf", "unaf", "sospf", "gf" and "cnf". Sampling moves base draws through
+the flow's inverse: standard normals, uniforms on the box for "ncsf", and for
+"mdn"/"gaussian" normals followed by one uniform per mixture component.
 """
 
 from __future__ import annotations
@@ -30,15 +36,40 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .cnf import make_cnf
+from .maf import make_maf
+from .mdn import make_mdn
 from .mlp import mlp_apply, mlp_init
+from .monotone import make_gf, make_naf, make_sospf, make_unaf
+from .nsf import make_affine_coupling, make_ncsf, make_nsf
 
 __all__ = ["ConditionalFlow", "build_flow", "flatten_params",
            "unflatten_params", "params_from_numpy", "params_to_numpy",
            "tree_map", "tree_leaves", "tree_unflatten"]
 
-_UNPORTED_MODELS = ("maf", "made", "realnvp", "affine_coupling", "mdn",
-                    "gaussian", "ncsf", "naf", "unaf", "sospf", "gf", "cnf",
-                    "nice")
+# the JAX package's registry (`ConditionalFlow.__post_init__`)
+_MAKERS = {"maf": make_maf, "made": make_maf, "nsf": make_nsf,
+           "realnvp": make_affine_coupling,
+           "affine_coupling": make_affine_coupling,
+           "nice": make_affine_coupling, "mdn": make_mdn, "gaussian": make_mdn,
+           "ncsf": make_ncsf, "naf": make_naf, "unaf": make_unaf,
+           "sospf": make_sospf, "gf": make_gf, "cnf": make_cnf}
+
+
+def _make_net(model: str, dim: int, context_dim: int, cfg: dict, device):
+    """The density estimator of a registry name, with the JAX package's
+    defaults ("made" one block, "gaussian" one component, "nice" no
+    scale)."""
+    if model not in _MAKERS:
+        raise ValueError(f"unknown flow model {model!r}")
+    cfg = dict(cfg, device=device)
+    if model == "made":
+        cfg.setdefault("num_transforms", 1)
+    elif model == "gaussian":
+        cfg.setdefault("num_components", 1)
+    elif model == "nice":
+        cfg["clamp_log_scale"] = 0.0
+    return _MAKERS[model](dim, context_dim, **cfg)
 
 
 # -- parameter trees ----------------------------------------------------
@@ -119,12 +150,12 @@ class ConditionalFlow:
     """A conditional density estimator q(θ | x) with input standardisation.
 
     Attributes:
-        model: "nsf".
+        model: a name of the registry (see the module docstring).
         theta_dim / context_dim: dimensions.
-        config: model hyperparameters (hidden_features, num_transforms,
-            num_bins, tail_bound, n_layers), the optional support bounds and
-            the optional embedding net (embedding_dim, embedding_hidden =
-            128, embedding_layers = 2).
+        config: the model's hyperparameters (hidden_features,
+            num_transforms, ... as the JAX package names them), the optional
+            support bounds and the optional embedding net (embedding_dim,
+            embedding_hidden = 128, embedding_layers = 2).
         device: where the flow's constants live and its samples are drawn.
     """
 
@@ -137,8 +168,6 @@ class ConditionalFlow:
     _SUPPORT_EPS = 1.0e-6
 
     def __post_init__(self):
-        from .nsf import make_nsf
-
         self.device = torch.device(self.device)
         cfg = dict(self.config)
         self._embed_dim = cfg.pop("embedding_dim", None)
@@ -159,14 +188,8 @@ class ConditionalFlow:
             self._support = (torch.as_tensor(lo, device=self.device),
                              torch.as_tensor(hi, device=self.device))
         flow_ctx = int(self._embed_dim or self.context_dim)
-        if self.model == "nsf":
-            self._net = make_nsf(self.theta_dim, flow_ctx, **cfg,
-                                 device=self.device)
-        elif self.model in _UNPORTED_MODELS:
-            raise NotImplementedError(
-                f"flow model {self.model!r} is not ported yet (ROADMAP M11)")
-        else:
-            raise ValueError(f"unknown flow model {self.model!r}")
+        self._net = _make_net(self.model, self.theta_dim, flow_ctx, cfg,
+                              self.device)
 
     # -- support (prior box) transform -----------------------------------
     def _unit(self, theta):
@@ -267,7 +290,10 @@ class ConditionalFlow:
         return lp if stacked else lp[0]
 
     def to_base(self, params, theta, x):
-        """The base-space point of each θ: what `sample` maps back to θ."""
+        """The base-space point of each θ: what `sample` maps back to θ (a
+        mixture density network has none)."""
+        if not hasattr(self._net, "forward"):
+            raise ValueError(f"model {self.model!r} has no base-space map")
         params, stacked = self._stacked(params)
         z, xs, _ = self._to_base(params, theta, x)
         h, _ = self._net.forward(params["flow"], z, xs)
@@ -276,22 +302,25 @@ class ConditionalFlow:
     def sample_batch(self, params, xs, n: int,
                      generator: torch.Generator | None = None, base=None):
         """xs (M, C) -> (M, n, D) draws in raw θ units, or (K, M, n, D) for
-        stacked parameters. The base normals come from `generator` (on the
-        flow's device) or are given as `base` of the result's shape. With a
-        support transform every draw lies strictly inside the prior box."""
+        stacked parameters. The base draws come from `generator` (on the
+        flow's device) or are given as `base`, (K, M, n, ·) or (M, n, ·):
+        D standard normals per draw, uniforms on [-tail_bound, tail_bound)
+        for "ncsf", and for "mdn"/"gaussian" D normals followed by one
+        uniform per component. With a support transform every draw lies
+        strictly inside the prior box."""
         params, stacked = self._stacked(params)
         k = params["theta_mean"].shape[0]
         ctx = self._context(params, xs)  # (K, M, C)
-        m = ctx.shape[1]
-        shape = (k, m, int(n), self.theta_dim)
+        m, n = ctx.shape[1], int(n)
+        shape = (k, m, n, self.theta_dim)
         if base is None:
             if generator is None:
                 raise ValueError("sampling needs a generator or base draws")
-            base = torch.randn(shape, generator=generator, device=self.device)
+            base = self._net.draw_base(generator, (k, m * n))
         else:
-            base = self._tensor(base).reshape(shape)
-        ctx = ctx.expand(k, m, -1).unsqueeze(2).expand(-1, -1, int(n), -1)
-        z = self._net.inverse(params["flow"], base.reshape(k, m * n, -1),
+            base = self._tensor(base).reshape(k, m * n, -1)
+        ctx = ctx.expand(k, m, -1).unsqueeze(2).expand(-1, -1, n, -1)
+        z = self._net.inverse(params["flow"], base,
                               ctx.reshape(k, m * n, -1))
         u = (z * params["theta_std"].unsqueeze(1)
              + params["theta_mean"].unsqueeze(1))

@@ -32,12 +32,16 @@ def mlp_init(generator: torch.Generator, sizes, n_members: int,
     return layers
 
 
-def mlp_apply(layers: list, x: torch.Tensor) -> torch.Tensor:
-    """(K, B, in) -> (K, B, out); ReLU on every layer but the last."""
-    h = x
+def mlp_apply(layers: list, x: torch.Tensor,
+              activation=torch.relu) -> torch.Tensor:
+    """(K, B, in) -> (K, B, out); `activation` on every layer but the last.
+    Inputs with more than one batch axis, (K, ..., in), are applied as
+    (K, B, in) and given back in their shape."""
+    shape = x.shape
+    h = x.reshape(shape[0], -1, shape[-1])
     for i, layer in enumerate(layers):
         h = torch.baddbmm(layer["b"].unsqueeze(1), h,
                           layer["w"].transpose(1, 2))
         if i < len(layers) - 1:
-            h = torch.relu(h)
-    return h
+            h = activation(h)
+    return h.reshape(shape[:-1] + h.shape[-1:])

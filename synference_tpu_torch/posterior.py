@@ -5,21 +5,27 @@ Counterpart of `synference_tpu/posterior.py` (`DirectPosterior`,
 `EnsemblePosterior`). The members of an ensemble are batched weights, so one
 pass draws for every member and every object. Each sampling function takes a
 `torch.Generator` on the flow's device or the base normals themselves
-(`base=`), so that two runs, or two packages, can share their draws. The
-MCMC-sampled likelihood and ratio posteriors wait for ROADMAP M13.
+(`base=`), so that two runs, or two packages, can share their draws.
+
+The NLE and NRE posteriors (`LikelihoodPosterior`, `RatioPosterior`) add the
+prior's log-density to a likelihood or ratio term and sample it with the
+batched ensemble MCMC (`mcmc.run_batched_mcmc`), every object at once.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 
 import numpy as np
 import torch
 
 from .flows.base import ConditionalFlow, tree_leaves, tree_map
+from .mcmc import run_batched_mcmc
 from .priors import BoxUniform
 
-__all__ = ["DirectPosterior", "EnsemblePosterior"]
+__all__ = ["DirectPosterior", "EnsemblePosterior", "LikelihoodPosterior",
+           "RatioPosterior"]
 
 
 def _draw_members(flow, stacked_params, prior, xs, n: int, rounds: int,
@@ -171,3 +177,109 @@ class EnsemblePosterior:
         # sample per member
         s = s.permute(1, 2, 0, 3).reshape(s.shape[1], -1, s.shape[-1])
         return s[:, :n], acc.mean(dim=0)
+
+
+class _MCMCPosterior:
+    """An unnormalised log-density term (`_loglike(θ (B, P), x (B, C)) ->
+    (B,)`) plus the prior, sampled by the batched stretch-move MCMC.
+
+    `last_acceptance` (a float) and `last_diagnostics` ({"rhat", "ess"}
+    numpy (M, P) arrays) describe the latest `sample_batch`; a chain set
+    whose largest split-R̂ exceeds `rhat_warn` logs a warning on the
+    "synference_tpu_torch.mcmc" logger, since its quantiles cannot be
+    trusted."""
+
+    def __init__(self, prior: BoxUniform, n_walkers: int = 64,
+                 burn_in: int = 256, thin: int = 2, rhat_warn: float = 1.1):
+        self.prior = prior
+        self.n_walkers = n_walkers + (n_walkers % 2)
+        self.burn_in = burn_in
+        self.thin = thin
+        self.rhat_warn = float(rhat_warn)
+        self.last_acceptance: float | None = None
+        self.last_diagnostics: dict | None = None
+
+    @property
+    def n_members(self) -> int:
+        """The leading axis of stacked parameters; 1 for one member's."""
+        mean = self.params["theta_mean"]
+        return int(mean.shape[0]) if mean.ndim == 2 else 1
+
+    def _ensemble(self, values):
+        """(K, B) member values -> their mixture logsumexp − log K; (B,)
+        values pass through."""
+        if values.ndim == 1:
+            return values
+        return torch.logsumexp(values, dim=0) - math.log(values.shape[0])
+
+    def log_prob(self, theta, x):
+        """Unnormalised log posterior (log-likelihood or ratio + log prior),
+        −inf outside the prior's support; not comparable across x."""
+        theta = self.prior._tensor(theta)
+        x = self.prior._tensor(x)
+        lp = self.prior.log_prob(theta)
+        ok = torch.isfinite(lp)
+        ll = torch.where(ok, self._loglike(theta, x), 0.0)
+        return torch.where(ok, ll + lp, -torch.inf)
+
+    def sample_batch(self, xs, n: int,
+                     generator: torch.Generator | None = None, draws=None):
+        """(M, C) -> (M, n, D): the freshest n post-burn-in states per
+        object of a chain of burn_in + ceil(n / walkers)·thin steps. The
+        draws come from `generator` (seed 0 on the prior's device when
+        None) or `draws` (see `run_batched_mcmc`)."""
+        keep_steps = -(-n // self.n_walkers)
+        kept, acc, diag = run_batched_mcmc(
+            self._loglike, self.prior, xs, generator,
+            n_walkers=self.n_walkers,
+            n_steps=self.burn_in + keep_steps * self.thin,
+            burn_in=self.burn_in, thin=self.thin, return_diagnostics=True,
+            draws=draws)
+        self.last_acceptance = float(acc)
+        rhat, ess = diag["rhat"].cpu().numpy(), diag["ess"].cpu().numpy()
+        self.last_diagnostics = {"rhat": rhat, "ess": ess}
+        finite = np.isfinite(rhat)
+        rhat_max = float(rhat[finite].max()) if finite.any() else float("nan")
+        if np.isfinite(rhat_max) and rhat_max > self.rhat_warn:
+            per_obj = np.where(finite, rhat, -np.inf).max(axis=1)
+            logging.getLogger("synference_tpu_torch.mcmc").warning(
+                "batched MCMC: %d/%d objects have split-R-hat > %.2f "
+                "(max %.3f); their posterior quantiles are unreliable; "
+                "raise burn_in/n_steps", int((per_obj > self.rhat_warn).sum()),
+                kept.shape[0], self.rhat_warn, rhat_max)
+        return kept[:, -n:]
+
+    def sample(self, x, n: int, generator: torch.Generator | None = None,
+               **kw):
+        x = self.prior._tensor(x).reshape(1, -1)
+        return self.sample_batch(x, n, generator, **kw)[0]
+
+
+class LikelihoodPosterior(_MCMCPosterior):
+    """NLE posterior: the flow likelihood q(x|θ) times the prior, sampled
+    by MCMC. The flow was trained with the roles swapped: its "θ" slot holds
+    the features and its context θ. Stacked `params` (a leading member axis)
+    make the likelihood the uniform mixture of the members'."""
+
+    def __init__(self, flow: ConditionalFlow, params, prior: BoxUniform,
+                 **mcmc_kw):
+        super().__init__(prior, **mcmc_kw)
+        self.flow = flow
+        self.params = params
+
+    def _loglike(self, theta, x):
+        return self._ensemble(self.flow.log_prob(self.params, x, theta))
+
+
+class RatioPosterior(_MCMCPosterior):
+    """NRE posterior: the classifier logit log r(θ, x) plus the log prior,
+    sampled by MCMC; the members of stacked `params` are averaged in ratio
+    space (logsumexp of the logits − log K)."""
+
+    def __init__(self, estimator, params, prior: BoxUniform, **mcmc_kw):
+        super().__init__(prior, **mcmc_kw)
+        self.estimator = estimator
+        self.params = params
+
+    def _loglike(self, theta, x):
+        return self._ensemble(self.estimator.logit(self.params, theta, x))

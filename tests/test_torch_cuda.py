@@ -38,6 +38,12 @@ device-sampler resume bit for bit, the "auto" window-body probe (CUDA
 events, cached on the simulator and in its file, a failing K1 raising), and
 "auto" on a run too short to probe taking K1 once per batch.
 
+The inference slice on the card: every name of the flow zoo, two members,
+card against CPU from the same parameters and base draws (`log_prob` and
+samples to 1e-4) and one finite training step; `run_batched_mcmc` card
+against CPU from the same draws (1e-5) and its sync guard raising on a
+log-density that reads back.
+
 K1 and K2 share one core (`csrc/sed_tile.cuh`). K1's one launch over a
 batch of sub-chunks is held to the same bound with per-sub-chunk windows
 at unaligned columns, ragged tiles and B = 1, 3, 13; both kernels at 128
@@ -810,3 +816,99 @@ def test_auto_probe_on_the_card(cuda, tmp_path, monkeypatch):
         tt.LibraryGenerator(_sim(cuda, 3), prior,
                             unlog_keys=["log10_peak_age"],
                             device=cuda).generate(**args)
+
+
+
+# -- the flow zoo and the batched MCMC on the card ---------------------------
+ZOO = ["maf", "made", "nsf", "realnvp", "affine_coupling", "nice", "mdn",
+       "gaussian", "ncsf", "naf", "unaf", "sospf", "gf", "cnf"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ZOO)
+def test_zoo_card_vs_cpu(cuda, model):
+    """Every registry name, two members, from the same (perturbed)
+    parameters and base draws: log_prob card vs CPU to 1e-4, samples to
+    1e-4 (the bisection families too: both devices run the same 50
+    halvings); one training step on the card gives finite losses."""
+    from synference_tpu_torch.flows.base import (params_from_numpy,
+                                                 params_to_numpy, tree_map)
+    from synference_tpu_torch.train import TrainConfig, _new_state, _npe_loss
+
+    cfg = dict(hidden_features=16)
+    if model == "cnf":
+        cfg["num_steps"] = 4
+    elif model not in ("mdn", "gaussian", "made"):
+        cfg["num_transforms"] = 2
+    rng = np.random.default_rng(3)
+    theta = rng.normal(0, 1, (512, 6)).astype(np.float32)
+    x = rng.normal(0, 1, (512, 14)).astype(np.float32)
+    flows = {d: tt.build_flow(model, 6, 14, device=d, **cfg)
+             for d in ("cpu", "cuda")}
+    params = params_to_numpy(flows["cpu"].init(
+        torch.Generator().manual_seed(0), theta, x, n_members=2))
+    params["flow"] = tree_map(
+        lambda a: a + 0.05 * rng.standard_normal(a.shape).astype(np.float32),
+        params["flow"])
+    p = {d: params_from_numpy(params, d) for d in ("cpu", "cuda")}
+    with torch.no_grad():
+        lp = {d: flows[d].log_prob(p[d], theta, x).cpu() for d in p}
+        base = flows["cpu"]._net.draw_base(torch.Generator().manual_seed(1),
+                                           (2, 8 * 32))
+        s = {d: flows[d].sample_batch(p[d], x[:8], 32,
+                                      base=base.to(d)).cpu() for d in p}
+    assert torch.isfinite(lp["cuda"]).all()
+    assert float((lp["cuda"] - lp["cpu"]).abs().max()) < 1e-4
+    assert float((s["cuda"] - s["cpu"]).abs().max()) < 1e-4
+    state = _new_state(flows["cuda"], theta, x, TrainConfig(), 2,
+                       torch.Generator(device="cuda").manual_seed(0))
+    t, xx = (torch.as_tensor(a, device="cuda") for a in (theta, x))
+    loss = state.train_step(_npe_loss(flows["cuda"]),
+                            t[:256].expand(2, -1, -1),
+                            xx[:256].expand(2, -1, -1))
+    assert torch.isfinite(loss).all()
+
+
+@pytest.mark.cuda
+def test_batched_mcmc_card_vs_cpu_and_no_sync(cuda):
+    """`run_batched_mcmc` on a Gaussian target from the same draws: the
+    card's chain equals the CPU's to 1e-5 and so does the acceptance; the
+    loop runs under the sync guard, so a log-density that reads back
+    raises on the card."""
+    from synference_tpu_torch.mcmc import run_batched_mcmc
+
+    rng = np.random.default_rng(0)
+    m, w, n_steps, dim = 4, 16, 24, 2
+    xs = rng.normal(0, 1, (m, dim)).astype(np.float32)
+    draws = {
+        "walkers": rng.uniform(-3, 3, (m, w, dim)).astype(np.float32),
+        "stretch": rng.uniform(size=(n_steps, 2, m, w // 2)).astype(
+            np.float32),
+        "partner": rng.integers(0, w // 2, (n_steps, 2, m, w // 2)),
+        "accept": rng.uniform(size=(n_steps, 2, m, w // 2)).astype(
+            np.float32)}
+
+    def target(theta, x):
+        return -0.5 * (((theta - x) / 0.5) ** 2).sum(dim=-1)
+
+    out = {}
+    for d in ("cpu", "cuda"):
+        prior = tt.BoxUniform([-3.0] * dim, [3.0] * dim, device=d)
+        s, acc, diag = run_batched_mcmc(target, prior, xs, n_walkers=w,
+                                        n_steps=n_steps, burn_in=8, thin=2,
+                                        return_diagnostics=True, draws=draws)
+        out[d] = (s.cpu(), float(acc), diag["rhat"].cpu())
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) < 1e-5
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], abs=1e-6)
+    assert torch.allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4)
+
+    def reads_back(theta, x):
+        ll = target(theta, x)
+        float(ll.sum())
+        return ll
+
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        run_batched_mcmc(reads_back, tt.BoxUniform([-3.0] * dim, [3.0] * dim,
+                                                   device="cuda"),
+                         xs, torch.Generator(device="cuda").manual_seed(0),
+                         n_walkers=w, n_steps=2, burn_in=0)

@@ -246,13 +246,20 @@ def test_single_member_without_support_and_unported_engines(library):
     assert 0.0 <= report["sampling_acceptance_min"] <= 1.0
     with pytest.raises(ValueError, match="n_nets>1"):
         fitter.evaluate_members()
-    for engine, item in (("nle", "M11"), ("nre", "M13")):
-        with pytest.raises(NotImplementedError, match=item):
-            fitter.run_single_sbi(engine=engine)
+    # the engines and the model that were refused before they were ported
+    # train one epoch now, each with its posterior
+    for model, engine, post in (("nsf", "nle", tt.LikelihoodPosterior),
+                                ("nsf", "nre", tt.RatioPosterior),
+                                ("maf", "npe", tt.DirectPosterior)):
+        res = fitter.run_single_sbi(
+            model, engine=engine, n_nets=1,
+            train_config=tt.TrainConfig(max_epochs=1, batch_size=256),
+            **(MODEL if model == "nsf" else dict(hidden_features=16,
+                                                  num_transforms=2)))
+        assert fitter.engine == engine and isinstance(fitter.posterior, post)
+        assert np.isfinite(res.val_losses).all()
     with pytest.raises(ValueError, match="unknown engine"):
         fitter.run_single_sbi(engine="abc")
-    with pytest.raises(NotImplementedError, match="ROADMAP M11"):
-        fitter.run_single_sbi("maf", train_config=tt.TrainConfig(max_epochs=1))
     # missing-band replay is ported: a mask sets flux and error columns
     feats = fitter.features_from_observations(
         fitter.photometry[:2], fitter.photometry[:2],
