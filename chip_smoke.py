@@ -132,10 +132,35 @@ unsorted θ):
    simulator, 2 rounds of 4096, NSF 32 x 4 (MLP 32 for snre), one member:
    K2 launches in every round, every round's loss finite, the posterior's
    draws for x_obs inside the box; seconds per round.
+22. gradient fitters: the north-star simulator under `_mega_off` (its
+   plain route), a mock catalogue of 1024 box-uniform draws through
+   `photometry()` (one K2 launch) with depth-29.5 noise. K1, K2 and K3
+   refuse an input that requires grad and a forward-AD dual; the
+   log-posterior gradient on 256 rows is finite, card against CPU (the same
+   simulator on the CPU with the card's tables) < 1e-4 of each row's
+   largest entry; `fisher_forecast` on 65536 rows finite and symmetric,
+   card against CPU on 64 rows < 1e-4; `fit_catalogue_map` (4 restarts,
+   400 steps) and `fit_catalogue_vi` on all 1024 objects finite and inside
+   the box; `fit_catalogue_hmc` of 256 objects × 8 chains at the JAX
+   defaults under sync debug mode "error", acceptance in (0, 1), samples
+   inside the box; a short HMC from the same draws on the card and the CPU;
+   `posterior_crosscheck` of phase 9's NPE on 8 objects, C2ST in [0, 1];
+   `model_comparison` against phase 15's delayed-τ model on 4 objects,
+   log Z finite. No fitter call launches a kernel, and `_mega_off` is back
+   to False after each. Readings: s per 1000 objects, gradient rows/s, MAP
+   pulls, split-R̂, HMC σ / Cramér-Rao σ, C2ST, Bayes factors;
+23. diagnostics on phase 9's fitter: `fitter.lc2st` (1000 calibration
+   pairs, 20 null classifiers, 200 epochs), card against CPU from the same
+   draws; `detect_misspecification` (a 5-epoch marginal maf) flags every
+   garbage row; `feature_importance`, `shapley_feature_importance` (Σφ =
+   v(all) − v(none) to 1e-4); `calculate_map` of 64 objects inside the
+   box; `restricted_prior_from_simulations` on 65536 library θ, invalid in
+   one corner, puts < 2% of 10⁴ draws there. Phases 22-23 print their
+   seconds and their launches of K1, K2 and K3.
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
-on the path (with its launches on the main path and on phases 19-21 by
+on the path (with its launches on the main path and on phases 19-23 by
 phase, each kernel's share of its bound, and `first_product_ms`:
 the fp32 first product alone as one cuBLAS `torch.matmul` with TF32 off, a
 yardstick for the kernels' core that the port never calls); the last line
@@ -2171,6 +2196,459 @@ def paper63_bounds(k1, auto, theta, sorted_theta):
         f"share {k1b / k1_ms:.3f} (CUDA events)")
 
 
+# -- phases 22-23: the gradient fitters and the rest of diagnostics ----------
+GRAD_OBJECTS = 1024  # the mock catalogue of MAP and VI
+HMC_OBJECTS, HMC_CHAINS = 256, 8
+GRAD_ROWS = 256  # the log-posterior gradient, card against CPU
+FISHER_ROWS, FISHER_CPU_ROWS = 65536, 64
+# card against CPU, as |Δ| over each row's largest |entry| (the log-posterior
+# gradient in logit space at prior draws, F at the truths) or over the prior
+# width (HMC samples from the same draws); the card's and the CPU's float32
+# sums of the same products differ in order only (measured on an H100:
+# gradient 5.3e-5, F 3.4e-5)
+TOL_GRAD_ROW = 1e-4
+TOL_FISHER_ROW = 1e-4
+TOL_HMC_WIDTH = 1e-4
+# ... for at least half the chains of the short run: where the card's and
+# the CPU's log α straddle an accept uniform (they differ by rounding), the
+# two chains part for good, and so do the object's other chains, whose
+# adapted step size is shared (measured on an H100: 44 of 64 chains within
+# 1e-4, the acceptance 1.8e-3 apart)
+HMC_CHAINS_CLOSE = 32
+TOL_HMC_ACC = 1e-2
+# L-C2ST after 200 epochs of Adam from the same draws: ReLU kinks flip on
+# rounding and the classifiers drift apart (port against JAX on the CPU:
+# 3.6e-3 on a statistic of ~0.1; card against CPU on an H100: 7.7e-3), so
+# the statistics are held absolutely
+TOL_LC2ST_STAT = 2e-2
+SMC_KW = dict(n_particles=512, n_moves=2, max_stages=40)
+# the marginal flow trains on every feature row: `detect_misspecification`
+# takes the first `max_train`, and the library is sorted by redshift (its
+# first 65536 rows span z < ~2, and 5 epochs on them flagged 13 of the 16
+# garbage rows on an H100)
+MISSPEC_ROWS = 2**18
+
+
+def _zero_counts(k1, pk):
+    k1.fused_window_photometry.launches = 0
+    k1.fused_sed_photometry.launches = 0
+    pk.shift_photometry_num.launches = 0
+
+
+def _counts(k1, pk):
+    return (k1.fused_window_photometry.launches,
+            k1.fused_sed_photometry.launches, pk.shift_photometry_num.launches)
+
+
+def cpu_twin(tt, sim):
+    """The simulator on the CPU, on the same route, with the card's tables
+    (`load_state`), so card and CPU differ only in their arithmetic."""
+    cpu = tt.BatchSEDSimulator(
+        sim.grid, sim.filters, sim.param_names, sfh=sim.sfh_name,
+        zdist=sim.zdist_name, emission=sim.emission,
+        photometry_backend=sim.photometry_backend, device="cpu")
+    state = {}
+    for key in sim.STATE_KEYS:
+        val = getattr(sim, f"_{key}", None)
+        if val is None or getattr(cpu, f"_{key}", None) is None:
+            continue
+        state[key] = ({t: v.float().cpu().numpy() for t, v in val.items()}
+                      if key == "components" else val.float().cpu().numpy())
+    cpu.load_state(state)
+    return cpu
+
+
+def _row_rel(card, cpu):
+    """max over rows of max |card − cpu| / the row's largest |cpu| entry."""
+    card = card.detach().float().cpu().reshape(card.shape[0], -1)
+    cpu = cpu.detach().float().reshape(cpu.shape[0], -1)
+    scale = torch.clamp(cpu.abs().amax(dim=1), min=1e-30)
+    return float(((card - cpu).abs().amax(dim=1) / scale).max())
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sim_box(names):
+    """PRIOR's box over the simulator's θ (raw peak age, as the library
+    stores it)."""
+    low = [PRIOR[n][0] if n in PRIOR else 10.0 ** PRIOR[f"log10_{n}"][0]
+           for n in names]
+    high = [PRIOR[n][1] if n in PRIOR else 10.0 ** PRIOR[f"log10_{n}"][1]
+            for n in names]
+    return low, high
+
+
+def gradient_fitters(tt, k1, pk, sim, fitter, dev):
+    """Phase 22: the gradient fitters through the north-star simulator."""
+    from synference_tpu_torch import mcmc
+    from synference_tpu_torch.mcmc import _LogitBox, _value_and_grad
+
+    names = tuple(sim.param_names)
+    low, high = sim_box(names)
+    prior = tt.BoxUniform(low, high, names, device=dev)
+    width = (prior.high - prior.low).cpu()
+    g = torch.Generator(device=dev).manual_seed(22)
+    truth = prior.sample(g, GRAD_OBJECTS)
+    flux = sim.photometry(truth)
+    torch.cuda.synchronize()
+    check(_counts(k1, pk) == (0, 1, 0),
+          f"the mock catalogue launched {_counts(k1, pk)} (K1, K2, K3), not "
+          f"one K2")
+    sigma = torch.full_like(flux, tt.DepthNoiseModel(29.5).sigma_njy)
+    obs = flux + sigma * torch.randn(flux.shape, generator=g, device=dev)
+    log(f"[grad] mock catalogue: {GRAD_OBJECTS} prior draws of the "
+        f"north-star model through photometry() (one K2 launch), σ "
+        f"{float(sigma[0, 0]):.4f} nJy (depth 29.5), median SNR "
+        f"{float((flux / sigma).median()):.1f}")
+
+    def no_kernels(name, fn):
+        before = _counts(k1, pk)
+        out, dt = _timed(fn)
+        check(_counts(k1, pk) == before,
+              f"{name} launched a kernel: {before} -> {_counts(k1, pk)}")
+        check(sim._mega_off is False, f"{name} left _mega_off set")
+        return out, dt
+
+    # the wrappers refuse gradients on the card, in both AD modes
+    from torch.autograd import forward_ad
+    params = sim.theta_dict(truth[:64])
+    sfzh, _ = sim._sfzh(params)
+    z = params["redshift"]
+    k2_rest = (sim._shift_of_z(z), params["tau_v"], sim._scale_of_z(z),
+               sim._mega_tables, sim._n_knots, sim._knot_delta, sim._f8)
+    res = sim.simulate(truth[:64], want_spectra=True)
+    fw = res["fnu_njy"] * sim._wlam
+    calls = {"K2": (sfzh, lambda x: k1.fused_sed_photometry(x, *k2_rest)),
+             "K1": (sfzh, lambda x: k1.fused_window_photometry_grouped(
+                 x, k2_rest[0], k2_rest[1], k2_rest[2], sim._mega_tables,
+                 [0], [0], 64, sim._l_sup, sim._n_knots, sim._knot_delta,
+                 sim._f8)),
+             "K3": (fw, lambda x: pk.shift_photometry_num(
+                 x, torch.zeros((8, 8, fw.shape[1] + 8), device=dev),
+                 torch.zeros(64, dtype=torch.int32, device=dev)))}
+    for name, (x, call) in calls.items():
+        for mode in ("requires_grad", "forward-AD dual"):
+            raised = False
+            try:
+                if mode == "requires_grad":
+                    call(x.detach().clone().requires_grad_(True))
+                else:
+                    with forward_ad.dual_level():
+                        call(forward_ad.make_dual(x.detach().clone(),
+                                                  torch.ones_like(x)))
+            except RuntimeError as e:
+                raised = "_mega_off" in str(e)
+            check(raised, f"{name} did not refuse an input with a {mode}")
+    check(_counts(k1, pk) == (0, 1, 0), "a refused call launched a kernel")
+    log("[grad] K1, K2 and K3 refuse an input that requires grad and a "
+        "forward-AD dual (RuntimeError naming _mega_off)")
+
+    # the log-posterior gradient in logit space, card against CPU
+    cpu_sim = cpu_twin(tt, sim)
+    cpu_prior = tt.BoxUniform(low, high, names, device="cpu")
+    theta_g = prior.sample(g, GRAD_ROWS)
+    grads = {}
+    for name, s_, p_, dv in (("card", sim, prior, dev),
+                             ("cpu", cpu_sim, cpu_prior, "cpu")):
+        box = _LogitBox(p_)
+        x_, sg_ = obs[:GRAD_ROWS].to(dv), sigma[:GRAD_ROWS].to(dv)
+
+        def logpost(u, s_=s_, box=box, x_=x_, sg_=sg_):
+            return (mcmc.censored_gaussian_loglike_rows(
+                s_.photometry(box.theta(u)), x_, sg_) + box.log_jac(u))
+
+        with mcmc._plain_route(s_):
+            grads[name] = _value_and_grad(logpost, box.u(theta_g.to(dv)))[1]
+            truth_grad = _value_and_grad(logpost, box.u(truth[:GRAD_ROWS]
+                                                         .to(dv)))[1]
+        check(bool(torch.isfinite(grads[name]).all()
+                   and torch.isfinite(truth_grad).all()),
+              f"non-finite log-posterior gradient ({name})")
+    rel = _row_rel(grads["card"], grads["cpu"])
+    log(f"[grad] log-posterior gradient on {GRAD_ROWS} rows at prior draws: "
+        f"finite there and at the truths; card against CPU max |Δ| / row "
+        f"max {rel:.3e} (bound {TOL_GRAD_ROW:g})")
+    check(rel < TOL_GRAD_ROW, f"gradient card vs CPU {rel:.3e}")
+
+    # Fisher forecast at 65536 truths (the catalogue's first rows repeated
+    # over fresh prior draws)
+    theta_f = torch.cat([truth, prior.sample(g, FISHER_ROWS - GRAD_OBJECTS)])
+    fr, dt_f = no_kernels("fisher_forecast", lambda: tt.fisher_forecast(
+        sim, theta_f, sigma[:1].expand(FISHER_ROWS, -1)))
+    f_mat = fr["fisher"]
+    asym = float(((f_mat - f_mat.transpose(1, 2)).abs().amax(dim=(1, 2))
+                  / f_mat.abs().amax(dim=(1, 2))).max())
+    check(bool(torch.isfinite(f_mat).all()), "non-finite Fisher matrix")
+    check(asym < 1e-6, f"Fisher matrix asymmetric by {asym:.2e}")
+    fr_cpu = tt.fisher_forecast(cpu_sim, theta_f[:FISHER_CPU_ROWS].cpu(),
+                                sigma[:FISHER_CPU_ROWS].cpu())
+    rel_f = _row_rel(f_mat[:FISHER_CPU_ROWS], fr_cpu["fisher"])
+    log(f"[grad] fisher_forecast({FISHER_ROWS} rows): {dt_f:.3f} s = "
+        f"{FISHER_ROWS / dt_f:,.0f} rows/s, 0 kernel launches; finite, "
+        f"asymmetry {asym:.1e}; card against CPU on {FISHER_CPU_ROWS} rows "
+        f"{rel_f:.3e} of each F's largest entry (bound {TOL_FISHER_ROW:g}); "
+        f"Cramér-Rao σ finite on "
+        f"{float(torch.isfinite(fr['cramer_rao_sigma']).all(1).float().mean()):.3f}"
+        f" of rows")
+    check(rel_f < TOL_FISHER_ROW, f"Fisher card vs CPU {rel_f:.3e}")
+
+    # MAP + Laplace and VI of the whole catalogue
+    out_map, dt_map = no_kernels("fit_catalogue_map", lambda: tt.fit_catalogue_map(
+        sim, obs, sigma, prior, g, n_steps=400, n_restarts=4))
+    tmap = out_map["theta_map"]
+    check(bool(prior.support_mask(tmap).all()), "a MAP lies outside the box")
+    check(bool(torch.isfinite(out_map["log_like"]).all()),
+          "non-finite MAP log-likelihood")
+    pulls = ((tmap - truth) / out_map["laplace_sigma"]).cpu().numpy()
+    med_pull = [float(np.nanmedian(np.abs(pulls[:, i])))
+                for i in range(len(names))]
+    log(f"[grad] fit_catalogue_map({GRAD_OBJECTS} objects, 4 restarts, 400 "
+        f"Adam steps): {dt_map:.2f} s = {1e3 * dt_map / GRAD_OBJECTS:.3f} s "
+        f"per 1000 objects, 0 kernel launches; median |pull| per parameter "
+        f"{np.round(med_pull, 3).tolist()}; Laplace σ finite on "
+        f"{float(torch.isfinite(out_map['laplace_sigma']).all(1).float().mean()):.3f}"
+        f" of objects; median log-likelihood "
+        f"{float(out_map['log_like'].median()):.2f}")
+    out_vi, dt_vi = no_kernels("fit_catalogue_vi", lambda: tt.fit_catalogue_vi(
+        sim, obs, sigma, prior, g))
+    for k in ("elbo", "mean", "sigma"):
+        check(bool(torch.isfinite(out_vi[k]).all()), f"non-finite VI {k}")
+    log(f"[grad] fit_catalogue_vi({GRAD_OBJECTS} objects, 500 steps of 8 "
+        f"draws): {dt_vi:.2f} s = {1e3 * dt_vi / GRAD_OBJECTS:.3f} s per "
+        f"1000 objects, 0 kernel launches; median ELBO "
+        f"{float(out_vi['elbo'].median()):.2f}")
+
+    # HMC of 256 objects at the JAX defaults, the whole call under the
+    # sync guard
+    import warnings
+    x_h, s_h = obs[:HMC_OBJECTS].contiguous(), sigma[:HMC_OBJECTS].contiguous()
+    torch.cuda.synchronize()
+
+    def hmc():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return tt.fit_catalogue_hmc(sim, x_h, s_h, prior, g,
+                                        n_chains=HMC_CHAINS)
+        finally:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                torch.cuda.set_sync_debug_mode(0)
+
+    (samples, lps, acc), dt_h = no_kernels("fit_catalogue_hmc", hmc)
+    acc = float(acc)
+    n_pass = HMC_OBJECTS * HMC_CHAINS * 550 * 13
+    check(0.0 < acc < 1.0, f"HMC acceptance {acc}")
+    check(bool(prior.support_mask(samples.reshape(-1, len(names))).all()),
+          "an HMC sample lies outside the box")
+    chains = samples.reshape(HMC_OBJECTS, HMC_CHAINS, -1, len(names)
+                             ).permute(2, 0, 1, 3)
+    rhat, _ = mcmc.split_rhat_ess(chains)
+    rmax = rhat.amax(dim=1).cpu().numpy()
+    cr = tt.fisher_forecast(sim, truth[:HMC_OBJECTS], s_h)["cramer_rao_sigma"]
+    ratio = (samples.std(dim=1) / cr).cpu().numpy()
+    log(f"[grad] fit_catalogue_hmc({HMC_OBJECTS} objects x {HMC_CHAINS} "
+        f"chains, 150 warmup, 400 samples, 12 leapfrog) under sync debug "
+        f"mode \"error\": {dt_h:.2f} s = {1e3 * dt_h / HMC_OBJECTS:.2f} s per "
+        f"1000 objects, {n_pass / dt_h:,.0f} gradient rows/s "
+        f"({HMC_OBJECTS * HMC_CHAINS} rows x 550 x 13 passes), 0 kernel "
+        f"launches; acceptance {acc:.3f}; split-R-hat median "
+        f"{float(np.median(rmax)):.3f}, share > 1.1 "
+        f"{float((rmax > 1.1).mean()):.3f}; median HMC σ / Cramér-Rao σ per "
+        f"parameter {np.round(np.nanmedian(ratio, axis=0), 3).tolist()}")
+
+    # a short HMC from the same draws on the card and the CPU, at 50%
+    # errors: at depth 29.5 a 4-step chain from prior candidates rejects
+    # every proposal, and the comparison would only see its start
+    rng = np.random.default_rng(22)
+    n_short, c_short = 8, 8
+    s_short = 0.5 * flux[:n_short] + sigma[:n_short]
+    draws = {"candidates": cpu_prior.sample(torch.Generator().manual_seed(5),
+                                            256).numpy(),
+             "momenta": rng.standard_normal(
+                 (8, n_short * c_short, len(names))).astype(np.float32),
+             "accept": rng.uniform(size=(8, n_short * c_short)).astype(
+                 np.float32)}
+    kw = dict(n_chains=c_short, n_warmup=4, n_samples=4, n_leapfrog=3,
+              draws=draws)
+    short_card, _ = no_kernels("short fit_catalogue_hmc", lambda: tt.fit_catalogue_hmc(
+        sim, obs[:n_short], s_short, prior, **kw))
+    short_cpu = tt.fit_catalogue_hmc(cpu_sim, obs[:n_short].cpu(),
+                                     s_short.cpu(), cpu_prior, **kw)
+    dev_chain = ((short_card[0].cpu() - short_cpu[0]).abs() / width).reshape(
+        n_short, c_short, -1, len(names)).amax(dim=(2, 3)).flatten()
+    close = dev_chain < TOL_HMC_WIDTH
+    objects = int(close.reshape(n_short, c_short).all(dim=1).sum())
+    d_acc = abs(float(short_card[2]) - float(short_cpu[2]))
+    log(f"[grad] short HMC ({n_short} objects x {c_short} chains, 50% "
+        f"errors, 2 + 2 warmup and 4 samples of 3 leapfrog) from the same "
+        f"draws: card against CPU, {int(close.sum())} of "
+        f"{n_short * c_short} chains within {TOL_HMC_WIDTH:g} of the prior "
+        f"width (largest deviation among them "
+        f"{float(dev_chain[close].max()):.3e}), all chains of {objects} of "
+        f"{n_short} objects; acceptance {float(short_card[2]):.4f} and "
+        f"{float(short_cpu[2]):.4f} (|Δ| {d_acc:.1e}, bound "
+        f"{TOL_HMC_ACC:g})")
+    check(int(close.sum()) >= HMC_CHAINS_CLOSE,
+          f"only {int(close.sum())} short HMC chains agree card vs CPU")
+    check(d_acc < TOL_HMC_ACC, f"short HMC acceptance card vs CPU {d_acc}")
+
+    # NPE against HMC: phase 9's ensemble (θ as the library stores it, the
+    # simulator's) on 8 objects featurised as in phase 14
+    feats8 = fitter.features_from_observations(obs[:8].cpu().numpy(),
+                                               sigma[:8].cpu().numpy())
+    cc, dt_cc = no_kernels("posterior_crosscheck", lambda: tt.posterior_crosscheck(
+        fitter.posterior, sim, feats8, obs[:8], sigma[:8], prior, g))
+    scores = cc["c2st"]
+    check(bool(((scores >= 0) & (scores <= 1)).all()),
+          f"C2ST outside [0, 1]: {scores}")
+    log(f"[grad] posterior_crosscheck(8 objects, 512 draws, HMC 8 chains x "
+        f"64, 120 warmup): {dt_cc:.2f} s; C2ST {np.round(scores, 3).tolist()}"
+        f"; HMC acceptance {cc['hmc_acceptance']:.3f}")
+
+    # model comparison: lognormal against phase 15's delayed-τ model, on 4
+    # objects drawn from the lognormal one
+    fam = tt.BatchSEDSimulator(
+        sim.grid, sim.filters, FAMILY_PNAMES, sfh="delayed_tau",
+        zdist="normal", emission=sim.emission, device=dev)
+    fam_prior = tt.BoxUniform([FAMILY_PRIOR[n][0] for n in FAMILY_PNAMES],
+                              [FAMILY_PRIOR[n][1] for n in FAMILY_PNAMES],
+                              FAMILY_PNAMES, device=dev)
+    before = _counts(k1, pk)
+    t0 = time.perf_counter()
+    bayes = []
+    for i in range(4):
+        mc = tt.model_comparison(
+            {"lognormal": sim, "delayed_tau": fam}, obs[i], sigma[i],
+            {"lognormal": prior, "delayed_tau": fam_prior}, g, **SMC_KW)
+        for name in ("lognormal", "delayed_tau"):
+            check(bool(np.isfinite(mc[name]["log_z"])),
+                  f"non-finite log Z of {name}")
+        bayes.append(mc["lognormal"]["log_z"] - mc["delayed_tau"]["log_z"])
+        stages = [mc[n]["info"]["n_stages"] for n in ("lognormal",
+                                                       "delayed_tau")]
+    k2_smc = _counts(k1, pk)[1] - before[1]
+    log(f"[grad] model_comparison on 4 objects (SMC {SMC_KW}): "
+        f"{time.perf_counter() - t0:.2f} s, {k2_smc} K2 launches (SMC is "
+        f"gradient-free: the kernel route, as in the JAX package); log Bayes "
+        f"factor lognormal - delayed-τ {np.round(bayes, 2).tolist()}; stages "
+        f"of the last {stages}")
+    return _counts(k1, pk)
+
+
+def diagnostics_rest(tt, k1, pk, fitter, lib, dev):
+    """Phase 23: the rest of diagnostics and priors on phase 9's fitter."""
+    from synference_tpu_torch.diagnostics import lc2st
+    from synference_tpu_torch.flows.base import (ConditionalFlow,
+                                                 params_from_numpy,
+                                                 params_to_numpy)
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    test = fitter._split["test"]
+    x_cal = torch.as_tensor(fitter.features[test[:1000]], device=dev)
+    theta_cal = fitter.feature_params[test[:1000]]
+    x_obs = torch.as_tensor(fitter.features[test[1000]], device=dev)
+    n_null, hidden = 20, 64
+    d_in = theta_cal.shape[1] + x_cal.shape[1]
+    with torch.no_grad():
+        draws = {"theta_hat": fitter.posterior.sample_batch(x_cal, 1, g)[:, 0],
+                 "obs_samples": fitter.posterior.sample(x_obs, 2000, g),
+                 "masks": torch.rand((n_null, 1000, 1), generator=g,
+                                     device=dev) < 0.5,
+                 "w1": np.sqrt(2.0 / d_in) * torch.randn(
+                     (n_null + 1, hidden, d_in), generator=g, device=dev)}
+    card, dt = _timed(lambda: fitter.lc2st(x_obs, n_cal=1000, draws=draws,
+                                           n_null=n_null, n_epochs=200))
+    post_cpu = tt.EnsemblePosterior(
+        ConditionalFlow.from_spec(fitter.flow.spec(), "cpu"),
+        params_from_numpy(params_to_numpy(fitter.posterior.params), "cpu"),
+        tt.BoxUniform.from_dict(fitter.prior.to_dict(), "cpu"))
+    cpu = lc2st(post_cpu, theta_cal, x_cal.cpu(), x_obs.cpu(),
+                draws={k: v.cpu() for k, v in draws.items()}, n_null=n_null,
+                n_epochs=200)
+    stats_card = np.r_[card["stat"], card["null_stats"]]
+    stats_cpu = np.r_[cpu["stat"], cpu["null_stats"]]
+    d_stat = float(np.abs(stats_card - stats_cpu).max())
+    check(bool(np.isfinite(stats_card).all() and np.isfinite(card["p_value"])),
+          "non-finite L-C2ST")
+    log(f"[diag] fitter.lc2st(n_cal 1000, n_null 20, 200 epochs; 21 "
+        f"classifiers as one member axis): {dt:.2f} s; stat "
+        f"{card['stat']:.5f}, p {card['p_value']:.3f} (CPU {cpu['stat']:.5f}"
+        f", p {cpu['p_value']:.3f}); max |Δ statistic| card vs CPU "
+        f"{d_stat:.3e} (bound {TOL_LC2ST_STAT:g}), classifier probabilities "
+        f"{float(np.abs(card['probs_obs'] - cpu['probs_obs']).max()):.3e}")
+    check(d_stat < TOL_LC2ST_STAT, f"L-C2ST card vs CPU {d_stat:.3e}")
+
+    # misspecification: 256 held-out rows and 16 garbage rows
+    rng = np.random.default_rng(23)
+    garbage = (rng.uniform(1e5, 1e7, (GARBAGE_ROWS, len(CODES)))
+               * rng.choice([-1.0, 1.0], (GARBAGE_ROWS, len(CODES))))
+    sigma = tt.DepthNoiseModel(29.5).sigma_njy
+    x_bad = fitter.features_from_observations(
+        garbage.astype(np.float32), np.full_like(garbage, sigma, np.float32))
+    x_mis = np.concatenate([fitter.features[test[:256]], x_bad])
+    (flags, lp_mis, thresh), dt = _timed(
+        lambda: fitter.detect_misspecification(
+            x_mis, generator=g, max_train=MISSPEC_ROWS, max_epochs=5))
+    log(f"[diag] detect_misspecification (maf marginal, 5 epochs on the "
+        f"first {MISSPEC_ROWS} feature rows): {dt:.2f} s; flagged "
+        f"{int(flags[:256].sum())} of 256 held-out rows and "
+        f"{int(flags[256:].sum())} of {GARBAGE_ROWS} garbage rows; "
+        f"threshold {thresh:.2f}, garbage log-densities up to "
+        f"{float(lp_mis[256:].max()):.2f}")
+    check(bool(flags[256:].all()), "a garbage row was not flagged")
+
+    xs, truths = fitter.features[test[:256]], fitter.feature_params[test[:256]]
+    imp, dt = _timed(lambda: tt.feature_importance(fitter.posterior, xs,
+                                                   truths))
+    log(f"[diag] feature_importance(256 objects, 3 repeats): {dt:.2f} s; "
+        f"{np.round(imp, 3).tolist()}")
+    check(bool(np.isfinite(imp).all()), "non-finite feature importance")
+    sh, dt = _timed(lambda: tt.shapley_feature_importance(
+        fitter.posterior, xs, truths, seed=23))
+    gain = sh["base_log_prob"] - sh["masked_log_prob"]
+    eff = abs(sh["total_gain"] - gain) / max(abs(gain), 1e-30)
+    log(f"[diag] shapley_feature_importance(256 objects, 8 orderings): "
+        f"{dt:.2f} s; Σφ {sh['total_gain']:.4f} against v(all) - v(none) "
+        f"{gain:.4f} (relative {eff:.1e}); φ "
+        f"{np.round(sh['shapley'], 3).tolist()}")
+    check(eff < 1e-4, f"Shapley efficiency off by {eff:.1e}")
+
+    theta_map, dt = _timed(lambda: fitter.calculate_map(
+        fitter.features[test[:64]], generator=g))
+    log(f"[diag] calculate_map(64 objects, 512 draws each): {dt:.3f} s")
+    check(tuple(theta_map.shape) == (64, len(PNAMES))
+          and bool(fitter.prior.support_mask(theta_map).all()),
+          "calculate_map outside the prior or misshapen")
+
+    # the restricted prior: simulations fail in one corner of the box
+    names = list(fitter.parameter_names)
+    theta_r = lib["parameters"].T[::16][:65536]
+    mass, z = names.index("log10_mass"), names.index("redshift")
+    corner = (theta_r[:, mass] > 10.25) & (theta_r[:, z] > 5.5)
+    x_r = np.ones((theta_r.shape[0], len(CODES)), np.float32)
+    x_r[corner] = np.nan
+    base = tt.BoxUniform(*sim_box(names), names, device=dev)
+    rp, dt_fit = _timed(lambda: tt.restricted_prior_from_simulations(
+        base, theta_r, x_r, generator=g))
+    s, dt_s = _timed(lambda: rp.sample(g, 10_000))
+    s = s.cpu().numpy()
+    in_corner = float(((s[:, mass] > 10.25) & (s[:, z] > 5.5)).mean())
+    log(f"[diag] restricted_prior_from_simulations({theta_r.shape[0]} θ, "
+        f"{corner.mean():.3f} of them invalid in the corner): fit {dt_fit:.2f}"
+        f" s ({rp.classifier.clf.n_iter_} epochs), 10^4 draws {dt_s:.3f} s, "
+        f"{in_corner:.4f} of them in the corner")
+    check(in_corner < 0.02, f"{in_corner:.4f} of the draws in the corner")
+    return _counts(k1, pk)
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
@@ -2213,6 +2691,9 @@ def main() -> None:
     k3_stats = exact_spectra(tt, pk, dev, sim)
     fitter = train(tt, lib, dev)
     posterior(tt, fitter, dev)
+    # phase 20 retrains this fitter as NLE and NRE; phases 22-23 use the NPE
+    npe = {k: getattr(fitter, k)
+           for k in ("engine", "flow", "train_result", "posterior")}
     for name, phase in (
             ("11 library file", lambda: library_file(tt, dev)),
             ("12 auto and resume",
@@ -2231,9 +2712,7 @@ def main() -> None:
     # this slice's paths, each kernel's count set to 0 before them: phases
     # 19-20 train on phase 4's library and launch no kernel; phase 21
     # launches K2 in every round's simulations
-    k1.fused_window_photometry.launches = 0
-    k1.fused_sed_photometry.launches = 0
-    pk.shift_photometry_num.launches = 0
+    _zero_counts(k1, pk)
     for name, phase in (("19 flow zoo", lambda: flow_zoo(tt, lib, dev)),
                         ("20 NLE and NRE", lambda: engines(tt, fitter, dev))):
         t0 = time.perf_counter()
@@ -2243,12 +2722,34 @@ def main() -> None:
     t0 = time.perf_counter()
     k2_online = online_engines(tt, k1, dev)
     log(f"[phase] 21 online engines: {time.perf_counter() - t0:.1f} s")
-    by_phase = {"K1": {"4": k1_stats["launches"],
-                       "19-21": k1.fused_window_photometry.launches},
+    k1_19_21 = k1.fused_window_photometry.launches
+    k3_19_21 = pk.shift_photometry_num.launches
+    # phases 22-23, each with the counts set to 0 just before it: the
+    # fitters launch no kernel (their simulator's `_mega_off`), the mock
+    # catalogue one K2 and the gradient-free SMC of the model comparison K2
+    for k, v in npe.items():
+        setattr(fitter, k, v)
+    t_grad = time.perf_counter()
+    slice_counts = {}
+    for name, phase in (
+            ("22", lambda: gradient_fitters(tt, k1, pk, sim, fitter, dev)),
+            ("23", lambda: diagnostics_rest(tt, k1, pk, fitter, lib, dev))):
+        _zero_counts(k1, pk)
+        t0 = time.perf_counter()
+        slice_counts[name] = phase()
+        log(f"[phase] {name} {('gradient fitters', 'diagnostics')[int(name) - 22]}"
+            f": {time.perf_counter() - t0:.1f} s, launches (K1, K2, K3) "
+            f"{slice_counts[name]}")
+    log(f"[phase] 22-23 together: {time.perf_counter() - t_grad:.1f} s")
+    by_phase = {"K1": {"4": k1_stats["launches"], "19-21": k1_19_21,
+                       "22": slice_counts["22"][0],
+                       "23": slice_counts["23"][0]},
                 "K2": {"6": k2_stats["launches"], "19-20": k2_19_20,
-                       "21": k2_online},
-                "K3": {"8": k3_stats["launches"],
-                       "19-21": pk.shift_photometry_num.launches}}
+                       "21": k2_online, "22": slice_counts["22"][1],
+                       "23": slice_counts["23"][1]},
+                "K3": {"8": k3_stats["launches"], "19-21": k3_19_21,
+                       "22": slice_counts["22"][2],
+                       "23": slice_counts["23"][2]}}
     for key, st in (("K1", k1_stats), ("K2", k2_stats), ("K3", k3_stats)):
         st["launches"] = sum(by_phase[key].values())
 

@@ -11,7 +11,11 @@ vote, missing-band imputation, reconstructed photometry) and the dense simulator
 included, and `recover_sed`) with every SFH and metallicity family,
 particle SFZHs, emission-line quantities and the conv engine, the
 spectroscopic front end (`spectra.SpectralFeaturePipeline`, raw-spectra
-features, the flows' embedding net) and the noise-model zoo, on torch
+features, the flows' embedding net) and the noise-model zoo, and
+exact-likelihood fitting and validation through the simulator's gradient
+(HMC, MAP + Laplace, VI, SMC evidences, Fisher forecasts, score
+compression, C2ST/L-C2ST, the NPE-vs-HMC cross-check, `RestrictedPrior`),
+on torch
 tensors, with hand-written CUDA kernels for Hopper in `csrc/`: K1 the
 windowed megakernel, K2 the full-table megakernel, K3 the exact-shift
 numerators. Every public entry point takes an explicit device; CPU tensors
@@ -38,11 +42,24 @@ from .noise_models import (AsinhEmpiricalNoiseModel, DepthNoiseModel,
                            NoiseModel, SpectralNoiseModel,
                            create_noise_models_from_catalogue,
                            load_noise_model_hdf5, save_noise_model_hdf5)
-from .mcmc import run_batched_mcmc, split_rhat_ess
+from .diagnostics import (c2st, evaluate_members_fused, evaluate_posterior,
+                          expected_coverage, feature_importance,
+                          fisher_forecast, fit_marginal_flow, lc2st,
+                          misspecification_check, pit_ks_statistic,
+                          pit_values, point_metrics, posterior_crosscheck,
+                          sbc_ranks, score_compression,
+                          shapley_feature_importance, tarp_coverage,
+                          tarp_deviation)
+from .mcmc import (censored_gaussian_loglike_rows, dirichlet_cumsum_transform,
+                   fit_catalogue_hmc, fit_catalogue_map, fit_catalogue_vi,
+                   fit_observation_hmc, fit_observation_mcmc,
+                   gaussian_loglike, model_comparison, run_batched_mcmc,
+                   run_ensemble_mcmc, run_smc, split_rhat_ess)
 from .online import run_online_snle, run_online_snpe, run_online_snre
 from .posterior import (DirectPosterior, EnsemblePosterior,
                         LikelihoodPosterior, RatioPosterior)
-from .priors import BoxUniform, priors_from_library
+from .priors import (BoxUniform, RestrictedPrior, priors_from_library,
+                     restricted_prior_from_simulations)
 from .ratio import RatioEstimator, build_ratio_estimator, nre_loss
 from .recovery import recover_sed
 from .sed import BatchSEDSimulator, EmissionConfig
@@ -71,5 +88,16 @@ __all__ = [
     "LikelihoodPosterior", "RatioPosterior", "RatioEstimator",
     "build_ratio_estimator", "nre_loss", "run_batched_mcmc",
     "split_rhat_ess", "run_online_snpe", "run_online_snle",
-    "run_online_snre",
+    "run_online_snre", "run_ensemble_mcmc", "run_smc", "model_comparison",
+    "gaussian_loglike", "censored_gaussian_loglike_rows",
+    "dirichlet_cumsum_transform", "fit_observation_mcmc",
+    "fit_observation_hmc", "fit_catalogue_hmc", "fit_catalogue_map",
+    "fit_catalogue_vi", "RestrictedPrior",
+    "restricted_prior_from_simulations", "pit_values", "sbc_ranks",
+    "tarp_coverage", "tarp_deviation", "expected_coverage",
+    "pit_ks_statistic", "point_metrics", "evaluate_posterior",
+    "evaluate_members_fused", "c2st", "lc2st", "fisher_forecast",
+    "score_compression", "posterior_crosscheck", "fit_marginal_flow",
+    "misspecification_check", "feature_importance",
+    "shapley_feature_importance",
 ]

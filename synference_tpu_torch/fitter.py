@@ -19,12 +19,19 @@ Spectral features come from library spectra on an instrument grid
 (`create_feature_array_from_raw_spectra`): crop, noise from a
 `SpectralNoiseModel`, and flux normalisation with the log10 norm appended.
 
+Validation beside the calibration report: `detect_misspecification` (a
+marginal flow over the training features), `lc2st` on held-out calibration
+pairs, `calculate_map`, the loss histories (`training_log_probs`,
+`validation_log_probs`) and `save_metrics`.
+
 Not present: the simformer (a saved one raises NotImplementedError naming
-ROADMAP M14) and the plotting and dataframe helpers (M14).
+ROADMAP M14), the plotting helpers, `run_validation_from_file` and
+`create_dataframe` (M14 item 2).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 
@@ -443,6 +450,89 @@ class SBIFitter:
             self.features[idx], self.feature_params[idx],
             generator=generator, n_samples=n_samples,
             parameter_names=self.parameter_names)
+
+    # ------------------------------------------------------------------
+    def detect_misspecification(self, x_obs, quantile: float = 0.01,
+                                generator: torch.Generator | None = None,
+                                max_train: int = 20000, **flow_kwargs):
+        """Flag observations whose feature-marginal density lies below the
+        training features' `quantile`: a "maf" marginal flow
+        (`diagnostics.fit_marginal_flow`, `flow_kwargs` such as
+        `max_epochs` passed on) over the first `max_train` feature rows.
+        Returns (flags, logp_obs, threshold) on the host."""
+        from .diagnostics import fit_marginal_flow, misspecification_check
+
+        if self.features is None:
+            self.create_feature_array()
+        x_train = self.features[:max_train]
+        flow, params = fit_marginal_flow(x_train, generator,
+                                         device=self.device, **flow_kwargs)
+        return misspecification_check(flow, params, x_train,
+                                      np.atleast_2d(np.asarray(x_obs)),
+                                      quantile=quantile)
+
+    def lc2st(self, x_obs, n_cal: int = 1000,
+              generator: torch.Generator | None = None, **kwargs) -> dict:
+        """Local C2ST at one observation on the first `n_cal` held-out
+        calibration pairs (see `diagnostics.lc2st`)."""
+        from .diagnostics import lc2st as _lc2st
+
+        if self._split is None or self.feature_params is None:
+            raise ValueError(
+                "lc2st needs library calibration pairs: run "
+                "create_feature_array + split_dataset first (fitters "
+                "restored via load_saved_model carry no library)")
+        idx = self._split["test"][:n_cal]
+        return _lc2st(self.posterior, self.feature_params[idx],
+                      self.features[idx], x_obs, generator, **kwargs)
+
+    @property
+    def training_log_probs(self) -> np.ndarray:
+        """−training loss per epoch, (epochs, members)."""
+        return -np.asarray(self.train_result.train_losses)
+
+    @property
+    def validation_log_probs(self) -> np.ndarray:
+        """−validation loss per epoch, (epochs, members)."""
+        return -np.asarray(self.train_result.val_losses)
+
+    def calculate_map(self, x, generator: torch.Generator | None = None,
+                      n_starts: int = 512):
+        """MAP estimate: the highest-density one of `n_starts` posterior
+        draws. x (D,) gives (P,), x (M, D) gives (M, P), all objects in
+        one batched draw and one `log_prob` call (seed 1 on the fitter's
+        device when no generator)."""
+        generator = self._generator(generator, 1)
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        with torch.no_grad():
+            if x.ndim == 1 and hasattr(self.posterior, "map_estimate"):
+                return self.posterior.map_estimate(x, generator, n_starts)
+            xs = torch.atleast_2d(x)
+            s = self.posterior.sample_batch(xs, n_starts, generator)
+            m, n, p = s.shape
+            lp = self.posterior.log_prob(
+                s.reshape(m * n, p),
+                xs.repeat_interleave(n, dim=0)).reshape(m, n)
+            best = s[torch.arange(m, device=self.device), lp.argmax(dim=1)]
+        return best[0] if x.ndim == 1 else best
+
+    def save_metrics(self, report: dict, path: str):
+        """Write a metrics dict as JSON (arrays and tensors as lists)."""
+        def safe(v):
+            if isinstance(v, dict):
+                return {k: safe(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return [safe(x) for x in v]
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu().numpy()
+            if isinstance(v, np.ndarray):
+                return v.tolist()
+            if isinstance(v, (np.floating, np.integer, np.bool_)):
+                return v.item()
+            return v
+
+        with open(path, "w") as f:
+            json.dump(safe(report), f, indent=2)
 
     # ------------------------------------------------------------------
     def save_state(self, path: str):

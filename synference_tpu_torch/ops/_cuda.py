@@ -27,6 +27,30 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
 
 
+def refuse_autodiff(who: str, *tensors) -> None:
+    """Raise RuntimeError when an input of a kernel launch carries a
+    gradient: it requires grad while grad mode is on, holds a forward-AD
+    tangent, or is a `torch.func` wrapper. The kernels write into fresh
+    outputs with no autograd rule, so a gradient through them would be lost
+    without a word. Gradient users take the plain route by setting the
+    simulator's `_mega_off`, as the fitters do."""
+    import torch
+    from torch.autograd import forward_ad
+
+    grad_on = torch.is_grad_enabled()
+    for t in tensors:
+        if not isinstance(t, torch.Tensor):
+            continue
+        if (torch._C._functorch.is_functorch_wrapped_tensor(t)
+                or (grad_on and t.requires_grad)
+                or forward_ad.unpack_dual(t).tangent is not None):
+            raise RuntimeError(
+                f"{who}: a CUDA kernel has no gradient, and an input needs "
+                "one (requires_grad, a forward-AD tangent or a torch.func "
+                "transform); set the simulator's `_mega_off = True` to take "
+                "the plain, differentiable route")
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 

@@ -32,6 +32,7 @@ import functools
 import numpy as np
 import torch
 
+from ._cuda import refuse_autodiff
 from .photometry_kernel import _knot_interp
 
 __all__ = ["fused_window_photometry", "fused_window_photometry_reference",
@@ -205,7 +206,8 @@ def fused_window_photometry(sfzh, s_rel, tau_v, scale, sed_w, curve_w,
 
     CPU tensors go through `fused_window_photometry_reference`. CUDA tensors
     launch the kernel on the current stream; inputs the kernel does not take
-    raise ValueError, a failed launch raises RuntimeError. Each launch adds
+    raise ValueError, a failed launch raises RuntimeError, and so does an
+    input that needs a gradient (`_cuda.refuse_autodiff`). Each launch adds
     one to `fused_window_photometry.launches`.
     """
     if sfzh.device.type == "cpu":
@@ -214,6 +216,8 @@ def fused_window_photometry(sfzh, s_rel, tau_v, scale, sed_w, curve_w,
             delta, f8, order=order, fesc=fesc)
     _require(sfzh.device.type == "cuda",
              f"tensors on {sfzh.device} are neither CPU nor CUDA")
+    refuse_autodiff("fused_window_photometry", sfzh, s_rel, tau_v, scale,
+                    sed_w, curve_w, knot_w, den_w)
     _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
                        den_w, kc, delta, f8, order)
     return _launch_k1(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
@@ -289,7 +293,7 @@ def fused_window_photometry_grouped(sfzh, s, tau_v, scale, tables: dict, k0,
     CPU tensors go through `fused_window_photometry_grouped_reference`.
     CUDA tensors launch K1 once on the current stream (one more on
     `fused_window_photometry.launches`); bad inputs raise ValueError, a
-    failed launch RuntimeError.
+    failed launch or an input that needs a gradient RuntimeError.
     """
     sed, curve, knot, den = (tables[k] for k in ("sed", "curve", "knot",
                                                  "den"))
@@ -303,6 +307,7 @@ def fused_window_photometry_grouped(sfzh, s, tau_v, scale, tables: dict, k0,
     who = "fused_window_photometry_grouped"
     _require(sfzh.device.type == "cuda",
              f"tensors on {sfzh.device} are neither CPU nor CUDA", who)
+    refuse_autodiff(who, sfzh, s, tau_v, scale, sed, curve, knot, den)
     _check_cuda_inputs(sfzh, s, tau_v, scale, sed, curve, knot, den,
                        n_knots, delta, f8, order, who=who)
     win = torch.as_tensor(win).to(sfzh.device, non_blocking=True)
@@ -364,8 +369,9 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
 
     CPU tensors go through `fused_sed_photometry_reference`. CUDA tensors
     launch the kernel (`csrc/fused_sed.cu`) on the current stream; inputs it
-    does not take raise ValueError, a failed launch RuntimeError. Each
-    launch adds one to `fused_sed_photometry.launches`.
+    does not take raise ValueError, a failed launch or an input that needs
+    a gradient RuntimeError. Each launch adds one to
+    `fused_sed_photometry.launches`.
     """
     if rows is not None:
         _check_rows(rows, sfzh.shape[0], sfzh.device)
@@ -378,6 +384,7 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
              f"tensors on {sfzh.device} are neither CPU nor CUDA", who)
     sed, curve, knot, den = (tables[k] for k in ("sed", "curve", "knot",
                                                  "den"))
+    refuse_autodiff(who, sfzh, s, tau_v, scale, sed, curve, knot, den)
     _check_cuda_inputs(sfzh, s, tau_v, scale, sed, curve, knot, den,
                        n_knots, delta, f8, order, who=who)
     if rows is None:

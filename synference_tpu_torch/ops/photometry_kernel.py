@@ -34,6 +34,8 @@ import weakref
 import numpy as np
 import torch
 
+from ._cuda import refuse_autodiff
+
 __all__ = [
     "N_SUB",
     "KNOT_DELTA",
@@ -292,13 +294,15 @@ def shift_photometry_num(fw, table, s4):
     16-byte aligned are streamed in 16-byte copies, others in 4-byte copies
     by the same kernel; a row's result is the same bits either way, and
     whatever the other rows of the batch are. Inputs the kernel does not
-    take raise ValueError, a failed launch RuntimeError. Each launch adds
-    one to `shift_photometry_num.launches`.
+    take raise ValueError, a failed launch or an input that needs a
+    gradient RuntimeError. Each launch adds one to
+    `shift_photometry_num.launches`.
     """
     if fw.device.type == "cpu":
         return shift_photometry_num_reference(fw, table, s4)
     _require(fw.device.type == "cuda",
              f"tensors on {fw.device} are neither CPU nor CUDA")
+    refuse_autodiff("shift_photometry_num", fw, table, s4)
     for name, t, dtype in (("fw", fw, torch.float32),
                            ("table", table, torch.float32),
                            ("s4", s4, torch.int32)):
@@ -368,10 +372,15 @@ def _fb_slope(da, db):
     m·2·n_a·n_b/(n_a+n_b) with n = d/m, m = |da|+|db|. The product form
     da·db overflows float32 at L_ν-scale knot values (~1e30); normalized,
     every division operand is O(1). Zero where the differences change sign.
+
+    The rescale 1/m is detached, as the JAX package stops its gradient: the
+    normalised slope is homogeneous of degree 0 in (da, db), so the rescale
+    changes neither value nor derivative, while the derivative of 1/m at
+    m ~ 1e30 would form inf·0 = NaN in either AD mode.
     """
     same = ((da > 0.0) & (db > 0.0)) | ((da < 0.0) & (db < 0.0))
     m = torch.abs(da) + torch.abs(db)
-    sc = 1.0 / torch.clamp(m, min=1.0e-30)
+    sc = (1.0 / torch.clamp(m, min=1.0e-30)).detach()
     das, dbs = da * sc, db * sc
     ms = torch.abs(das) + torch.abs(dbs)
     ms_s = torch.where(same, ms, 1.0)
@@ -390,7 +399,9 @@ def _knot_interp(vals, s, n_knots: int, delta: int, order: int):
     by direct index. num AND den must use the same order and knots.
     """
     c = torch.clamp(s, 0.0, (n_knots - 1) * delta - 1.0e-3) / delta
-    k = torch.floor(c).to(torch.int64)  # 0 .. n_knots-2
+    # 0 .. n_knots-2; the clamp keeps a NaN shift's index in range (the
+    # result is NaN through t), where the JAX package's gather clamps
+    k = torch.clamp(torch.floor(c).to(torch.int64), 0, n_knots - 2)
     t = (c - k.to(c.dtype))[:, None]
 
     def rows(kk):

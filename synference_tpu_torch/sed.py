@@ -213,7 +213,15 @@ class BatchSEDSimulator:
     the backend; the backend picks the dense path's route. Calls that take
     `row_offset` number their rows from it: particle draws follow each
     row's global index.
+
+    `_mega_off = True` (the JAX package's name; the gradient fitters and
+    user wrappers set it) keeps K1 and K2 out of every call: interp
+    photometry then takes `_photometry_fused`, the plain route K2 replaces,
+    which is differentiable end to end. The kernels have no gradient, and
+    their wrappers raise on an input that needs one.
     """
+
+    _mega_off = False
 
     # tables another simulator's arrays (the JAX package's, as numpy) can
     # overwrite; "components" is a {spectra type: (C, L)} dict
@@ -255,6 +263,10 @@ class BatchSEDSimulator:
         self.emission = emission or EmissionConfig()
         self.cosmology = cosmology
         self.fixed_params = dict(fixed_params or {})
+        # on the device once: a copy per call would wait for the card
+        self._fixed_tensors = {
+            k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+            for k, v in self.fixed_params.items()}
         self.n_particles = None if n_particles is None else int(n_particles)
         self.particle_seed = int(particle_seed)
         f32 = torch.float32
@@ -543,9 +555,8 @@ class BatchSEDSimulator:
         b = theta.shape[0]
         d = {n: theta[:, i].contiguous()
              for i, n in enumerate(self.param_names)}
-        for k, v in self.fixed_params.items():
-            v = torch.as_tensor(np.asarray(v, np.float32),
-                                device=theta.device)
+        for k, v in self._fixed_tensors.items():
+            v = v.to(theta.device)
             d.setdefault(k, v.expand(b, *v.shape).contiguous())
         for k in list(d.keys()):
             if k.startswith("log10_"):
@@ -581,9 +592,8 @@ class BatchSEDSimulator:
             (p - vals[idx]) / torch.clamp(vals[idx + 1] - vals[idx], min=1e-30),
             0.0, 1.0)
         w = torch.zeros(p.shape[0], n, dtype=p.dtype, device=p.device)
-        w.scatter_(1, idx[:, None], (1.0 - frac)[:, None])
-        w.scatter_add_(1, (idx + 1)[:, None], frac[:, None])
-        return w
+        return w.scatter(1, idx[:, None], (1.0 - frac)[:, None]).scatter_add(
+            1, (idx + 1)[:, None], frac[:, None])
 
     def _sfzh(self, params):
         """(B, A·Z·extra) mass weights [Msun] and the (B, A) age marginal."""
@@ -774,25 +784,36 @@ class BatchSEDSimulator:
         the whole knot table (the plain route K2 replaces): for interp the
         IGM rides the IGM-baked knot matrix, for conv it is a per-galaxy row
         lerp over the support; the observed-frame scale is a scalar per
-        galaxy because photometry is linear in f_ν."""
+        galaxy because photometry is linear in f_ν.
+
+        The scale multiplies as two factors, 1/d19 and (1+z)·1e-6/(4π d19):
+        against the ratio's ~1e31 the one combined factor would put the
+        reverse-mode partial Σ_f g_f·ratio_f past float32's range once
+        |∂ log L/∂f| reaches ~1e7 (a bright galaxy far from its data),
+        and the gradient would be NaN; each factor's partial stays in
+        range. The JAX package multiplies by the combined scale."""
         s = self._shift_of_z(z)
         if self._variant == "conv":
             l0, l1 = self._sup
             t_igm = self._igm_transmission(1.0 + z)
             if not isinstance(t_igm, float):
                 t_igm = t_igm[:, l0:l1]
-            return (self._conv_ratio(lnu * t_igm * self._wlam_sup, s)
-                    * self._scale_of_z(z)[:, None])
-        acc = knot_product(lnu * self._wlam_sup, self._m_igm)
-        return window_ratio(acc, self._den_f8, s, self._scale_of_z(z),
-                            self._n_knots, self._knot_delta,
-                            self._interp_order)[:, :len(self.filters)]
+            ratio = self._conv_ratio(lnu * t_igm * self._wlam_sup, s)
+        else:
+            acc = knot_product(lnu * self._wlam_sup, self._m_igm)
+            ratio = window_ratio(acc, self._den_f8, s, None, self._n_knots,
+                                 self._knot_delta, self._interp_order
+                                 )[:, :len(self.filters)]
+        inv_d = 1.0 / self._d19_of_z(z)
+        return ((ratio * inv_d[:, None])
+                * ((1.0 + z) * (1.0e-6 / _FOUR_PI) * inv_d)[:, None])
 
     def _mega_supported(self) -> bool:
         """Static gate for K2: the kernel route of the JAX megakernel's
         envelope (interp variant, order 1 or 3, a static fesc, one dust
-        screen, no dust emission, F8 ≤ 128). Unlike the JAX package there
-        is no λ-count gate: that crossover was measured on a TPU."""
+        screen, no dust emission, F8 ≤ 128), and not `_mega_off`. Unlike
+        the JAX package there is no λ-count gate: that crossover was
+        measured on a TPU."""
         return (self.photometry_backend == "pallas"
                 and self._window_mega_supported())
 
@@ -821,11 +842,13 @@ class BatchSEDSimulator:
 
     def _window_mega_supported(self) -> bool:
         """Extra gate for the fused body (K1): the interp variant,
-        interpolation order 1 or 3 and at most 128 bands (the knot product
-        is bf16 in this package)."""
+        interpolation order 1 or 3, at most 128 bands (the knot product
+        is bf16 in this package), and not `_mega_off` (the kernels have no
+        gradient)."""
         return (self._window_supported() and self._variant == "interp"
                 and self._interp_order in (1, 3)
-                and self._f8 <= 128)
+                and self._f8 <= 128
+                and not self._mega_off)
 
     @property
     def _f8(self) -> int:

@@ -238,10 +238,10 @@ def _zdist_delta(p, log10_mets):
         0, n - 2)
     lo, hi = log10_mets[idx], log10_mets[idx + 1]
     frac = (lz - lo) / torch.clamp(hi - lo, min=1.0e-12)
+    # out of place: the weights carry θ's tangents under torch.func
     w = torch.zeros(lz.shape[0], n, dtype=lz.dtype, device=lz.device)
-    w.scatter_(1, idx[:, None], (1.0 - frac)[:, None])
-    w.scatter_add_(1, (idx + 1)[:, None], frac[:, None])
-    return w
+    return w.scatter(1, idx[:, None], (1.0 - frac)[:, None]).scatter_add(
+        1, (idx + 1)[:, None], frac[:, None])
 
 
 def _zdist_normal(p, log10_mets):

@@ -44,6 +44,15 @@ samples to 1e-4) and one finite training step; `run_batched_mcmc` card
 against CPU from the same draws (1e-5) and its sync guard raising on a
 log-density that reads back.
 
+The gradient slice on the card: each of the four kernel wrappers raises on
+an input that requires grad, on a forward-AD dual and inside
+`torch.func.jacfwd`; Fisher, MAP, VI and HMC launch no kernel (the
+simulator's `_mega_off`) and restore the flag; HMC's graphed
+value-and-gradient pass equals the eager one bit for bit and the CPU's
+within 1e-4; `fit_catalogue_hmc` from the same draws on the card and the
+CPU (chaotic: within 5e-2 of the prior width), the card's call running
+whole under `set_sync_debug_mode("error")`.
+
 K1 and K2 share one core (`csrc/sed_tile.cuh`). K1's one launch over a
 batch of sub-chunks is held to the same bound with per-sub-chunk windows
 at unaligned columns, ragged tiles and B = 1, 3, 13; both kernels at 128
@@ -912,3 +921,160 @@ def test_batched_mcmc_card_vs_cpu_and_no_sync(cuda):
                                                    device="cuda"),
                          xs, torch.Generator(device="cuda").manual_seed(0),
                          n_walkers=w, n_steps=2, burn_in=0)
+
+
+# -- the gradient fitters on the card ----------------------------------------
+def _wrapper_calls(device):
+    """(name, call(sfzh or fw)) of the four CUDA wrappers on small inputs."""
+    g = _grouped_args(device, 13, 5, seed=3)
+    sim = _sim(device, 3)
+    k2 = _k2_args(sim, _unsorted_theta(7, seed=4))
+    fw, table, s4 = _k3_case(device, "ragged-l")
+    single = {k: g[k] for k in ("kc", "delta", "f8")}
+    tables = g["tables"]
+    return {
+        "K1 single": (g["sfzh"][:5], lambda x: k1.fused_window_photometry(
+            x, g["s"][:5], g["tau_v"][:5], g["scale"][:5],
+            tables["sed"][:, :g["w_cols"]], tables["curve"][:g["w_cols"]],
+            tables["knot"][:g["w_cols"], :g["kc"] * g["f8"]],
+            tables["den"][:g["kc"]], **single)),
+        "K1 grouped": (g["sfzh"], lambda x: k1.fused_window_photometry_grouped(
+            **dict(g, sfzh=x))),
+        "K2": (k2[0], lambda x: k1.fused_sed_photometry(x, *k2[1:])),
+        "K3": (fw, lambda x: pk.shift_photometry_num(x, table, s4)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1 single", "K1 grouped", "K2", "K3"])
+def test_wrappers_refuse_gradients(cuda, kernel):
+    """A CUDA input that needs a gradient raises, in reverse mode and in
+    forward mode; without one the kernel launches."""
+    from torch.autograd import forward_ad
+
+    x, call = _wrapper_calls(cuda)[kernel]
+    assert torch.isfinite(call(x)).all()
+    with pytest.raises(RuntimeError, match="_mega_off"):
+        call(x.detach().clone().requires_grad_(True))
+    with forward_ad.dual_level():
+        dual = forward_ad.make_dual(x.detach().clone(), torch.ones_like(x))
+        with pytest.raises(RuntimeError, match="_mega_off"):
+            call(dual)
+    # K3's flux rows are wide: a few keep jacfwd's tangent basis small (the
+    # refusal comes before the shape checks)
+    jac_in = (x[:4] if kernel == "K3" else x).detach().clone()
+    with pytest.raises(RuntimeError, match="_mega_off"):
+        torch.func.jacfwd(lambda v: call(v).sum())(jac_in)
+
+
+def _fitter_sim(device):
+    grid = tt.make_synthetic_grid(n_ages=16, n_mets=4, n_wav=1024)
+    filters = tt.FilterSet([tt.tophat_filter(c, ct, w) for c, ct, w in
+                            zip(_CODES[1:4], _CENTERS[1:4], _WIDTHS[1:4])])
+    return tt.BatchSEDSimulator(
+        grid, filters, ("log10_mass", "tau_v"),
+        fixed_params={"redshift": 1.0, "peak_age": 3e8, "tau": 0.5,
+                      "log10_metallicity": -2.5},
+        emission=tt.EmissionConfig(igm="inoue14"), device=device)
+
+
+@pytest.mark.cuda
+def test_mega_off_fitters_launch_no_kernel(cuda):
+    """Fisher, MAP, VI and HMC take the plain route (0 launches of K1/K2/K3)
+    and restore `_mega_off`; `photometry()` launches K2 again after."""
+    sim = _fitter_sim(cuda)
+    prior = tt.BoxUniform([8.0, 0.0], [11.0, 2.0], device=cuda)
+    x = sim.photometry(torch.tensor([[9.5, 0.4], [10.2, 1.2]], device=cuda))
+    counts = (k1.fused_window_photometry, k1.fused_sed_photometry,
+              pk.shift_photometry_num)
+    before = [c.launches for c in counts]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tt.fisher_forecast(sim, torch.tensor([[9.5, 0.4]], device=cuda),
+                       0.05 * x[0])
+    tt.fit_catalogue_map(sim, x, 0.05 * x, prior, g, n_steps=5)
+    tt.fit_catalogue_vi(sim, x, 0.05 * x, prior, g, n_steps=5)
+    tt.fit_catalogue_hmc(sim, x, 0.05 * x, prior, g, n_chains=2,
+                         n_warmup=2, n_samples=2, n_leapfrog=2)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counts] == before
+    assert sim._mega_off is False
+    sim.photometry(x[:, :2])
+    assert k1.fused_sed_photometry.launches == before[1] + 1
+
+
+@pytest.mark.cuda
+def test_graphed_value_and_grad_matches_eager(cuda):
+    """HMC's value-and-gradient pass as a CUDA graph replay equals the eager
+    pass bit for bit (the same kernels), and the CPU's within 2e-3 of each
+    row's largest entry: at these narrow 1024-λ bands one flipped bf16
+    rounding of a knot-product input moves a flux by up to ~1e-3, and χ²
+    at 5% errors magnifies it (measured on an H100: log-posterior 4.7e-4
+    relative)."""
+    from synference_tpu_torch import mcmc
+
+    theta = tt.BoxUniform([8.0, 0.0], [11.0, 2.0], device="cpu").sample(
+        torch.Generator().manual_seed(0), 8)
+    out = {}
+    for d in ("cpu", "cuda"):
+        sim = _fitter_sim(d)
+        box = mcmc._LogitBox(tt.BoxUniform([8.0, 0.0], [11.0, 2.0], device=d))
+        x = sim.photometry(torch.tensor([[9.5, 0.4]] * 8, device=d))
+        u = box.u(theta.to(d))
+
+        def logpost(u, sim=sim, box=box, x=x):
+            return (mcmc.censored_gaussian_loglike_rows(
+                sim.photometry(box.theta(u)), x, 0.05 * x) + box.log_jac(u))
+
+        with mcmc._plain_route(sim):
+            out[d] = mcmc._value_and_grad(logpost, u)
+            if d == "cuda":
+                run = mcmc._graphed_value_and_grad(logpost, u.shape, cuda)
+                for _ in range(2):  # a replay after another input too
+                    graphed = run(u)
+                    run(u + 1.0)
+    assert torch.equal(graphed[0], out["cuda"][0])
+    assert torch.equal(graphed[1], out["cuda"][1])
+    for a, b in zip(out["cuda"], out["cpu"]):
+        a, b = a.cpu().reshape(8, -1), b.reshape(8, -1)
+        rel = ((a - b).abs() / b.abs().amax(dim=1, keepdim=True)).max()
+        assert rel <= 2e-3, float(rel)
+
+
+@pytest.mark.cuda
+def test_hmc_card_vs_cpu_and_no_sync(cuda):
+    """`fit_catalogue_hmc` from the same draws (2 objects × 2 chains, 4 + 4
+    warmup and 4 sampling steps of 3 leapfrog) on the card and the CPU;
+    the card's call runs whole under `set_sync_debug_mode("error")` (inputs
+    already on the card). The chains are chaotic: the step-size adaptation
+    and the accept tests amplify the card's and the CPU's float32 rounding
+    differences, so the samples are held within 5e-2 of the prior width
+    (measured on an H100: 6.8e-3) and the mean acceptance within 1e-2."""
+    import warnings
+
+    rng = np.random.default_rng(0)
+    draws = {"candidates": rng.uniform([8.0, 0.0], [11.0, 2.0],
+                                       (256, 2)).astype(np.float32),
+             "momenta": rng.standard_normal((12, 4, 2)).astype(np.float32),
+             "accept": rng.uniform(size=(12, 4)).astype(np.float32)}
+    out = {}
+    for d in ("cpu", "cuda"):
+        sim = _fitter_sim(d)
+        prior = tt.BoxUniform([8.0, 0.0], [11.0, 2.0], device=d)
+        x = sim.photometry(torch.tensor([[9.5, 0.4], [10.2, 1.2]],
+                                        device=d))
+        dr = {k: torch.as_tensor(v, device=d) for k, v in draws.items()}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            if d == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                s, lp, acc = tt.fit_catalogue_hmc(
+                    sim, x, 0.05 * x, prior, n_chains=2, n_warmup=8,
+                    n_samples=4, n_leapfrog=3, draws=dr)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        out[d] = (s.cpu().numpy(), float(acc))
+    width = np.array([3.0, 2.0])
+    assert (np.abs(out["cuda"][0] - out["cpu"][0]) <= 5e-2 * width).all()
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], abs=1e-2)

@@ -89,7 +89,8 @@ def test_imports_without_optional_packages():
 SCRIPTS = ["chip_smoke.py", "profile_torch.py",
            "examples/north_star_torch.py",
            "examples/quickstart_torch.py",
-           "examples/spectra_quickstart_torch.py"] + sorted(
+           "examples/spectra_quickstart_torch.py",
+           "examples/gradient_fitting_torch.py"] + sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
         "probe_torch_*.py"))
 
