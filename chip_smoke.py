@@ -156,11 +156,28 @@ unsorted θ):
    v(all) − v(none) to 1e-4); `calculate_map` of 64 objects inside the
    box; `restricted_prior_from_simulations` on 65536 library θ, invalid in
    one corner, puts < 2% of 10⁴ draws there. Phases 22-23 print their
-   seconds and their launches of K1, K2 and K3.
+   seconds and their launches of K1, K2 and K3;
+24. AGN: the AGN twin's model at full width (`AGNGridSimulator` on a 6 × 4
+   × 2048 AGN grid, 7 NIRCam tophats): `generate(2^18)` timed (host
+   sampler, the plain dense route), finite and non-negative; NSF 50 x 8 on
+   its first 20 000 rows for 5 epochs (cut from 60) with the live loss
+   plot drawn into a StringIO, the best later validation loss below epoch
+   1's; `evaluate_model(256, 256)` and `fit_catalogue` of 50 rows
+   (readings: TARP, PIT-KS, recovery r); both AGN simulators'
+   `photometry()` of 4096 rows against the same route on the CPU (the
+   phase-6 route bound); no K1, K2 or K3 launch in the whole phase;
+25. composite: the headline stellar model plus an `AGNGridSimulator` on
+   its filters, `photometry()` of 65536 rows launches K2 exactly once and
+   equals the sum of the components' plain routes (the phase-6 route
+   bound), timed beside each component alone; `agn_fraction` of phase-4
+   stellar θ with phase-24 AGN θ on the card against a float64 host
+   integral; `combine_libraries` of the phase-4 and phase-24 libraries
+   around z = 2 (a cell against a hand sum) and matched on 4096 rows;
+   `run_from_config` of a JSON config with `fitter=`.
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
-on the path (with its launches on the main path and on phases 19-23 by
+on the path (with its launches on the main path and on phases 19-25 by
 phase, each kernel's share of its bound, and `first_product_ms`:
 the fp32 first product alone as one cuBLAS `torch.matmul` with TF32 off, a
 yardstick for the kernels' core that the port never calls); the last line
@@ -2243,10 +2260,14 @@ def _counts(k1, pk):
 def cpu_twin(tt, sim):
     """The simulator on the CPU, on the same route, with the card's tables
     (`load_state`), so card and CPU differ only in their arithmetic."""
-    cpu = tt.BatchSEDSimulator(
+    return _with_card_tables(sim, tt.BatchSEDSimulator(
         sim.grid, sim.filters, sim.param_names, sfh=sim.sfh_name,
         zdist=sim.zdist_name, emission=sim.emission,
-        photometry_backend=sim.photometry_backend, device="cpu")
+        photometry_backend=sim.photometry_backend, device="cpu"))
+
+
+def _with_card_tables(sim, cpu):
+    """`cpu` with every table of the card simulator `sim` loaded."""
     state = {}
     for key in sim.STATE_KEYS:
         val = getattr(sim, f"_{key}", None)
@@ -2649,6 +2670,290 @@ def diagnostics_rest(tt, k1, pk, fitter, lib, dev):
     return _counts(k1, pk)
 
 
+# The AGN and composite paths (phases 24-25): the AGN twin's model at full
+# width, cut in depth.
+AGN_ROWS = 2**18
+AGN_TRAIN_ROWS = 20_000
+AGN_EPOCHS = 5
+AGN_PRIOR = {"log10_l_agn": (43.5, 47.0), "redshift": (0.1, 6.0),
+             "ionisation_parameter": (-3.0, 0.0),
+             "hydrogen_density": (2.0, 6.0),
+             "covering_fraction_blr": (0.02, 0.3),
+             "covering_fraction_nlr": (0.05, 0.5), "tau_v": (0.0, 1.5)}
+ANALYTIC_PRIOR = {"log10_l_agn": (43.5, 47.0), "redshift": (0.1, 6.0),
+                  "agn_slope": (-1.2, 0.3), "tau_v": (0.0, 1.5)}
+AGN_CPU_ROWS = 4096  # card against CPU, both AGN simulators
+COMPOSITE_ROWS = 65536
+FRACTION_ROWS = 16384
+TOL_FRACTION = 1e-5
+# rows of both libraries within this of z = 2 combine (~50 and ~18 rows)
+COMBINE_Z_ATOL = 2e-4
+
+
+def agn_model(tt, dev):
+    """The AGN twin's simulator: `make_synthetic_agn_grid(6, 4, 2048)`
+    through `AGNGridSimulator` on the twin's 7 NIRCam tophats, named by the
+    phase-4 library's codes so that the two libraries combine."""
+    grid = tt.make_synthetic_agn_grid(n_u=6, n_nh=4, n_wav=2048)
+    filters = tt.FilterSet([
+        tt.tophat_filter(c, ctr, w)
+        for c, ctr, w in zip(CODES, HEADLINE_CENTERS, HEADLINE_WIDTHS)])
+    return tt.AGNGridSimulator(grid, filters, device=dev)
+
+
+def agn_cpu_twin(sim):
+    """The AGN simulator on the CPU, on the card's route and tables."""
+    return _with_card_tables(sim, type(sim)(
+        sim.grid, sim.filters, param_names=sim.param_names,
+        photometry_backend=sim.photometry_backend, device="cpu"))
+
+
+def box_theta(prior, names, n, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(*prior[p], n) for p in names],
+                    axis=1).astype(np.float32)
+
+
+def agn_path(tt, k1, pk, dev):
+    """Phase 24: the AGN twin's model at full width: a 2^18-row library,
+    NSF 50 x 8 on its first 20 000 rows (cut to AGN_EPOCHS epochs, drawn
+    live into a StringIO), evaluation, a 50-object catalogue fit; both AGN
+    simulators on the card against the CPU. No kernel may launch."""
+    import contextlib
+    import io
+
+    sim = agn_model(tt, dev)
+    check(sim.photometry_backend == "pallas" and not sim._mega_supported()
+          and not sim._window_supported(),
+          "the AGN simulator passes a stellar kernel's gate")
+    gen = tt.LibraryGenerator(sim, AGN_PRIOR, device=dev)
+    gen.generate(n=BATCH, batch_size=BATCH, seed=1)  # warm-up
+    _zero_counts(k1, pk)
+    lib, wall = _timed(lambda: gen.generate(n=AGN_ROWS, batch_size=BATCH,
+                                            seed=0))
+    phot = lib["photometry"]
+    log(f"[agn] AGNGridSimulator (6 x 4 x 2048 grid, lambda support "
+        f"{sim._l_sup} columns, {sim._n_knots} knots): generate({AGN_ROWS}) "
+        f"{wall:.3f} s = {AGN_ROWS / wall:,.0f} SEDs/s (host sampler, the "
+        f"plain dense route); launches (K1, K2, K3) {_counts(k1, pk)}")
+    check(phot.shape == (len(CODES), AGN_ROWS), f"AGN photometry {phot.shape}")
+    check(bool(np.isfinite(phot).all() and (phot >= 0).all()),
+          "non-finite or negative AGN photometry")
+
+    fitter = tt.SBIFitter.from_library(
+        {k: (v[:, :AGN_TRAIN_ROWS] if k in ("photometry", "parameters")
+             else v) for k, v in lib.items()}, name="agn", device=dev)
+    fitter.create_feature_array(tt.FeatureConfig(
+        filter_codes=tuple(fitter.filter_codes), unit="asinh",
+        depths_ab=(28.5,) * 7, n_scatters=2, include_errors=True))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res, dt = _timed(lambda: fitter.run_single_sbi(
+            "nsf", hidden_features=50, num_transforms=8,
+            train_config=tt.TrainConfig(
+                max_epochs=AGN_EPOCHS, stop_after_epochs=12, batch_size=512,
+                learning_rate=5e-4, live_plot=True)))
+    lines = buf.getvalue().splitlines()
+    log(f"[agn] NSF 50x8, one member, batch 512, {fitter.features.shape[0]} "
+        f"rows: {len(res.val_losses)} epochs in {dt:.2f} s "
+        f"({res.history['steps_per_epoch']} steps each); val loss "
+        f"{np.round(res.val_losses[:, 0].astype(float), 3).tolist()}; live "
+        f"plot: {lines[-1]!r}")
+    check(len(res.val_losses) == AGN_EPOCHS, "the AGN training stopped early")
+    check(bool(np.isfinite(res.val_losses).all()), "non-finite AGN loss")
+    check(bool((res.val_losses[1:].min(axis=0) < res.val_losses[0]).all()),
+          "the AGN validation loss never fell below its first epoch's")
+    check(len(lines) == AGN_EPOCHS and lines[0].startswith("epoch    0"),
+          "the live plot did not draw one line per epoch")
+
+    report, dt = _timed(lambda: fitter.evaluate_model(256, max_objects=256))
+    log(f"[agn] evaluate_model(256, 256) {dt:.3f} s: TARP "
+        f"{report['tarp_deviation']:.4f}, PIT-KS "
+        f"{np.round(report['pit_ks'], 3).tolist()}")
+    check(np.isfinite(report["tarp_deviation"]), "non-finite AGN TARP")
+    obs = fitter.photometry[:50]
+    table, dt = _timed(lambda: tt.fit_catalogue(
+        fitter, obs, 0.05 * obs, "nJy", n_samples=500,
+        ood_methods=("mahalanobis",)))
+    recovery = {}
+    for p in ("log10_l_agn", "redshift"):
+        q = table[f"{p}_q50"]
+        check(bool(np.isfinite(q).all()), f"non-finite {p} quantiles")
+        truth = fitter.parameters[:50, fitter.parameter_names.index(p)]
+        recovery[p] = float(np.corrcoef(q, truth)[0, 1])
+    log(f"[agn] fit_catalogue(50 rows, 500 draws) {dt:.3f} s: recovery r "
+        f"{ {k: round(v, 3) for k, v in recovery.items()} }")
+
+    # both AGN simulators on the card against the same route on the CPU
+    analytic = tt.AGNSimulator(
+        tt.make_synthetic_grid(n_ages=48, n_mets=8, n_wav=2048,
+                               lam_min=300.0), sim.filters, device=dev)
+    for card, prior in ((sim, AGN_PRIOR), (analytic, ANALYTIC_PRIOR)):
+        theta = box_theta(prior, card.param_names, AGN_CPU_ROWS, seed=24)
+        out = card.photometry(theta)
+        ref = agn_cpu_twin(card).photometry(theta)
+        med, p99, mx, _ = rel_stats(out, ref)
+        log(f"[agn] {type(card).__name__}.photometry({AGN_CPU_ROWS}) card "
+            f"vs CPU: rel median={med:.3e} p99={p99:.3e} max={mx:.3e} (tol "
+            f"p99<{TOL_STAGED_P99} max<{TOL_STAGED_MAX})")
+        check(p99 < TOL_STAGED_P99 and mx < TOL_STAGED_MAX,
+              f"{type(card).__name__} card and CPU disagree")
+    counts = _counts(k1, pk)
+    check(counts == (0, 0, 0), f"the AGN path launched kernels {counts}")
+    return lib, counts
+
+
+def composite_path(tt, k1, pk, lib4, lib24, dev):
+    """Phase 25: the headline stellar model (K2) plus the AGN grid model on
+    the same filters; `agn_fraction` and `combine_libraries` on the phase-4
+    and phase-24 libraries; `run_from_config` on a JSON config."""
+    import json as _json
+
+    stars = headline_model(tt, dev, "auto")
+    agn = tt.AGNGridSimulator(
+        tt.make_synthetic_agn_grid(n_u=6, n_nh=4, n_wav=2048), stars.filters,
+        device=dev)
+    comp = tt.CompositeSEDSimulator({"stars": stars, "agn": agn})
+    agn_names = tuple(p for p in agn.param_names if p != "redshift")
+    theta = torch.cat([
+        headline_theta(dev)[:, [1, 0, 2, 3, 4, 5]],
+        torch.as_tensor(box_theta(AGN_PRIOR, agn_names, COMPOSITE_ROWS,
+                                  seed=25), device=dev)], dim=1)
+    check(theta.shape[1] == comp.n_params, "composite θ width")
+    comp.photometry(theta[:1024])  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts(k1, pk)
+    phot, dt = _timed(lambda: comp.photometry(theta))
+    counts = _counts(k1, pk)
+    log(f"[composite] photometry({COMPOSITE_ROWS}) {1e3 * dt:.3f} ms (host "
+        f"clock, first call); launches (K1, K2, K3) {counts}")
+    check(counts == (0, 1, 0), f"composite launches {counts}, expected one K2")
+    parts = {}
+    for name, sim in comp.components.items():
+        res = sim._core(comp._component_theta(theta, name), False,
+                        fused=True)
+        parts[name] = sim._photometry_fused(res["_lnu"], res["_z"])
+    plain = parts["stars"] + parts["agn"]
+    med, p99, mx, _ = rel_stats(phot, plain)
+    log(f"[composite] vs the sum of the components' plain routes: rel "
+        f"median={med:.3e} p99={p99:.3e} max={mx:.3e} (tol "
+        f"p99<{TOL_STAGED_P99} max<{TOL_STAGED_MAX})")
+    check(p99 < TOL_STAGED_P99 and mx < TOL_STAGED_MAX,
+          "the composite disagrees with its components' plain routes")
+    # the same on the bands where the stars give at least 10% of the flux,
+    # so that a dropped or mis-scaled stellar part cannot hide under the AGN
+    ref = plain.cpu().numpy()
+    keep = ((parts["stars"].cpu().numpy() >= 0.1 * ref)
+            & (ref > 1e-3 * ref.max(axis=1, keepdims=True)))
+    rel = (np.abs(phot.cpu().numpy() - ref) / np.maximum(np.abs(ref), 1e-30)
+           )[keep]
+    rows = int(keep.any(axis=1).sum())
+    log(f"[composite] on the {int(keep.sum())} bands of {rows} rows where "
+        f"the stars give >= 10% of the flux: rel p99="
+        f"{np.quantile(rel, 0.99):.3e} max={rel.max():.3e} (same tol)")
+    check(rows >= COMPOSITE_ROWS // 4, "too few rows with a stellar share")
+    check(np.quantile(rel, 0.99) < TOL_STAGED_P99 and rel.max()
+          < TOL_STAGED_MAX, "the composite's stellar part disagrees")
+
+    # agn_fraction on stellar θ from the phase-4 library and AGN θ from the
+    # phase-24 library, against a float64 host integral of the same spectra
+    names4, names24 = lib4["parameter_names"], lib24["parameter_names"]
+    rows = np.s_[:FRACTION_ROWS]
+    theta_f = torch.as_tensor(np.stack(
+        [lib4["parameters"][names4.index("redshift"), rows]]
+        + [lib4["parameters"][names4.index(p), rows] for p in PNAMES
+           if p != "redshift"]
+        + [lib24["parameters"][names24.index(p), rows] for p in agn_names],
+        axis=1), device=dev)
+    frac, dt = _timed(lambda: comp.agn_fraction(theta_f,
+                                                agn_components=("agn",)))
+    lam = np.asarray(stars.grid.lam, np.float64)
+    w = ((lam >= 1.0e4) & (lam <= 3.0e5)) * np.gradient(lam) / lam**2
+    lnu = {name: sim.simulate(comp._component_theta(theta_f, name),
+                              want_spectra=True)["lnu"].double().cpu().numpy()
+           for name, sim in comp.components.items()}
+    ref = (lnu["agn"] @ w) / np.maximum((lnu["agn"] + lnu["stars"]) @ w,
+                                        1e-30)
+    err = float(np.abs(frac.cpu().numpy() - ref).max())
+    log(f"[composite] agn_fraction({FRACTION_ROWS} rows: phase-4 stellar θ, "
+        f"phase-24 AGN θ) {dt:.3f} s on {frac.device}; median "
+        f"{float(frac.median()):.4f}, max |Δ| against a float64 host "
+        f"integral {err:.2e} (tol {TOL_FRACTION})")
+    check(frac.device.type == "cuda" and bool(((frac >= 0) & (frac <= 1))
+                                              .all()), "agn_fraction range")
+    check(err < TOL_FRACTION, "agn_fraction disagrees with its integral")
+
+    # outer-product combination of the two libraries around z = 2, and
+    # row-matched combination of their first 4096 rows
+    z4 = lib4["parameters"][names4.index("redshift")]
+    z24 = lib24["parameters"][names24.index("redshift")]
+    check(list(lib4["filter_codes"]) == list(lib24["filter_codes"]),
+          "the phase-4 and phase-24 libraries have other filters")
+    (out, dt) = _timed(lambda: tt.combine_libraries(
+        [lib4, lib24], [9.0, 10.0], [2.0], [[0.7, 0.3], [0.9, 0.1]],
+        base_names=["stars", "agn"], mass_params=["log10_mass", None],
+        z_atol=COMBINE_Z_ATOL))
+    near4 = np.where(np.abs(z4 - 2.0) <= COMBINE_Z_ATOL)[0]
+    near24 = np.where(np.abs(z24 - 2.0) <= COMBINE_Z_ATOL)[0]
+    n4, n24, first4, first24 = len(near4), len(near24), near4[0], near24[0]
+    m4 = 10.0 ** lib4["parameters"][names4.index("log10_mass"), first4]
+    hand = (0.7e9 * lib4["photometry"][:, first4].astype(np.float64) / m4
+            + 0.3e9 * lib24["photometry"][:, first24].astype(np.float64)
+            / 1e9)
+    cell = np.abs(out["photometry"][:, 0] - hand).max() / np.abs(hand).max()
+    log(f"[composite] combine_libraries(phase-4 x phase-24 at |z - 2| <= "
+        f"{COMBINE_Z_ATOL}: {n4} x {n24} rows, 2 masses, 2 weights) "
+        f"{dt:.3f} s -> "
+        f"{out['photometry'].shape[1]} rows; first cell against a hand sum "
+        f"{cell:.1e}")
+    check(out["photometry"].shape[1] == n4 * n24 * 4 and cell < 1e-6,
+          "combine_libraries")
+    matched = tt.combine_libraries_matched(
+        [{k: (v[:, :4096] if k in ("photometry", "parameters") else v)
+          for k, v in lib.items()} for lib in (lib4, lib24)],
+        np.full(4096, 10.0), np.tile([[0.8, 0.2]], (4096, 1)),
+        mass_params=["log10_mass", None])
+    check(np.isfinite(matched["photometry"]).all()
+          and matched["photometry"].shape == (len(CODES), 4096),
+          "combine_libraries_matched")
+
+    # config-driven training on a JSON config with fitter=
+    fitter = tt.SBIFitter.from_library(
+        {k: (v[:, :AGN_TRAIN_ROWS] if k in ("photometry", "parameters")
+             else v) for k, v in lib24.items()}, name="agn_cfg", device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = {"max_epochs": 2, "output": os.path.join(tmp, "m.pkl"),
+               "features": {"unit": "asinh", "depths_ab": [28.5] * 7,
+                            "include_errors": True},
+               "train_args": {"validation_fraction": 0.1,
+                              "epochs_per_dispatch": 4, "fixed_params": {
+                                  "model_choice": "nsf",
+                                  "training_batch_size": 512,
+                                  "nsf_hidden_features": 32,
+                                  "nsf_num_transforms": 4}}}
+        path = os.path.join(tmp, "cfg.json")
+        with open(path, "w") as f:
+            _json.dump(cfg, f)
+        fitted, dt = _timed(lambda: tt.run_from_config(path, fitter=fitter,
+                                                       device=dev))
+        saved = os.path.exists(cfg["output"])
+    log(f"[composite] run_from_config(JSON, nsf 32x4, 2 epochs) {dt:.2f} s; "
+        f"val loss {np.round(fitted.train_result.val_losses[:, 0], 3)}; "
+        f"saved {saved}")
+    check(saved and bool(np.isfinite(fitted.train_result.val_losses).all()),
+          "run_from_config")
+    # the timing runs after the counts were read: a call launches K2 once
+    ms = time_ms(lambda: comp.photometry(theta), reps=20)
+    ms_parts = {name: time_ms(lambda s=sim, n=name: s.photometry(
+        comp._component_theta(theta, n)), reps=20)
+        for name, sim in comp.components.items()}
+    log(f"[composite] photometry({COMPOSITE_ROWS}) {ms:.4f} ms = "
+        f"{COMPOSITE_ROWS / ms * 1e3:,.0f} SEDs/s (CUDA events); components "
+        f"alone: stars (K2) {ms_parts['stars']:.4f} ms, AGN (plain) "
+        f"{ms_parts['agn']:.4f} ms")
+    return counts
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
@@ -2741,15 +3046,26 @@ def main() -> None:
             f": {time.perf_counter() - t0:.1f} s, launches (K1, K2, K3) "
             f"{slice_counts[name]}")
     log(f"[phase] 22-23 together: {time.perf_counter() - t_grad:.1f} s")
-    by_phase = {"K1": {"4": k1_stats["launches"], "19-21": k1_19_21,
-                       "22": slice_counts["22"][0],
-                       "23": slice_counts["23"][0]},
+    # phases 24-25, each with the counts set to 0 just before its driven
+    # path: the AGN simulators launch no kernel (their forward-model gate),
+    # the composite's stellar component K2 once per photometry() call
+    t_agn = time.perf_counter()
+    _zero_counts(k1, pk)
+    lib24, slice_counts["24"] = agn_path(tt, k1, pk, dev)
+    log(f"[phase] 24 AGN: {time.perf_counter() - t_agn:.1f} s, launches "
+        f"(K1, K2, K3) {slice_counts['24']}")
+    t0 = time.perf_counter()
+    _zero_counts(k1, pk)
+    slice_counts["25"] = composite_path(tt, k1, pk, lib, lib24, dev)
+    log(f"[phase] 25 composite: {time.perf_counter() - t0:.1f} s, launches "
+        f"(K1, K2, K3) {slice_counts['25']}")
+    log(f"[phase] 24-25 together: {time.perf_counter() - t_agn:.1f} s")
+    by_phase = {"K1": {"4": k1_stats["launches"], "19-21": k1_19_21},
                 "K2": {"6": k2_stats["launches"], "19-20": k2_19_20,
-                       "21": k2_online, "22": slice_counts["22"][1],
-                       "23": slice_counts["23"][1]},
-                "K3": {"8": k3_stats["launches"], "19-21": k3_19_21,
-                       "22": slice_counts["22"][2],
-                       "23": slice_counts["23"][2]}}
+                       "21": k2_online},
+                "K3": {"8": k3_stats["launches"], "19-21": k3_19_21}}
+    for i, key in enumerate(("K1", "K2", "K3")):
+        by_phase[key].update({ph: c[i] for ph, c in slice_counts.items()})
     for key, st in (("K1", k1_stats), ("K2", k2_stats), ("K3", k3_stats)):
         st["launches"] = sum(by_phase[key].values())
 

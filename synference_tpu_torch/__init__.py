@@ -15,7 +15,9 @@ features, the flows' embedding net) and the noise-model zoo, and
 exact-likelihood fitting and validation through the simulator's gradient
 (HMC, MAP + Laplace, VI, SMC evidences, Fisher forecasts, score
 compression, C2ST/L-C2ST, the NPE-vs-HMC cross-check, `RestrictedPrior`),
-on torch
+the AGN forward models (`AGNSimulator`, `AGNGridSimulator`), composite
+stellar-plus-AGN models, library combination, config-driven training,
+runtime utilities, plotting and test-data generation, on torch
 tensors, with hand-written CUDA kernels for Hopper in `csrc/`: K1 the
 windowed megakernel, K2 the full-table megakernel, K3 the exact-shift
 numerators. Every public entry point takes an explicit device; CPU tensors
@@ -23,14 +25,24 @@ run the kernels' plain PyTorch versions. This package imports neither `jax`
 nor `synference_tpu`.
 """
 
-from .catalogue import (MissingPhotometryHandler, fit_catalogue,
-                        fit_catalogue_table, ood_vote)
+from .agn import AGNGridSimulator, AGNSimulator, agn_fraction
+from .catalogue import (MissingPhotometryHandler,
+                        compare_methods_feature_importance, fit_catalogue,
+                        fit_catalogue_table, mahalanobis_ood,
+                        ood_feature_contributions, ood_vote)
+from .combine import combine_libraries, combine_libraries_matched
+from .composite import CompositeSEDSimulator, grid_combinations
+from .config import load_config, run_from_config
 from .cosmology import PLANCK18, Cosmology
+from .dust import ATTENUATION_LAWS, attenuation_curve, greybody_emission
 from .features import FeatureConfig, FeaturePipeline, FeatureResult
 from .fitter import SBIFitter
+from .filter_arithmetic import FilterArithmeticParser
 from .filters import Filter, FilterSet, tophat_filter
 from .flows.base import ConditionalFlow, build_flow
-from .grids import SPSGrid, make_synthetic_grid, make_synthetic_multiaxis_grid
+from .grids import (SPSGrid, make_synthetic_agn_grid, make_synthetic_grid,
+                    make_synthetic_multiaxis_grid)
+from .igm import igm_transmission
 from .instruments import (load_filters_hdf5, load_filters_svo_ascii,
                           load_instrument_filters, realistic_filter)
 from .library import (LibraryCreator, LibraryGenerator, auto_batch_size,
@@ -63,9 +75,12 @@ from .priors import (BoxUniform, RestrictedPrior, priors_from_library,
 from .ratio import RatioEstimator, build_ratio_estimator, nre_loss
 from .recovery import recover_sed
 from .sed import BatchSEDSimulator, EmissionConfig
-from .spectra import SpectralFeaturePipeline, generate_constant_r_grid
+from .sfh import SFH_FAMILIES, ZDIST_FAMILIES, sfh_weights, zdist_weights
+from .spectra import (SpectralFeaturePipeline, generate_constant_r_grid,
+                      match_resolution_constant_r)
 from .supplementary import SUPP_FUNCTIONS, compute_supplementary
 from .train import TrainConfig, TrainResult, train_ensemble, train_npe
+from .units import FluxUnit, convert_flux, convert_flux_err
 
 __all__ = [
     "PLANCK18", "Cosmology", "FeatureConfig", "FeaturePipeline",
@@ -99,5 +114,13 @@ __all__ = [
     "evaluate_members_fused", "c2st", "lc2st", "fisher_forecast",
     "score_compression", "posterior_crosscheck", "fit_marginal_flow",
     "misspecification_check", "feature_importance",
-    "shapley_feature_importance",
+    "shapley_feature_importance", "ATTENUATION_LAWS", "attenuation_curve",
+    "greybody_emission", "igm_transmission", "make_synthetic_agn_grid",
+    "SFH_FAMILIES", "ZDIST_FAMILIES", "sfh_weights", "zdist_weights",
+    "FilterArithmeticParser", "FluxUnit", "convert_flux",
+    "convert_flux_err", "mahalanobis_ood", "ood_feature_contributions",
+    "compare_methods_feature_importance", "CompositeSEDSimulator",
+    "grid_combinations", "combine_libraries", "combine_libraries_matched",
+    "match_resolution_constant_r", "AGNSimulator", "AGNGridSimulator",
+    "agn_fraction", "load_config", "run_from_config",
 ]

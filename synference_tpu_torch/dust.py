@@ -62,9 +62,10 @@ _K_ERG_K = 1.380649e-16  # Boltzmann [erg/K]
 _C_AA_S = 2.99792458e18  # c [Å/s]
 
 
-def greybody_emission(lam, temperature: float, emissivity: float = 1.6):
+def greybody_emission(lam, temperature, emissivity: float = 1.6):
     """Unit-energy greybody SED B_ν(T) ν^β on wavelengths `lam` [Å]: L_ν
-    [1/Hz], shape (len(lam),), normalized so ∫ L_ν dν = 1 on this grid.
+    [1/Hz], normalized so ∫ L_ν dν = 1 on this grid; shape (len(lam),) for
+    a number `temperature`, (B, len(lam)) for a (B, 1) tensor of them.
 
     Frequencies are in PHz (ν³⁺ᵝ in Hz overflows fp32; the scale cancels in
     the normalization), and the Planck factor is evaluated in log space (the
@@ -73,7 +74,7 @@ def greybody_emission(lam, temperature: float, emissivity: float = 1.6):
     x = _H_ERG_S * 1.0e15 * nu_phz / (_K_ERG_K * temperature)
     log_g = (3.0 + emissivity) * torch.log(nu_phz) - torch.where(
         x > 30.0, x, torch.log(torch.expm1(torch.clamp(x, 1.0e-6, 30.0))))
-    g = torch.exp(log_g - torch.max(log_g))
+    g = torch.exp(log_g - torch.amax(log_g, dim=-1, keepdim=True))
     dnu_phz = -torch.gradient(nu_phz)[0]
-    norm = torch.sum(g * dnu_phz)
+    norm = torch.sum(g * dnu_phz, dim=-1, keepdim=True)
     return g / torch.clamp(norm, min=1.0e-30) * 1.0e-15

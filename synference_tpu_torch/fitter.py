@@ -24,9 +24,12 @@ marginal flow over the training features), `lc2st` on held-out calibration
 pairs, `calculate_map`, the loss histories (`training_log_probs`,
 `validation_log_probs`) and `save_metrics`.
 
+Figures and views: `plot_diagnostics` and `run_validation_from_file` draw
+`plotting.py`'s figures (matplotlib), `create_dataframe` gives a pandas
+view of the library; both packages are imported where they are used.
+
 Not present: the simformer (a saved one raises NotImplementedError naming
-ROADMAP M14), the plotting helpers, `run_validation_from_file` and
-`create_dataframe` (M14 item 2).
+ROADMAP M14 item 4).
 """
 
 from __future__ import annotations
@@ -534,6 +537,97 @@ class SBIFitter:
         with open(path, "w") as f:
             json.dump(safe(report), f, indent=2)
 
+    def create_dataframe(self, data: str = "all"):
+        """A pandas view of the library. `data`: "parameters",
+        "photometry", "supplementary", "features" or "all" (the first
+        three side by side)."""
+        import pandas as pd
+
+        frames = []
+        if data in ("parameters", "all"):
+            frames.append(pd.DataFrame(self.parameters,
+                                       columns=self._raw_parameter_names))
+        if data in ("photometry", "all") and self.photometry is not None:
+            frames.append(pd.DataFrame(self.photometry,
+                                       columns=self.filter_codes))
+        if data in ("supplementary", "all") and self.supplementary is not None:
+            frames.append(pd.DataFrame(self.supplementary,
+                                       columns=self.supplementary_names))
+        if data == "features":
+            if self.features is None:
+                self.create_feature_array()
+            frames.append(pd.DataFrame(np.asarray(self.features)))
+        if not frames:
+            raise ValueError(f"no data for {data!r}")
+        return pd.concat(frames, axis=1)
+
+    def run_validation_from_file(self, validation_file: str,
+                                 plots_dir: str = ".",
+                                 n_samples: int = 256,
+                                 max_objects: int = 512,
+                                 generator: torch.Generator | None = None):
+        """Validate a saved model on this fitter's held-out split: load it
+        onto this fitter's device, compute the evaluation report, draw
+        `n_samples` per object for the coverage and prediction figures
+        (from `generator`, seed 1 on the fitter's device when None) and
+        write both figures and a metrics JSON to `plots_dir`. Returns
+        (report, paths)."""
+        from .plotting import plot_coverage, plot_posterior_predictions
+
+        loaded = type(self).load_saved_model(validation_file,
+                                             device=self.device)
+        if self._split is None:
+            self.split_dataset()
+        generator = self._generator(generator, 1)
+        idx = self._split["test"][:max_objects]
+        xs, truths = self.features[idx], self.feature_params[idx]
+        report = evaluate_posterior(
+            loaded.posterior, xs, truths, generator=generator,
+            n_samples=n_samples, parameter_names=self.parameter_names)
+        os.makedirs(plots_dir, exist_ok=True)
+        samples = loaded.sample_posterior(xs, n_samples, generator)
+        stem = f"{loaded.name}_validation"
+        paths = {
+            "coverage": os.path.join(plots_dir, f"{stem}_coverage.png"),
+            "predictions": os.path.join(plots_dir,
+                                        f"{stem}_predictions.png"),
+            "metrics": os.path.join(plots_dir, f"{stem}_metrics.json"),
+        }
+        plot_coverage(samples, truths, self.parameter_names,
+                      save=paths["coverage"])
+        plot_posterior_predictions(samples, truths, self.parameter_names,
+                                   save=paths["predictions"])
+        self.save_metrics(report, paths["metrics"])
+        return report, paths
+
+    def plot_diagnostics(self, out_dir: str = ".", n_samples: int = 200,
+                         max_objects: int = 200,
+                         generator: torch.Generator | None = None) -> dict:
+        """Coverage, loss and prediction figures for the held-out split,
+        saved under `out_dir`. Returns the saved paths."""
+        from .plotting import (plot_coverage, plot_loss,
+                               plot_posterior_predictions)
+
+        if self._split is None:
+            self.split_dataset()
+        idx = self._split["test"][:max_objects]
+        samples = self.sample_posterior(self.features[idx], n_samples,
+                                        generator)
+        truths = self.feature_params[idx]
+        paths = {"coverage": os.path.join(out_dir,
+                                          f"{self.name}_coverage.png")}
+        plot_coverage(samples, truths, self.parameter_names,
+                      save=paths["coverage"])
+        if self.train_result is not None:
+            paths["loss"] = os.path.join(out_dir, f"{self.name}_loss.png")
+            plot_loss(self.train_result.train_losses,
+                      self.train_result.val_losses, save=paths["loss"])
+        paths["predictions"] = os.path.join(out_dir,
+                                            f"{self.name}_predictions.png")
+        plot_posterior_predictions(samples, truths, self.parameter_names,
+                                   save=paths["predictions"])
+        return paths
+
     # ------------------------------------------------------------------
     def save_state(self, path: str):
         """Persist flow spec, parameters, prior and feature flags in the JAX
@@ -592,7 +686,7 @@ class SBIFitter:
         if fitter.engine not in ("npe", "nle", "nre"):
             raise NotImplementedError(
                 f"saved engine {fitter.engine!r} is not ported yet (ROADMAP "
-                "M14 for the simformer)")
+                "M14 item 4, the simformer)")
         spec = state["flow_spec"]
         fitter.flow = (RatioEstimator.from_spec(spec, fitter.device)
                        if spec.get("model") == "nre"

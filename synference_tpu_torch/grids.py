@@ -5,9 +5,11 @@ Counterpart of `synference_tpu/grids.py`. The grid itself is host numpy:
 Msun formed; `spectra_device` hands the (A·Z·extra, L) contraction table to
 torch on an explicit device. `SPSGrid.from_hdf5` reads the Synthesizer grid
 HDF5 layout (groups `axes/` and `spectra/`, axis names in the `axes` file
-attribute); `make_synthetic_grid` and `make_synthetic_multiaxis_grid` build
-the same deterministic grids as the JAX package, so both packages can be
-held against each other on identical inputs.
+attribute); `make_synthetic_grid`, `make_synthetic_multiaxis_grid` and
+`make_synthetic_agn_grid` build the same deterministic grids as the JAX
+package, so both packages can be held against each other on identical
+inputs. The AGN grid's line luminosities (~1e44 erg/s) stay float64 on the
+host: they overflow float32.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-__all__ = ["SPSGrid", "make_synthetic_grid", "make_synthetic_multiaxis_grid"]
+__all__ = ["SPSGrid", "make_synthetic_grid", "make_synthetic_multiaxis_grid",
+           "make_synthetic_agn_grid"]
 
 
 @dataclass
@@ -585,3 +588,173 @@ def make_synthetic_multiaxis_grid(
         lines=lines,
     )
 
+
+def make_synthetic_agn_grid(
+    n_u: int = 6,
+    n_nh: int = 4,
+    n_wav: int = 2048,
+    lam_min: float = 300.0,
+    lam_max: float = 1.0e7,
+    log10_u: tuple = (-3.0, 0.0),
+    log10_nh: tuple = (2.0, 6.0),
+    name: str = "synthetic_agn_nlr_blr",
+) -> SPSGrid:
+    """Cloudy-style AGN grid: disk incident + NLR/BLR reprocessed tables.
+
+    Mirrors the layout of the Cloudy-processed AGN grids Synthesizer's
+    BlackHole emission models consume (the reference attaches BlackHole
+    components with NLR/BLR reprocessing through them, reference
+    library.py:1361-1419): degenerate (age, Z) stellar axes, AGN physics
+    parameters as extra axes, spectra normalized **per unit 1e45 erg/s of
+    bolometric disk luminosity** (`AGNGridSimulator(l_norm=45.0)` rescales
+    by 10**(log10_l_agn - 45)).
+
+    Axes (extra, values in log10):
+        ionisation_parameter: log10 U at the illuminated face.
+        hydrogen_density: log10 n_H [cm^-3].
+
+    Spectra types:
+        incident: bare accretion-disk continuum (axis-independent).
+        nlr / blr: each region's emergent SED at covering fraction 1 —
+            the disk continuum transmitted through the region plus its
+            nebular (line + recombination-continuum) emission. Narrow
+            forbidden+Balmer lines respond to U and are collisionally
+            suppressed at high n_H; broad permitted lines strengthen
+            mildly with n_H.
+
+    The `lines/` group tabulates the strongest UV/optical AGN lines
+    (luminosity + line-free continuum), same layout as stellar Cloudy
+    grids, so `BatchSEDSimulator.line_quantities` works unchanged.
+    """
+    lam = np.geomspace(lam_min, lam_max, n_wav)
+    log_u = np.linspace(log10_u[0], log10_u[1], n_u)
+    log_nh = np.linspace(log10_nh[0], log10_nh[1], n_nh)
+    c_aa_s = 2.99792458e18
+    nu = c_aa_s / lam  # Hz, descending along ascending lam
+    dnu = np.abs(np.gradient(nu))
+
+    # --- accretion disk: nu^-0.5 big-blue-bump between an EUV rolloff and
+    # an IR cutoff, unit-normalized bolometrically then scaled to 1e45 erg/s
+    window = (1.0 / (1.0 + np.exp(np.clip(-(lam - 150.0) / 30.0, -60, 60)))
+              * 1.0 / (1.0 + np.exp(np.clip((lam - 12000.0) / 1500.0,
+                                            -60, 60))))
+    shape = (nu / 1.0e15) ** -0.5 * window
+    disk = shape / (shape * dnu).sum() * 1.0e45  # erg/s/Hz, integral = 1e45
+    ion_mask = lam < 912.0
+    l_ion = (disk * dnu)[ion_mask].sum()  # ionizing budget, erg/s
+
+    u_c = log_u[:, None, None]   # (U, 1, 1) broadcasting over (U, N, L)
+    nh_c = log_nh[None, :, None]
+    lam_c = lam[None, None, :]
+
+    # --- transmitted-through-region continua: ionizing column absorbed,
+    # optical depth growing with n_H (clamped so some EUV always leaks)
+    tau_ion = 2.0 + 0.8 * (nh_c - 2.0)
+    transmit = np.where(lam_c < 912.0, np.exp(-np.clip(tau_ion, 0.0, 12.0)),
+                        1.0)
+
+    # --- line inventory: (id, lam, region, U-slope, nh-crit log10 or None)
+    # narrow forbidden lines are suppressed above their critical densities;
+    # permitted lines are not. U-slopes: high-ionization species strengthen
+    # with U, low-ionization weaken (flux ∝ 10**(slope·(logU − logU_max))).
+    line_defs = [
+        ("H 1 1215.67A", 1215.67, "blr", 0.10, None),
+        ("C 4 1548.19A", 1548.19, "blr", 0.55, None),
+        ("C 3 1908.73A", 1908.73, "blr", 0.30, 5.5),
+        ("Mg 2 2795.53A", 2795.53, "blr", -0.15, None),
+        ("Ne 3 3868.76A", 3868.76, "nlr", 0.45, 5.9),
+        ("O 2 3726.03A", 3726.03, "nlr", -0.35, 3.5),
+        ("H 1 4861.32A", 4861.32, "nlr", 0.00, None),
+        ("O 3 5006.84A", 5006.84, "nlr", 0.60, 5.8),
+        ("H 1 6562.80A", 6562.80, "nlr", 0.00, None),
+        ("N 2 6583.45A", 6583.45, "nlr", -0.25, 4.9),
+    ]
+    # base relative strengths (order as above): roughly Lyα-dominated UV,
+    # [OIII]-dominated optical
+    base_rel = np.array([1.0, 0.35, 0.12, 0.18, 0.05,
+                         0.12, 0.10, 0.45, 0.30, 0.10])
+
+    # region reprocessing efficiencies (fraction of ionizing luminosity
+    # reprocessed at covering fraction 1)
+    eff_nlr = 0.25 * 10.0 ** (0.30 * (u_c - log_u[-1]))       # (U,1,1)
+    eff_blr = 0.20 * 10.0 ** (0.10 * (nh_c - log_nh[-1]))     # (1,N,1)
+
+    # --- absolute per-line luminosities (U, N, Nl): at the reference
+    # corner (U = U_max) each region's lines carry 75% of its reprocessed
+    # budget, split by base_rel; away from it, U-slopes rescale each line
+    # and collisional de-excitation *removes* energy (no renormalization —
+    # a suppressed forbidden line's energy goes to heat, not other lines)
+    rel_sum = {
+        reg: sum(r for (_, _, rg, _, _), r in zip(line_defs, base_rel)
+                 if rg == reg)
+        for reg in ("nlr", "blr")
+    }
+    line_lums = np.zeros((n_u, n_nh, len(line_defs)))
+    for li, ((_, ll, reg, slope, nh_crit), rel) in enumerate(
+            zip(line_defs, base_rel)):
+        eff = eff_nlr if reg == "nlr" else eff_blr
+        w = (rel / rel_sum[reg]) * 10.0 ** (slope * (u_c - log_u[-1]))
+        if nh_crit is not None:
+            w = w / (1.0 + 10.0 ** (nh_c - nh_crit))
+        line_lums[..., li] = (0.75 * eff * l_ion * w)[..., 0]
+
+    def region_sed(region):
+        """(U, N, L) emergent SED for one region at covering fraction 1."""
+        eff = eff_nlr if region == "nlr" else eff_blr
+        sig = 0.005 if region == "nlr" else 0.02  # σ/λ: ~2 px vs ~8 px
+        lines_sum = np.zeros((n_u, n_nh, n_wav))
+        for li, (_, ll, reg, _, _) in enumerate(line_defs):
+            if reg != region:
+                continue
+            prof = np.exp(-0.5 * ((lam - ll) / (ll * sig)) ** 2)
+            prof = prof / (prof * dnu).sum()  # unit-luminosity profile /Hz
+            lines_sum = lines_sum + line_lums[..., li:li + 1] * prof
+        # recombination continuum: flat f_ν with a Balmer jump, confined
+        # to 912 Å – 1 µm, carrying 25% of the reprocessed energy
+        rec = ((lam_c >= 912.0) & (lam_c <= 10000.0)) * (
+            0.4 + 0.6 * (lam_c > 3646.0))
+        rec = rec / (rec * dnu).sum(axis=-1, keepdims=True)
+        return (lines_sum + (0.25 * eff * l_ion) * rec
+                + disk[None, None, :] * transmit)
+
+    nlr = region_sed("nlr")
+    blr = region_sed("blr")
+    incident = np.broadcast_to(disk[None, None, :], (n_u, n_nh, n_wav))
+
+    # --- lines/ tables: luminosity per line (U, N, Nl) + line-free
+    # continuum (the disk transmitted continuum at λ_line)
+    lam_l = np.array([d[1] for d in line_defs])
+    k_l = np.array([int(np.argmin(np.abs(lam - ll))) for ll in lam_l])
+    lum_tab = line_lums
+    cont_tab = (incident * transmit)[..., k_l]
+
+    def shape5(a):  # (U, N, L) -> (1, 1, U, N, L) float32
+        return a[None, None].astype(np.float32)
+
+    return SPSGrid(
+        name=name,
+        log10_ages=np.array([6.0]),
+        metallicities=np.array([0.02]),
+        lam=lam,
+        spectra={
+            "incident": shape5(incident),
+            "nlr": shape5(nlr),
+            "blr": shape5(blr),
+        },
+        extra_axes={
+            "ionisation_parameter": log_u,
+            "hydrogen_density": log_nh,
+        },
+        lines={
+            "ids": [d[0] for d in line_defs],
+            "wavelength": lam_l.astype(np.float64),
+            # float64 on the host: AGN line luminosities (~1e44 erg/s per
+            # 1e45 erg/s bolometric) overflow fp32; `line_quantities`
+            # rescales by 1e-10 before the device cast
+            "luminosity": lum_tab[None, None].astype(np.float64),
+            "continuum": cont_tab[None, None].astype(np.float64),
+            # per-line emitting region: AGNGridSimulator scales each line
+            # by its region's covering fraction
+            "region": [d[2] for d in line_defs],
+        },
+    )

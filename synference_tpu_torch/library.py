@@ -31,8 +31,10 @@ Deliberate differences from the JAX package: where it warns and falls back
 (an unsupported `zsorted_fused=True`, a `device_sampling=True` it cannot
 honour) this package raises; device-sampler resume chunks carry their own
 tag, because a `torch.Generator` draws other θ than `jax.random`; an unknown
-simulator class in a library file raises instead of building the base
-simulator; and the window-body probe propagates a kernel failure.
+simulator class in a library file (not in `sed.SIMULATOR_REGISTRY`)
+raises instead of building the base simulator; and the window-body probe
+propagates a kernel failure. Simulators without the window engine (the
+AGN simulators, a composite) take the host path and the dense `simulate`.
 """
 
 from __future__ import annotations
@@ -71,6 +73,14 @@ _PROBE_MIN_BATCHES = 4
 # the Python side of both window bodies (the staged body and K1's wrapper)
 _WINDOW_BODY_MODULES = ("sed.py", "ops/fused_sed.py",
                         "ops/photometry_kernel.py")
+
+
+def _supports(sim, gate: str) -> bool:
+    """`sim`'s own gate `gate` ("_window_supported" for the z-sorted window
+    engine, "_window_mega_supported" for K1 in it): False for a simulator
+    without the engine (a composite) and, by the gate itself, for a
+    subclass with its own forward model (the AGN simulators)."""
+    return getattr(sim, gate, lambda: False)()
 
 
 def auto_batch_size(n: int, spectra_width: int | None = None) -> int:
@@ -526,13 +536,13 @@ class LibraryGenerator:
         `zsorted_fused`: the window body of z-sorted runs; True (K1), False
         (the staged body) or "auto" (see `_choose_zsorted_fused`).
 
-        `pmapped_fn` (mesh-sharded batches) is not ported (ROADMAP M14),
-        nor `presort`, which only applies with it.
+        `pmapped_fn` (mesh-sharded batches) is not ported (ROADMAP M14
+        item 6, `parallel/`), nor `presort`, which only applies with it.
         """
         if pmapped_fn is not None:
             raise NotImplementedError(
                 "generate(pmapped_fn=...) (mesh-sharded batches) is not "
-                "ported yet (ROADMAP M14)")
+                "ported yet (ROADMAP M14 item 6, parallel/)")
         sim = self.simulator
         wide = want_spectra or bool(self.supplementary)
         if batch_size is None:
@@ -545,7 +555,7 @@ class LibraryGenerator:
         device_ok = (not wide and not self.emission_lines
                      and self.engine in ("lhc", "random")
                      and "redshift" in sim.param_names
-                     and sim._window_supported())
+                     and _supports(sim, "_window_supported"))
         if device_sampling is None:
             device_sampling = device_ok
         elif device_sampling and not device_ok:
@@ -575,7 +585,7 @@ class LibraryGenerator:
         n_batches = n_pad // batch_size
         batch_fn = None
         if (not wide and "redshift" in sim.param_names
-                and sim._window_supported()):
+                and _supports(sim, "_window_supported")):
             iz = sim.param_names.index("redshift")
             ordered = theta[np.argsort(theta[:, iz], kind="stable")]
             theta_dev = self._padded(ordered, n_pad)  # last row: tight windows
@@ -741,8 +751,8 @@ class LibraryGenerator:
     def _check_fused_request(self, requested) -> None:
         """An explicit fused body on a model K1 does not run raises (the JAX
         package warns and takes the staged body)."""
-        if (requested is True
-                and not self.simulator._window_mega_supported()):
+        if requested is True and not _supports(self.simulator,
+                                               "_window_mega_supported"):
             raise ValueError(
                 "zsorted_fused=True but the fused window body does not "
                 "support this simulator (see _window_mega_supported)")
@@ -770,7 +780,7 @@ class LibraryGenerator:
         if sim.device.type != "cuda":
             self.last_probe = {"source": "cpu", "fused": False}
             return False
-        if not sim._window_mega_supported():
+        if not _supports(sim, "_window_mega_supported"):
             self.last_probe = {"source": "unsupported", "fused": False}
             return False
         batch = int(probe_theta.shape[0])
@@ -865,6 +875,8 @@ def _write_model_group(grp, sim: BatchSEDSimulator, param_ranges=None,
                        unlog_keys=None, embed_grid: bool = False) -> None:
     grp.attrs["grid_name"] = sim.grid.name
     grp.attrs["simulator_class"] = type(sim).__name__
+    if hasattr(sim, "model_extra"):
+        grp.attrs["simulator_extra"] = json.dumps(sim.model_extra())
     grp.attrs["sfh"] = sim.sfh_name
     grp.attrs["zdist"] = sim.zdist_name
     grp.attrs["param_names"] = list(sim.param_names)
@@ -901,27 +913,33 @@ def simulator_from_library(path: str, grid: SPSGrid | None = None,
                            verify_grid: bool = True, *, device,
                            **overrides) -> BatchSEDSimulator:
     """Rebuild the forward model from a library's Model group, written by
-    this package or the JAX package.
+    this package or the JAX package: the stored class name is looked up in
+    `sed.SIMULATOR_REGISTRY` (an unregistered name raises ValueError) and
+    built with the stored arguments, `simulator_extra` (such as the AGN
+    grid's `l_norm`) included.
 
     Args:
         grid: the SPS grid; required when the file stores only a grid
             reference (the default), and checked against the stored
             content hash unless `verify_grid` is False.
         device: where the simulator runs.
-        overrides: keyword arguments of `BatchSEDSimulator` that replace
-            the stored ones.
+        overrides: constructor arguments that replace the stored ones.
     """
     import h5py
+
+    from . import agn  # noqa: F401  (registers the AGN simulators)
+    from .sed import SIMULATOR_REGISTRY
 
     with h5py.File(path, "r") as f:
         if "Model" not in f:
             raise ValueError(f"{path} has no Model group")
         grp = f["Model"]
         cls_name = str(grp.attrs.get("simulator_class", "BatchSEDSimulator"))
-        if cls_name != "BatchSEDSimulator":
-            raise NotImplementedError(
-                f"{path} was generated by a {cls_name}, which is not ported "
-                "yet (ROADMAP M14 item 3: composite and AGN simulators)")
+        if cls_name not in SIMULATOR_REGISTRY:
+            raise ValueError(
+                f"{path} was generated by a {cls_name}, which is not a "
+                f"registered simulator class ({sorted(SIMULATOR_REGISTRY)})")
+        sim_cls = SIMULATOR_REGISTRY[cls_name]
         kwargs = dict(
             sfh=str(grp.attrs["sfh"]), zdist=str(grp.attrs["zdist"]),
             param_names=tuple(_text(grp.attrs["param_names"])),
@@ -930,6 +948,7 @@ def simulator_from_library(path: str, grid: SPSGrid | None = None,
             cosmology=Cosmology.from_dict(json.loads(grp.attrs["cosmology"])),
             fixed_params=json.loads(grp.attrs["fixed_params"]),
             filters=FilterSet.from_hdf5(grp["instrument"]))
+        kwargs.update(json.loads(str(grp.attrs.get("simulator_extra", "{}"))))
         gg = grp["grid"]
         stored_hash = str(gg.attrs.get("content_hash", ""))
         if grid is None:
@@ -957,4 +976,4 @@ def simulator_from_library(path: str, grid: SPSGrid | None = None,
                     f"grid_name={gg.attrs['name']!r}); pass verify_grid=False "
                     "to override")
     kwargs.update(overrides)
-    return BatchSEDSimulator(grid=grid, device=device, **kwargs)
+    return sim_cls(grid=grid, device=device, **kwargs)

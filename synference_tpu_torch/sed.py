@@ -63,8 +63,21 @@ from .ops.photometry_kernel import (KNOT_INTERP_ORDER, N_SUB, _knot_interp,
 from .sfh import make_age_sampling, sfh_weights, zdist_weights
 from .units import C_AA_S
 
-__all__ = ["EmissionConfig", "BatchSEDSimulator", "particle_uniforms",
-           "particle_cells", "particle_counts_sfzh"]
+__all__ = ["EmissionConfig", "BatchSEDSimulator", "SIMULATOR_REGISTRY",
+           "register_simulator", "particle_uniforms", "particle_cells",
+           "particle_counts_sfzh"]
+
+# simulator classes by name: a library's Model group stores the class name,
+# and `library.simulator_from_library` rebuilds the simulator through this
+# registry (subclasses register on import, see agn.py)
+SIMULATOR_REGISTRY: dict = {}
+
+
+def register_simulator(cls):
+    """Class decorator: make `cls` rebuildable by
+    `library.simulator_from_library` from its stored class name."""
+    SIMULATOR_REGISTRY[cls.__name__] = cls
+    return cls
 
 _FOUR_PI = 4.0 * np.pi
 # elements per IGM evaluation: rows × λ × 39 Lyman-series terms, bounding
@@ -188,6 +201,7 @@ class EmissionConfig:
         return cls(**d)
 
 
+@register_simulator
 class BatchSEDSimulator:
     """θ → photometry / spectra forward model over galaxy batches.
 
@@ -219,6 +233,11 @@ class BatchSEDSimulator:
     photometry then takes `_photometry_fused`, the plain route K2 replaces,
     which is differentiable end to end. The kernels have no gradient, and
     their wrappers raise on an input that needs one.
+
+    A subclass that overrides `_core` or `_apply_emission` (the AGN
+    simulators) has its own forward model, which K1, K2 and the window
+    bodies do not compute: `_window_supported` and the gates built on it
+    are False for it, so it takes the plain routes.
     """
 
     _mega_off = False
@@ -830,11 +849,22 @@ class BatchSEDSimulator:
     # ------------------------------------------------------------------
     # z-sorted window engine
     # ------------------------------------------------------------------
+    def _overrides_forward_model(self) -> bool:
+        """True for a subclass with its own `_core` or `_apply_emission`:
+        K1, K2 and the window bodies compute the stellar grid's forward
+        model and would silently replace it."""
+        cls = type(self)
+        return (cls._core is not BatchSEDSimulator._core
+                or cls._apply_emission is not BatchSEDSimulator._apply_emission)
+
     def _window_supported(self) -> bool:
-        """The window bodies need the interp or conv tables, a static fesc
-        and one dust screen."""
+        """The window bodies need the base class's forward model, the
+        interp or conv tables, a static fesc and one dust screen. K1
+        (`_window_mega_supported`) and K2 (`_mega_supported`) are gated on
+        this too."""
         em = self.emission
-        return (self._variant in ("interp", "conv")
+        return (not self._overrides_forward_model()
+                and self._variant in ("interp", "conv")
                 and not isinstance(em.fesc, str)
                 and not (float(em.fesc) != 0.0 and em.reprocessed_types)
                 and em.tau_v_bc_param is None

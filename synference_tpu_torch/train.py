@@ -19,8 +19,9 @@ synchronising call there (also one inside a caller's `loss_fn`) raises. One
 small tensor with the epoch's losses and patience counters comes back per
 epoch; the stop test and `epoch_callback` read it.
 
-The `"orbax"` checkpoint backend and `live_plot` raise NotImplementedError
-naming ROADMAP M14.
+`TrainConfig(live_plot=True)` draws `runtime.TerminalLossPlot` to stdout
+once per epoch. The `"orbax"` checkpoint backend raises NotImplementedError
+naming ROADMAP M14 item 6.
 """
 
 from __future__ import annotations
@@ -259,10 +260,6 @@ def train_ensemble(flow, theta, x, generator: torch.Generator | None = None,
             member (overrides config.learning_rate).
     """
     cfg = config or TrainConfig()
-    if cfg.live_plot:
-        raise NotImplementedError(
-            "live_plot (runtime.TerminalLossPlot) is not ported yet "
-            "(ROADMAP M14)")
     dev = torch.device(flow.device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -287,6 +284,11 @@ def train_ensemble(flow, theta, x, generator: torch.Generator | None = None,
     train_hist, val_hist = [], []
     start_epoch = 0
     pruned = False
+    live = None
+    if cfg.live_plot:
+        from .runtime import TerminalLossPlot
+
+        live = TerminalLossPlot(label=f"npe x{n_nets}")
 
     ckpt = cfg.checkpoint_path
     backend = cfg.checkpoint_backend
@@ -339,6 +341,8 @@ def train_ensemble(flow, theta, x, generator: torch.Generator | None = None,
         tr_np, va_np, patience = report.cpu().numpy()
         train_hist.append(tr_np)
         val_hist.append(va_np)
+        if live is not None:
+            live.update(epoch, tr_np, va_np)
         if epoch_callback is not None and bool(
                 epoch_callback(epoch, tr_np, va_np)):
             pruned = True
@@ -381,7 +385,8 @@ def save_checkpoint(path: str, state: dict, backend: str = "pickle") -> None:
     if backend != "pickle":
         raise NotImplementedError(
             f"checkpoint backend {backend!r} (shard-local multi-host "
-            "checkpoints) is not ported yet (ROADMAP M14)")
+            "checkpoints) is not ported yet (ROADMAP M14 item 6, "
+            "parallel/)")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         pickle.dump(state, f)
@@ -392,6 +397,7 @@ def load_checkpoint(path: str, backend: str = "pickle") -> dict:
     """Inverse of `save_checkpoint`. Load only files this program wrote."""
     if backend != "pickle":
         raise NotImplementedError(
-            f"checkpoint backend {backend!r} is not ported yet (ROADMAP M14)")
+            f"checkpoint backend {backend!r} is not ported yet (ROADMAP M14 "
+            "item 6, parallel/)")
     with open(path, "rb") as f:
         return pickle.load(f)

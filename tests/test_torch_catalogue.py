@@ -48,6 +48,17 @@ HIGH = (11.0, 4.0, 1.6e9, 1.2, -1.6, 2.0)
 ROUNDS = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def arrays():
     """Train/test feature arrays: a correlated Gaussian cloud and a test

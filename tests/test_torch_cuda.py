@@ -53,6 +53,12 @@ within 1e-4; `fit_catalogue_hmc` from the same draws on the card and the
 CPU (chaotic: within 5e-2 of the prior width), the card's call running
 whole under `set_sync_debug_mode("error")`.
 
+The AGN slice on the card: the analytic and the grid AGN simulator launch
+no K1, K2 or K3 from `photometry()` or `generate()` (the forward-model
+gate) and match their CPU route; a stellar-plus-AGN composite launches K2
+once per `photometry()` and equals the sum of its components' plain
+routes within the bound above.
+
 K1 and K2 share one core (`csrc/sed_tile.cuh`). K1's one launch over a
 batch of sub-chunks is held to the same bound with per-sub-chunk windows
 at unaligned columns, ragged tiles and B = 1, 3, 13; both kernels at 128
@@ -1078,3 +1084,93 @@ def test_hmc_card_vs_cpu_and_no_sync(cuda):
     width = np.array([3.0, 2.0])
     assert (np.abs(out["cuda"][0] - out["cpu"][0]) <= 5e-2 * width).all()
     assert out["cuda"][1] == pytest.approx(out["cpu"][1], abs=1e-2)
+
+
+def _agn_sims(device):
+    """The analytic and the grid AGN simulator on the card's filters."""
+    filters = tt.FilterSet([tt.tophat_filter(c, ct, w) for c, ct, w in
+                            zip(_CODES, _CENTERS, _WIDTHS)])
+    grid = tt.make_synthetic_grid(n_ages=16, n_mets=4, n_wav=1024)
+    agn_grid = tt.make_synthetic_agn_grid(n_u=3, n_nh=2, n_wav=1024)
+    return (tt.AGNSimulator(grid, filters, device=device),
+            tt.AGNGridSimulator(agn_grid, filters, device=device))
+
+
+_AGN_RANGES = {"log10_l_agn": (43.5, 47.0), "redshift": (0.1, 6.0),
+               "agn_slope": (-1.0, 0.0), "tau_v": (0.0, 1.5),
+               "ionisation_parameter": (-3.0, 0.0),
+               "hydrogen_density": (2.0, 6.0),
+               "covering_fraction_blr": (0.0, 0.3),
+               "covering_fraction_nlr": (0.0, 0.5)}
+
+
+def _agn_theta(names, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(*_AGN_RANGES[p], n) for p in names],
+                    axis=1).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_agn_simulators_launch_no_kernel(cuda):
+    """The forward-model gate on the card: `photometry()` and `generate()`
+    of both AGN simulators launch no K1, K2 or K3 (their own forward model
+    takes the plain knot route), and agree with the same route on the CPU
+    (the kernels' card-test bound: one bf16 rounding flip of a knot-product
+    input shows at these 1024-λ bands)."""
+    counts = (k1.fused_window_photometry, k1.fused_sed_photometry,
+              pk.shift_photometry_num)
+    for card, cpu in zip(_agn_sims(cuda), _agn_sims("cpu")):
+        assert card.photometry_backend == "pallas"
+        assert not card._mega_supported() and not card._window_supported()
+        before = [c.launches for c in counts]
+        theta = _agn_theta(card.param_names, 2048)
+        out = card.photometry(theta)
+        lib = tt.LibraryGenerator(
+            card, {p: _AGN_RANGES[p] for p in card.param_names},
+            device=cuda).generate(n=4096, batch_size=2048)
+        torch.cuda.synchronize()
+        assert [c.launches for c in counts] == before
+        assert np.isfinite(lib["photometry"]).all()
+        cpu = type(cpu)(cpu.grid, cpu.filters, photometry_backend="pallas",
+                        device="cpu")
+        _assert_close(out, cpu.photometry(theta))
+
+
+@pytest.mark.cuda
+def test_composite_launches_k2_once_per_call(cuda):
+    """A stellar model plus a grid AGN: one K2 launch per `photometry()`
+    (the stellar component), none of K1 or K3, and the sum of the
+    components' own plain routes within the kernels' card-test bound."""
+    stars, agn = _sim(cuda, 3), _agn_sims(cuda)[1]
+    comp = tt.CompositeSEDSimulator({"stars": stars, "agn": agn})
+    theta = torch.as_tensor(np.concatenate([
+        _unsorted_theta(2000, seed=13)[:, 1:2],
+        _unsorted_theta(2000, seed=13)[:, [0, 2, 3, 4, 5]],
+        _agn_theta(agn.param_names[:1] + agn.param_names[2:], 2000, 4)],
+        axis=1), device=cuda)
+    assert theta.shape[1] == comp.n_params
+    counts = (k1.fused_window_photometry, k1.fused_sed_photometry,
+              pk.shift_photometry_num)
+    before = [c.launches for c in counts]
+    out = comp.photometry(theta)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == [0, 1, 0]
+    parts = {}
+    for name, sim in comp.components.items():
+        res = sim._core(comp._component_theta(theta, name), False,
+                        fused=True)
+        parts[name] = sim._photometry_fused(res["_lnu"], res["_z"])
+    plain = parts["stars"] + parts["agn"]
+    _assert_close(out, plain)
+    # again on the bands where the stars give at least 10% of the flux, so
+    # that a dropped or mis-scaled stellar part cannot hide under the AGN
+    ref = plain.cpu().numpy()
+    keep = ((parts["stars"].cpu().numpy() >= 0.1 * ref)
+            & (ref > 1e-3 * ref.max(axis=1, keepdims=True)))
+    assert keep.any(axis=1).sum() >= len(theta) // 4
+    rel = (np.abs(out.cpu().numpy() - ref) / np.maximum(np.abs(ref), 1e-30)
+           )[keep]
+    assert np.quantile(rel, 0.99) < 1e-5 and rel.max() < 2e-3, rel.max()
+    frac = comp.agn_fraction(theta[:256], agn_components=("agn",))
+    assert frac.device.type == "cuda" and bool(((frac >= 0)
+                                                & (frac <= 1)).all())

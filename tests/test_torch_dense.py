@@ -52,6 +52,17 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sim(pkg, case="screen", **kw):
     em_kw, extra = CASES[case]
     names = PNAMES + tuple(e[0] for e in extra)

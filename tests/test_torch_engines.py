@@ -36,6 +36,17 @@ SIGMA = 0.1
 KEY = jax.random.PRNGKey(0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _toy(n, seed=0):
     rng = np.random.default_rng(seed)
     theta = rng.uniform(-2, 2, (n, 2)).astype(np.float32)

@@ -45,6 +45,17 @@ TRAIN = dict(max_epochs=3, stop_after_epochs=3, batch_size=128,
 ROUNDS = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def library():
     grid = tt.make_synthetic_grid(n_ages=16, n_mets=4, n_wav=1024)

@@ -36,6 +36,17 @@ CFG = dict(hidden_features=16, num_transforms=3, num_bins=BINS)
 DIMS = [(1, 0), (1, 4), (2, 0), (2, 4), (5, 0), (5, 4)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

@@ -38,6 +38,17 @@ ZOO = ["maf", "made", "nsf", "realnvp", "affine_coupling", "nice", "mdn",
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(model):
     cfg = {"hidden_features": 8}
     if model not in ("mdn", "gaussian", "made", "cnf"):

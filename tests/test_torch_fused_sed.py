@@ -38,6 +38,17 @@ _CENTERS = [9000., 11500., 15000., 20000., 27700., 35600., 44400.]
 _WIDTHS = [2000., 2600., 3300., 4600., 7000., 7800., 10200.]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sim(order=3, emission=None):
     grid = tt.make_synthetic_grid(n_ages=16, n_mets=4, n_wav=1024)
     filters = tt.FilterSet([tt.tophat_filter(c, ct, w) for c, ct, w in

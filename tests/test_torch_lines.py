@@ -19,6 +19,7 @@ import importlib.util
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import synference_tpu as jst
 import synference_tpu_torch as tt
@@ -38,6 +39,17 @@ CASES = {
                     fesc="fesc", tau_v_bc_param="tau_v_bc"),
                ("fesc", "tau_v_bc")),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

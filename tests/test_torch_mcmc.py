@@ -28,6 +28,17 @@ KEY = jax.random.PRNGKey(0)
 XS = np.array([[1.0, -0.5], [-1.0, 2.0], [0.3, 0.1]], np.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jtarget(theta, x):
     return -0.5 * jnp.sum(((theta - x) / 0.3) ** 2, axis=-1)
 

@@ -27,6 +27,17 @@ THETA_TRUE = np.array([0.7, -0.9], np.float32)
 X_OBS = THETA_TRUE @ A.T
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _simulate(theta):
     """θ (B, 2) tensor -> noisy x (B, 3), seeded by the batch size."""
     g = torch.Generator().manual_seed(int(theta.shape[0]))

@@ -20,6 +20,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import synference_tpu_torch as tt
@@ -30,6 +31,17 @@ NAMES = ("log10_mass", "redshift", "peak_age", "tau", "log10_metallicity",
 _CODES = ["F090W", "F115W", "F150W", "F200W", "F277W", "F356W", "F444W"]
 _CENTERS = [9000., 11500., 15000., 20000., 27700., 35600., 44400.]
 _WIDTHS = [2000., 2600., 3300., 4600., 7000., 7800., 10200.]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -33,6 +33,17 @@ DIM, CTX, K = 2, 4, 3
 ROUNDS = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _members(support, seed=0):
     cfg = dict(CFG)
     if support:

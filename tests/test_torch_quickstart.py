@@ -18,7 +18,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 def test_quickstart_runs_on_the_cpu(tmp_path):
     env = dict(os.environ, SYNFERENCE_QUICKSTART_N="512",
-               SYNFERENCE_QUICKSTART_EPOCHS="2")
+               SYNFERENCE_QUICKSTART_EPOCHS="2",
+               # many small ops: one intra-op thread beside the other
+               # test workers
+               OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
          "--device", "cpu", "--out-dir", str(tmp_path)], cwd=tmp_path,

@@ -57,6 +57,17 @@ FAMILIES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grid(pkg):
     return pkg.make_synthetic_grid(n_ages=32, n_mets=5, n_wav=512, seed=0)
 

@@ -46,6 +46,17 @@ PNAMES = ("log10_mass", "redshift", "peak_age", "tau", "log10_metallicity",
           "tau_v")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(port, ref):
     port, ref = np.asarray(port), np.asarray(ref)
     assert port.shape == ref.shape and np.isfinite(port).all()

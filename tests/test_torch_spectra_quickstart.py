@@ -19,7 +19,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 def test_spectra_quickstart_runs_on_the_cpu(tmp_path):
     env = dict(os.environ, SYNFERENCE_SPECTRA_N="2000",
-               SYNFERENCE_SPECTRA_EPOCHS="2")
+               SYNFERENCE_SPECTRA_EPOCHS="2",
+               # many small ops: one intra-op thread beside the other
+               # test workers
+               OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, str(ROOT / "examples" / "spectra_quickstart_torch.py"),
          "--device", "cpu"], cwd=tmp_path, env=env, capture_output=True,
