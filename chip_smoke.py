@@ -173,11 +173,35 @@ unsorted θ):
    stellar θ with phase-24 AGN θ on the card against a float64 host
    integral; `combine_libraries` of the phase-4 and phase-24 libraries
    around z = 2 (a cell against a hand sum) and matched on 4096 rows;
-   `run_from_config` of a JSON config with `fitter=`.
+   `run_from_config` of a JSON config with `fitter=`;
+26. simformer: `run_single_simformer` (d_model 128, 4 layers × 4 heads,
+   the 20 tokens of phase 9's θ and features) for 3 epochs on 2^16 rows,
+   ms per eager step; the 500-step `sample_batch` of 64 objects × 256 draws
+   as one captured CUDA graph per step against the eager steps (same bits,
+   or within 1e-6), draws/s; card against CPU from the same weights for the
+   score (1e-4) and `log_prob` by 20 PF-ODE steps on 256 rows (1e-3
+   absolute), the graphed ODE equal to the eager one; `save_state` →
+   `load_saved_model` draws the same; no kernel launch;
+27. HPO: `optimize_sbi` of 4 trials × ≤ 3 epochs (NSF 32 × 4) on every
+   16th row of the phase-4 library with a median pruner, the later trials
+   (learning rate 1e-7) cut mid-run; `sweep_learning_rates` at 4 rates as
+   one 4-member `train_ensemble` call; `run_from_config` with an `optuna:`
+   block; no kernel launch;
+28. paper-63 twin: `examples/paper63_e2e_torch.py`'s `main` at full width
+   (phase 1's grid, all 63 curves, 126 features, NSF 69 × 15) on 2^16 rows,
+   2 epochs, one member: its stage timings, "auto"'s choice and its K1
+   launches (readings: TARP, R²);
+29. parallel: a one-rank NCCL group: `sharded_generate(2^18)` z-sorted
+   equals `generate(..., device_sampling=False)` bit for bit (K1 launches
+   counted) and dense equals `photometry()` per batch (K2); the sharded
+   photometry of 65536 headline rows launches K2 once and equals
+   `photometry()`; the sharded NSF 69 × 15 step (NCCL `all_reduce` over
+   "data") equals the trainer's step bit for bit over 3 steps; ragged
+   objects padded for sampling; a directory checkpoint read back.
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
-on the path (with its launches on the main path and on phases 19-25 by
+on the path (with its launches on the main path and on phases 19-29 by
 phase, each kernel's share of its bound, and `first_product_ms`:
 the fp32 first product alone as one cuBLAS `torch.matmul` with TF32 off, a
 yardstick for the kernels' core that the port never calls); the last line
@@ -2954,6 +2978,329 @@ def composite_path(tt, k1, pk, lib4, lib24, dev):
     return counts
 
 
+# -- phases 26-29: the simformer, HPO, the paper-63 twin, parallel/ --------
+# Phase 26: a simformer over phase 9's north-star features (6 θ + 14
+# features = 20 tokens) at the reference width (d_model 128, 4 heads, 4
+# layers), cut to SIMFORMER_EPOCHS epochs on 2^16 rows; sampling of 64
+# objects × 256 draws at the default 500 reverse-SDE steps.
+SIMFORMER_ROWS, SIMFORMER_EPOCHS = 2**16, 3
+SIMFORMER_OBJECTS, SIMFORMER_DRAWS = 64, 256
+# card against CPU from the same weights, TF32 off: the score to 1e-4 of
+# its largest entry, log p by 20 PF-ODE steps to 1e-3 absolute (float32
+# sums in another order, carried through 20 steps of the divergence)
+TOL_SCORE, TOL_SF_LOGP = 1e-4, 1e-3
+# Phase 27: HPO on every 16th row of phase 4's library (65536 rows): the
+# study's seed 1 draws learning rate 7e-4 first, then 1e-7 three times, so a
+# median pruner cuts the later trials at epoch 1 of 3
+HPO_STRIDE, HPO_EPOCHS, HPO_SEED = 16, 3, 1
+HPO_SPACE = {"hidden_features": ("categorical", [32]),
+             "num_transforms": ("categorical", [4]),
+             "learning_rate": ("categorical", [7e-4, 1e-7]),
+             "batch_size": ("categorical", [2048])}
+SWEEP_RATES = [1e-7, 1e-4, 7e-4, 3e-3]
+# Phase 28: the paper-63 twin at full width, depth cut (2^16 rows, 2
+# epochs, one member). Phase 29: parallel/ on a one-rank NCCL group.
+P63_ROWS, P63_EPOCHS = 2**16, 2
+PAR_ROWS = 2**18
+
+
+def simformer_phase(tt, k1, pk, fitter, dev):
+    """Phase 26: `run_single_simformer` on 2^16 rows of phase 9's features,
+    the 500-step sampler graphed against eager, card against CPU, and a
+    saved model read back."""
+    from synference_tpu_torch import simformer as ts
+
+    rows = np.arange(SIMFORMER_ROWS) * (fitter.features.shape[0]
+                                       // SIMFORMER_ROWS)
+    sf = tt.SBIFitter(photometry=fitter.photometry[rows],
+                      parameters=fitter.parameters[rows],
+                      parameter_names=fitter.parameter_names,
+                      filter_codes=fitter.filter_codes, device=dev)
+    sf.features = fitter.features[rows]
+    sf.feature_params = fitter.feature_params[rows]
+    sf.feature_source = np.arange(SIMFORMER_ROWS)
+    sf.feature_flags = fitter.feature_flags
+    sf.prior = fitter.prior
+    n_tok = sf.features.shape[1] + sf.feature_params.shape[1]
+    hist, wall = _timed(lambda: sf.run_single_simformer(
+        d_model=128, n_heads=4, n_layers=4, max_epochs=SIMFORMER_EPOCHS))
+    steps = int(0.9 * SIMFORMER_ROWS) // 256
+    log(f"[simformer] {n_tok} tokens, d_model 128, 4 x 4 heads: "
+        f"{len(hist['val'])} epochs of {steps} steps at batch 256 in "
+        f"{wall:.2f} s = {1e3 * wall / (steps * len(hist['val'])):.2f} ms "
+        f"per step (eager, validation included); val "
+        f"{np.round(hist['val'], 4).tolist()}")
+    check(n_tok == 20, f"{n_tok} tokens")
+    check(bool(np.isfinite(hist["train"]).all()
+               and np.isfinite(hist["val"]).all()), "non-finite loss")
+    check(min(hist["val"][1:]) < hist["val"][0],
+          "the simformer's validation loss never fell below epoch 1's")
+    post = sf.posterior
+    held = np.arange(SIMFORMER_OBJECTS) * 4096 + 1
+    xs = torch.as_tensor(fitter.features[held], device=dev)
+    out = {}
+    for graphed in (True, False):
+        gen = torch.Generator(device=dev).manual_seed(11)
+        out[graphed], secs = _timed(lambda: post.sample_batch(
+            xs, SIMFORMER_DRAWS, gen, graphed=graphed))
+        log(f"[simformer] sample_batch {SIMFORMER_OBJECTS} x "
+            f"{SIMFORMER_DRAWS}, {post.n_steps} steps, "
+            f"{'graphed' if graphed else 'eager'}: {secs:.2f} s = "
+            f"{1e3 * secs / post.n_steps:.2f} ms per step, "
+            f"{SIMFORMER_OBJECTS * SIMFORMER_DRAWS / secs:,.0f} draws/s")
+    diff = float((out[True] - out[False]).abs().max())
+    log(f"[simformer] graphed vs eager: max |diff| {diff:.3e} "
+        f"({'bitwise equal' if diff == 0 else 'not bitwise'})")
+    check(diff <= 1e-6, "the graphed sampler disagrees with the eager one")
+    s = out[True]
+    check(s.shape == (SIMFORMER_OBJECTS, SIMFORMER_DRAWS, 6)
+          and bool(torch.isfinite(s).all()), f"samples {tuple(s.shape)}")
+    inside = ((s >= fitter.prior.low) & (s <= fitter.prior.high)).all(-1)
+    truth = torch.as_tensor(fitter.feature_params[held], device=dev)
+    z_err = (s[..., 1].median(dim=1).values - truth[:, 1]).abs()
+    log(f"[simformer] draws inside the prior box "
+        f"{float(inside.float().mean()):.4f}; median |z error| "
+        f"{float(z_err.median()):.3f} (readings after "
+        f"{len(hist['val'])} epochs)")
+    # card against CPU from the same weights
+    cpu = ts.SimformerPosterior.from_state_dict(post.state_dict(),
+                                                device="cpu")
+    g = torch.Generator().manual_seed(2)
+    v = torch.randn(256, n_tok, generator=g)
+    t = torch.rand(256, generator=g) * 0.999 + 1e-3
+    cond = (torch.rand(256, n_tok, generator=g) < 0.5).float()
+    with torch.no_grad():
+        card = post.model.score(v.to(dev), t.to(dev), cond.to(dev)).cpu()
+        ref = cpu.model.score(v, t, cond)
+    rel = float((card - ref).abs().max() / ref.abs().max())
+    theta_q = fitter.feature_params[held[:4]].repeat(64, 0)
+    x_q = fitter.features[held[:4]].repeat(64, 0)
+    # the eager run first: it also takes the forward-AD kernels' first-use
+    # set-up out of the graphed run's time
+    lp_eager = post.log_prob(theta_q, x_q, n_steps=20, graphed=False)
+    lp_card, secs = _timed(lambda: post.log_prob(theta_q, x_q, n_steps=20))
+    lp_cpu = cpu.log_prob(theta_q, x_q, n_steps=20)
+    dlp = float((lp_card.cpu() - lp_cpu).abs().max())
+    log(f"[simformer] card vs CPU on 256 rows: score rel {rel:.3e} (tol "
+        f"{TOL_SCORE}); log_prob (20 PF-ODE steps, 6 JVP directions) "
+        f"max |diff| {dlp:.3e} (tol {TOL_SF_LOGP}), {secs:.2f} s on the "
+        f"card graphed (capture included); graphed vs eager ODE equal: "
+        f"{bool(torch.equal(lp_card, lp_eager))}; log p median "
+        f"{float(lp_cpu.median()):.3f}")
+    check(rel < TOL_SCORE, "simformer score: card disagrees with the CPU")
+    check(dlp < TOL_SF_LOGP, "simformer log_prob: card disagrees with CPU")
+    check(bool(torch.equal(lp_card, lp_eager)),
+          "the graphed PF-ODE disagrees with the eager one")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "simformer.pkl")
+        sf.save_state(path)
+        back = tt.SBIFitter.load_saved_model(path, device=dev)
+    check(back.engine == "simformer", "saved engine")
+    a = sf.sample_posterior(fitter.features[held[:8]], 32,
+                            torch.Generator(device=dev).manual_seed(5))
+    b = back.sample_posterior(fitter.features[held[:8]], 32,
+                              torch.Generator(device=dev).manual_seed(5))
+    check(bool(np.array_equal(a, b)), "the saved simformer draws otherwise")
+    log("[simformer] save_state -> load_saved_model: the same draws")
+    counts = _counts(k1, pk)
+    check(counts == (0, 0, 0), f"phase 26 launched kernels {counts}")
+    return counts
+
+
+def hpo_phase(tt, k1, pk, lib, dev):
+    """Phase 27: `optimize_sbi` with a median pruner, `sweep_learning_rates`
+    and `run_from_config` with an optuna block, on phase 4's library."""
+    from synference_tpu_torch import hpo
+
+    fitter = tt.SBIFitter(
+        photometry=lib["photometry"].T[::HPO_STRIDE],
+        parameters=lib["parameters"].T[::HPO_STRIDE],
+        parameter_names=lib["parameter_names"],
+        filter_codes=lib["filter_codes"], device=dev)
+    fitter.create_feature_array(tt.FeatureConfig(
+        filter_codes=tuple(CODES), unit="asinh", depths_ab=(29.5,) * 7,
+        n_scatters=1, include_errors=True))
+    (study, best), secs = _timed(lambda: hpo.optimize_sbi(
+        fitter, model_type="nsf", search_space=HPO_SPACE, n_trials=4,
+        max_epochs=HPO_EPOCHS, seed=HPO_SEED, verbose=False,
+        pruner=hpo.MedianPruner(n_startup_trials=1, n_warmup_steps=1)))
+    states = [(t["state"], len(t["intermediate"]),
+               t["params"]["learning_rate"]) for t in study.trials]
+    log(f"[hpo] optimize_sbi 4 trials x <= {HPO_EPOCHS} epochs on "
+        f"{fitter.features.shape[0]} rows in {secs:.2f} s: (state, epochs "
+        f"trained, lr) {states}; best {best}")
+    pruned = [t for t in study.trials if t["state"] == "PRUNED"]
+    check(bool(pruned) and all(len(t["intermediate"]) < HPO_EPOCHS
+                               for t in pruned),
+          "no trial was pruned mid-run")
+    check(best["learning_rate"] == 7e-4, f"best trial {best}")
+    flow = tt.build_flow("nsf", 6, fitter.features.shape[1],
+                         hidden_features=32, num_transforms=4, device=dev)
+    out, secs = _timed(lambda: hpo.sweep_learning_rates(
+        flow, fitter.feature_params, fitter.features, SWEEP_RATES,
+        config=tt.TrainConfig(batch_size=2048, max_epochs=HPO_EPOCHS),
+        generator=torch.Generator(device=dev).manual_seed(0)))
+    log(f"[hpo] sweep_learning_rates {SWEEP_RATES} as one 4-member run in "
+        f"{secs:.2f} s: best val {np.round(out['best_val'], 4).tolist()}, "
+        f"best lr {out['best_lr']}")
+    check(out["result"].n_members == 4
+          and out["best_index"] == int(np.argmin(out["best_val"]))
+          and out["best_lr"] != SWEEP_RATES[0], "the sweep's winner")
+    lead = out["params"]["flow"]["blocks"][0][0]["w"]
+    check(bool(torch.equal(lead, out["result"].params["flow"]["blocks"][0][
+        0]["w"][out["best_index"]])), "the winner's parameters")
+    cfg = {"max_epochs": 2, "verbose": False, "train_args": {
+        "skip_optimization": False,
+        "fixed_params": {"model_choice": "nsf"},
+        "optuna": {"n_trials": 2, "search_space": {
+            k: list(v) for k, v in HPO_SPACE.items()}}}}
+    fitted, secs = _timed(lambda: tt.run_from_config(cfg, fitter=fitter,
+                                                     device=dev))
+    log(f"[hpo] run_from_config with an optuna block (2 trials, then the "
+        f"best retrained) in {secs:.2f} s")
+    check(len(fitted.hpo_study.trials) == 2
+          and fitted.train_result is not None, "the optuna block")
+    counts = _counts(k1, pk)
+    check(counts == (0, 0, 0), f"phase 27 launched kernels {counts}")
+    return counts
+
+
+def paper63_twin(tt, k1, pk, sim, dev):
+    """Phase 28: `examples/paper63_e2e_torch.py` at full width (phase 1's
+    grid, all 63 curves), 2^16 rows, 2 epochs, one member."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "paper63_e2e_torch", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "examples", "paper63_e2e_torch.py"))
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    res = twin.main(P63_ROWS, None, "cuda", grid=sim.grid,
+                    max_epochs=P63_EPOCHS, n_nets=1, stop_after=P63_EPOCHS)
+    counts = _counts(k1, pk)
+    log(f"[paper63] {res['n_library']} rows x {res['n_filters']} bands, "
+        f"{res['feature_dim']} features: timings {res['timings']}; window "
+        f"body {res['window_body']}; K1 launches {res['k1_launches']}; TARP "
+        f"{res['tarp_deviation']:.4f}, R2 {res['r2']} after {res['epochs']} "
+        f"epochs (readings)")
+    check(res["n_filters"] == 63 and res["feature_dim"] == 126,
+          "paper-63 widths")
+    check(res["k1_launches"] >= 1 and counts[0] == res["k1_launches"],
+          f"paper-63 generate launched K1 {res['k1_launches']} times")
+    check(bool(np.isfinite(res["tarp_deviation"])
+               and np.isfinite(res["r2"]).all()), "paper-63 metrics")
+    return counts
+
+
+def parallel_phase(tt, k1, pk, sim, gen, fitter, dev):
+    """Phase 29: parallel/ on a one-rank NCCL group: sharded generate
+    (z-sorted and dense) against generate, sharded photometry through K2,
+    the sharded step against the trainer's, padded sampling, the directory
+    checkpoint."""
+    import socket
+
+    import torch.distributed as dist
+
+    from synference_tpu_torch import library as tl
+    from synference_tpu_torch import parallel as par
+    from synference_tpu_torch.flows.base import tree_leaves
+    from synference_tpu_torch.train import (_EnsembleState, _npe_loss,
+                                            load_checkpoint, save_checkpoint)
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    check(par.initialize_multihost(f"localhost:{port}", 1, 0, device="cuda")
+          == (0, 1), "process group")
+    mesh = par.make_mesh(device="cuda")
+    counts = [0, 0, 0]
+
+    def counted(fn):
+        _zero_counts(k1, pk)
+        out = fn()
+        torch.cuda.synchronize()
+        for i, c in enumerate(_counts(k1, pk)):
+            counts[i] += c
+        return out
+
+    # "auto" probes both window bodies once (4 batches) and the simulator
+    # keeps the choice, so both runs take the same body
+    probe_file = tl.ZSORTED_PROBE_FILE
+    with tempfile.TemporaryDirectory() as tmp:
+        tl.ZSORTED_PROBE_FILE = os.path.join(tmp, "zsorted_probe.json")
+        ref = gen.generate(PAR_ROWS, batch_size=BATCH, seed=5,
+                           device_sampling=False)
+        lib, secs = _timed(lambda: counted(lambda: par.sharded_generate(
+            gen, PAR_ROWS, mesh, batch_size=BATCH, seed=5)))
+    tl.ZSORTED_PROBE_FILE = probe_file
+    log(f"[parallel] sharded_generate({PAR_ROWS}) z-sorted, 1 NCCL rank: "
+        f"{secs:.3f} s, K1 launches {counts[0]} ({gen.last_probe})")
+    check(np.array_equal(lib["photometry"], ref["photometry"])
+          and np.array_equal(lib["parameters"], ref["parameters"]),
+          "sharded z-sorted generate differs from generate")
+    dense = counted(lambda: par.sharded_generate(
+        gen, 2 * BATCH, mesh, batch_size=BATCH, seed=6, zsorted=False))
+    k2_dense = counts[1]
+    th = torch.as_tensor(dense["parameters"].T, device=dev)
+    plain = torch.cat([sim.photometry(th[i:i + BATCH], row_offset=i)
+                       for i in (0, BATCH)]).cpu().numpy().T
+    check(np.array_equal(dense["photometry"], plain),
+          "sharded dense generate differs from photometry()")
+    hsim = headline_model(tt, dev, "interp")
+    theta = headline_theta(dev)
+    fn = par.make_sharded_photometry_fn(hsim, mesh)
+    before = counts[1]
+    out = counted(lambda: fn(theta)["photometry_njy"])
+    check(counts[1] - before == 1, "sharded photometry did not launch K2")
+    check(bool(torch.equal(out, hsim.photometry(theta))),
+          "sharded photometry differs from photometry()")
+    log(f"[parallel] dense sharded generate of {2 * BATCH} rows: K2 "
+        f"launches {k2_dense}, bitwise photometry(); sharded photometry of "
+        f"{HEADLINE_BATCH} headline rows: 1 K2 launch, bitwise")
+    tb = torch.as_tensor(fitter.feature_params[:2048], device=dev)
+    xb = torch.as_tensor(fitter.features[:2048], device=dev)
+    params = par.init_sharded_ensemble(
+        fitter.flow, torch.Generator(device=dev).manual_seed(0), tb, xb, 2,
+        mesh)
+    cfg = tt.TrainConfig(learning_rate=7e-4)
+    state = _EnsembleState(fitter.flow.init(
+        torch.Generator(device=dev).manual_seed(0), tb, xb, n_members=2),
+        torch.full((2,), 7e-4, device=dev), cfg)
+    step, place = par.make_sharded_train_step(fitter.flow, mesh, cfg)
+    opt = par.init_opt_state(params)
+    for _ in range(3):
+        params, opt, losses = step(params, opt, place(tb), place(xb))
+        ref_loss = state.train_step(_npe_loss(fitter.flow),
+                                    tb.expand(2, -1, -1),
+                                    xb.expand(2, -1, -1))
+        check(bool(torch.equal(losses, ref_loss)),
+              "the sharded step's loss differs from the trainer's")
+    flat = torch.cat([a.reshape(2, -1) for a in tree_leaves(params)], 1)
+    check(bool(torch.equal(flat, state.flat)),
+          "the sharded step's parameters differ from the trainer's")
+    log("[parallel] NSF 69x15 x2 sharded step (NCCL all_reduce over data) "
+        "x3 on 2048 rows: bitwise the trainer's step")
+    s = counted(lambda: par.sharded_sample_batch(
+        fitter.posterior, fitter.features[:13], mesh, n_samples=64))
+    q = counted(lambda: par.sharded_fit_catalogue(
+        fitter.posterior, fitter.features[:11], mesh, n_samples=256))
+    check(s.shape == (13, 64, 6) and q.shape == (11, 3, 6)
+          and bool(np.isfinite(s).all() and (q[:, 0] <= q[:, 2]).all()),
+          "sharded sampling")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck")
+        blob = {"flat": state.flat.cpu().numpy(), "step": 3}
+        save_checkpoint(path, blob, backend="orbax")
+        back = load_checkpoint(path, backend="orbax")
+        files = sorted(os.listdir(path))
+    check(np.array_equal(back["flat"], blob["flat"]) and back["step"] == 3,
+          "directory checkpoint")
+    log(f"[parallel] sharded sampling of 13 objects (padded) and a quantile "
+        f"table of 11; directory checkpoint {files} read back")
+    dist.destroy_process_group()
+    return tuple(counts)
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
@@ -3060,6 +3407,25 @@ def main() -> None:
     log(f"[phase] 25 composite: {time.perf_counter() - t0:.1f} s, launches "
         f"(K1, K2, K3) {slice_counts['25']}")
     log(f"[phase] 24-25 together: {time.perf_counter() - t_agn:.1f} s")
+    # phases 26-29, each with the counts set to 0 just before it: the
+    # simformer and HPO train and sample without a kernel; the paper-63
+    # twin's generate takes K1 ("auto" on one batch); parallel/ takes K1
+    # in its z-sorted generate and K2 in its dense one
+    t_new = time.perf_counter()
+    for name, label, phase in (
+            ("26", "simformer",
+             lambda: simformer_phase(tt, k1, pk, fitter, dev)),
+            ("27", "HPO", lambda: hpo_phase(tt, k1, pk, lib, dev)),
+            ("28", "paper-63 twin",
+             lambda: paper63_twin(tt, k1, pk, sim, dev)),
+            ("29", "parallel",
+             lambda: parallel_phase(tt, k1, pk, sim, gen, fitter, dev))):
+        _zero_counts(k1, pk)
+        t0 = time.perf_counter()
+        slice_counts[name] = phase()
+        log(f"[phase] {name} {label}: {time.perf_counter() - t0:.1f} s, "
+            f"launches (K1, K2, K3) {slice_counts[name]}")
+    log(f"[phase] 26-29 together: {time.perf_counter() - t_new:.1f} s")
     by_phase = {"K1": {"4": k1_stats["launches"], "19-21": k1_19_21},
                 "K2": {"6": k2_stats["launches"], "19-20": k2_19_20,
                        "21": k2_online},

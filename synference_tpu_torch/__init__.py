@@ -17,8 +17,10 @@ exact-likelihood fitting and validation through the simulator's gradient
 compression, C2ST/L-C2ST, the NPE-vs-HMC cross-check, `RestrictedPrior`),
 the AGN forward models (`AGNSimulator`, `AGNGridSimulator`), composite
 stellar-plus-AGN models, library combination, config-driven training,
-runtime utilities, plotting and test-data generation, on torch
-tensors, with hand-written CUDA kernels for Hopper in `csrc/`: K1 the
+runtime utilities, plotting and test-data generation, the simformer (a
+score-based transformer joint posterior), hyperparameter search
+(`hpo.py`) and multi-process generation, training and sampling on
+`torch.distributed` (`parallel/`), on torch tensors, with hand-written CUDA kernels for Hopper in `csrc/`: K1 the
 windowed megakernel, K2 the full-table megakernel, K3 the exact-shift
 numerators. Every public entry point takes an explicit device; CPU tensors
 run the kernels' plain PyTorch versions. This package imports neither `jax`
@@ -40,6 +42,8 @@ from .fitter import SBIFitter
 from .filter_arithmetic import FilterArithmeticParser
 from .filters import Filter, FilterSet, tophat_filter
 from .flows.base import ConditionalFlow, build_flow
+from .hpo import (MedianPruner, SearchSpace, Study, optimize_sbi,
+                  sweep_learning_rates)
 from .grids import (SPSGrid, make_synthetic_agn_grid, make_synthetic_grid,
                     make_synthetic_multiaxis_grid)
 from .igm import igm_transmission
@@ -75,6 +79,8 @@ from .priors import (BoxUniform, RestrictedPrior, priors_from_library,
 from .ratio import RatioEstimator, build_ratio_estimator, nre_loss
 from .recovery import recover_sed
 from .sed import BatchSEDSimulator, EmissionConfig
+from .simformer import (VPSDE, Simformer, SimformerConfig, SimformerPosterior,
+                        train_simformer)
 from .sfh import SFH_FAMILIES, ZDIST_FAMILIES, sfh_weights, zdist_weights
 from .spectra import (SpectralFeaturePipeline, generate_constant_r_grid,
                       match_resolution_constant_r)
@@ -122,5 +128,8 @@ __all__ = [
     "compare_methods_feature_importance", "CompositeSEDSimulator",
     "grid_combinations", "combine_libraries", "combine_libraries_matched",
     "match_resolution_constant_r", "AGNSimulator", "AGNGridSimulator",
-    "agn_fraction", "load_config", "run_from_config",
+    "agn_fraction", "load_config", "run_from_config", "Simformer",
+    "SimformerConfig", "SimformerPosterior", "VPSDE", "train_simformer",
+    "Study", "SearchSpace", "MedianPruner", "optimize_sbi",
+    "sweep_learning_rates",
 ]

@@ -10,9 +10,11 @@ trains on an explicit device.
 
 `train_args.epochs_per_dispatch` (epochs fused into one TPU program) is
 accepted and ignored: the port's trainer has no dispatch to amortise. An
-`optuna:` block with `skip_optimization: False` asks for the HPO study,
-which is not ported yet (ROADMAP M14 item 5): it raises
-NotImplementedError. YAML is imported only for YAML files.
+`optuna:` block under `train_args` with `skip_optimization: False` runs the
+HPO study (`hpo.optimize_sbi`: `n_trials`, `pruner` {type "Median",
+`n_startup_trials`, `n_warmup_steps`}, an optional `search_space`,
+`study.storage`) and, unless `build_final_model: False`, retrains the best
+trial's configuration. YAML is imported only for YAML files.
 
 Command line: ``synference-tpu-torch-train config.yaml [--device cuda]``.
 """
@@ -65,10 +67,6 @@ def run_from_config(config, fitter=None, *, device):
 
     cfg = load_config(config) if isinstance(config, str) else dict(config)
     ta = dict(cfg.get("train_args", {}))
-    if not bool(ta.get("skip_optimization", True)) and "optuna" in ta:
-        raise NotImplementedError(
-            "the config's optuna block (hyper-parameter search) needs hpo.py,"
-            " which is not ported yet (ROADMAP M14 item 5)")
     if fitter is None:
         lib = cfg.get("library")
         if not lib:
@@ -97,15 +95,64 @@ def run_from_config(config, fitter=None, *, device):
         max_epochs=int(cfg.get("max_epochs", ta.get("max_epochs", 100))),
         validation_fraction=float(ta.get("validation_fraction", 0.1)),
     )
-    fitter.run_single_sbi(
-        model_type=model, engine=str(cfg.get("engine", "npe")).lower(),
-        n_nets=int(cfg.get("n_nets", 1)), train_config=train_config,
-        **_model_kwargs_from_fixed(fixed, model))
+    engine = str(cfg.get("engine", "npe")).lower()
+    n_nets = int(cfg.get("n_nets", 1))
+    if not bool(ta.get("skip_optimization", True)) and "optuna" in ta:
+        _optimize(fitter, cfg, dict(ta["optuna"]), model, engine, n_nets,
+                  train_config)
+    else:
+        fitter.run_single_sbi(
+            model_type=model, engine=engine, n_nets=n_nets,
+            train_config=train_config,
+            **_model_kwargs_from_fixed(fixed, model))
 
     out = cfg.get("output")
     if out:
         fitter.save_state(str(out))
     return fitter
+
+
+def _optimize(fitter, cfg: dict, opt: dict, model: str, engine: str,
+              n_nets: int, train_config) -> None:
+    """The config's `optuna:` block: the HPO study on `fitter`
+    (`fitter.hpo_study`), then the best trial retrained unless
+    `build_final_model` is False."""
+    from .hpo import MedianPruner, optimize_sbi
+    from .train import TrainConfig
+
+    pruner_cfg = dict(opt.get("pruner", {}))
+    pruner = MedianPruner(
+        n_startup_trials=int(pruner_cfg.get("n_startup_trials", 5)),
+        n_warmup_steps=int(pruner_cfg.get("n_warmup_steps", 3)),
+    ) if str(pruner_cfg.get("type", "Median")).lower() == "median" else None
+    # YAML lists become the ("int", lo, hi) / ("categorical", [..]) tuples
+    # SearchSpace takes
+    space = opt.get("search_space")
+    if space is not None:
+        space = {k: tuple(v) if isinstance(v, (list, tuple)) else v
+                 for k, v in dict(space).items()}
+    study, best = optimize_sbi(
+        fitter, model_type=model, search_space=space,
+        n_trials=int(opt.get("n_trials", 20)),
+        max_epochs=train_config.max_epochs,
+        storage=(dict(opt.get("study", {})).get("storage") or None),
+        pruner=pruner, verbose=bool(cfg.get("verbose", True)))
+    fitter.hpo_study = study
+    if not bool(opt.get("build_final_model", True)):
+        return
+    best = dict(best)
+    lr = best.pop("learning_rate", train_config.learning_rate)
+    bs = best.pop("batch_size", train_config.batch_size)
+    # "zoo" searches the family itself: retrain the winning model
+    final_model = best.pop("model_type", model)
+    fitter.run_single_sbi(
+        model_type=final_model, engine=engine, n_nets=n_nets,
+        train_config=TrainConfig(
+            learning_rate=float(lr), batch_size=int(bs),
+            max_epochs=train_config.max_epochs,
+            stop_after_epochs=train_config.stop_after_epochs),
+        **{k: v for k, v in best.items()
+           if not isinstance(v, (list, dict))})
 
 
 def main(argv=None) -> int:

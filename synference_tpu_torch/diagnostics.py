@@ -321,13 +321,14 @@ def evaluate_posterior(posterior, xs, truths,
     A flow posterior (one with `sample_batch_with_acceptance`) also reports
     the sampling acceptance, with a warning when the flow leaks, and the
     leakage-corrected log-prob; `base` (the shape that method takes) replaces
-    its base draws. Any other posterior (the MCMC-sampled NLE and NRE ones)
-    is sampled with `sample_batch` and reports neither; its `mean_log_prob`
+    its base draws. Any other posterior (the MCMC-sampled NLE and NRE ones,
+    the simformer's) is sampled with `sample_batch` and reports neither; its `mean_log_prob`
     is None when no truth has a finite log-prob. `tarp_uniforms` (M, P)
     replace the generator's draws (seed 0 on the posterior's device when
     all are None)."""
     flow_posterior = hasattr(posterior, "sample_batch_with_acceptance")
-    dev = posterior.prior.device
+    # a simformer posterior has no prior; it names its device
+    dev = getattr(posterior, "device", None) or posterior.prior.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     xs = torch.atleast_2d(_f32(xs, dev))

@@ -28,8 +28,9 @@ Figures and views: `plot_diagnostics` and `run_validation_from_file` draw
 `plotting.py`'s figures (matplotlib), `create_dataframe` gives a pandas
 view of the library; both packages are imported where they are used.
 
-Not present: the simformer (a saved one raises NotImplementedError naming
-ROADMAP M14 item 4).
+`run_single_simformer` trains a score-based transformer over the joint
+(θ, x) tokens on every feature row (`simformer.py`, engine "simformer");
+its saved model is the posterior's `state_dict` in the JAX layout.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ class SBIFitter:
         fitter = SBIFitter(photometry, parameters, names, codes, device="cuda")
         fitter.create_feature_array(FeatureConfig(...))
         result = fitter.run_single_sbi(model_type="nsf", n_nets=3)
-        # or engine="nle" / "nre", sampled by batched MCMC
+        # or engine="nle" / "nre", sampled by batched MCMC, or
+        # fitter.run_single_simformer(), a score-based joint posterior
         samples = fitter.sample_posterior(x_obs, n_samples=1000)
         report = fitter.evaluate_model()
     """
@@ -370,6 +372,45 @@ class SBIFitter:
                                                self.prior)
 
     # ------------------------------------------------------------------
+    def run_single_simformer(self, d_model: int = 128, n_heads: int = 4,
+                             n_layers: int = 4, attn_mask: str = "full",
+                             batch_size: int = 256,
+                             learning_rate: float = 1.0e-4,
+                             max_epochs: int = 100,
+                             n_diffusion_steps: int = 500,
+                             generator: torch.Generator | None = None):
+        """Train a score-based transformer joint posterior on the whole
+        feature array (`attn_mask` "full" or "causal"); the draws come from
+        `generator` (seed 0 on the fitter's device when None). Returns the
+        training history."""
+        from .simformer import (Simformer, SimformerConfig,
+                                SimformerPosterior, block_attn_mask,
+                                train_simformer)
+
+        if self.features is None:
+            self.create_feature_array()
+        if self.prior is None:
+            self.create_priors()
+        theta, x = self.feature_params, self.features
+        n_theta, n_x = theta.shape[1], x.shape[1]
+        model = Simformer(SimformerConfig(
+            n_tokens=n_theta + n_x, d_model=d_model, n_heads=n_heads,
+            n_layers=n_layers), device=self.device)
+        mask = (None if attn_mask == "full"
+                else block_attn_mask(n_theta, n_x, attn_mask))
+        params, std, hist = train_simformer(
+            model, theta, x, self._generator(generator, 0),
+            batch_size=batch_size, learning_rate=learning_rate,
+            max_epochs=max_epochs, attn_mask=mask)
+        self.posterior = SimformerPosterior(model, params, std,
+                                            attn_mask=mask,
+                                            n_steps=n_diffusion_steps)
+        self.engine = "simformer"
+        self.flow = None
+        self.train_result = None
+        return hist
+
+    # ------------------------------------------------------------------
     def run_online_sbi(self, simulate_fn, x_obs, engine: str = "snpe",
                        model_type: str = "nsf", n_rounds: int = 3,
                        sims_per_round: int = 2000, train_config=None,
@@ -643,9 +684,11 @@ class SBIFitter:
             "parameter_names": self.parameter_names,
             "filter_codes": self.filter_codes,
             "feature_flags": self.feature_flags,
-            "flow_spec": self.flow.spec(),
         }
-        if self.train_result is not None:
+        if self.engine == "simformer":
+            state["simformer"] = self.posterior.state_dict()
+        elif self.train_result is not None:
+            state["flow_spec"] = self.flow.spec()
             state.update({
                 "params": params_to_numpy(self.train_result.params),
                 "n_members": self.train_result.n_members,
@@ -656,6 +699,7 @@ class SBIFitter:
                 },
             })
         else:
+            state["flow_spec"] = self.flow.spec()
             params = self.posterior.params
             if params["theta_mean"].ndim == 1:
                 params = tree_map(lambda a: a.unsqueeze(0), params)
@@ -683,22 +727,27 @@ class SBIFitter:
         fitter.supplementary_names = []
         fitter._raw_parameter_names = list(fitter.parameter_names)
         fitter._clear_training_state()
-        if fitter.engine not in ("npe", "nle", "nre"):
-            raise NotImplementedError(
-                f"saved engine {fitter.engine!r} is not ported yet (ROADMAP "
-                "M14 item 4, the simformer)")
-        spec = state["flow_spec"]
-        fitter.flow = (RatioEstimator.from_spec(spec, fitter.device)
-                       if spec.get("model") == "nre"
-                       else ConditionalFlow.from_spec(spec, fitter.device))
         fitter.prior = BoxUniform.from_dict(state["prior"], fitter.device)
-        params = params_from_numpy(state["params"], fitter.device)
-        k = int(tree_leaves(params)[0].shape[0])
-        if state.get("n_members", k) != k:
-            raise ValueError(
-                f"saved state names {state['n_members']} members, its "
-                f"parameters carry {k}")
-        fitter._set_posterior(params)
+        if fitter.engine == "simformer":
+            from .simformer import SimformerPosterior
+
+            fitter.posterior = SimformerPosterior.from_state_dict(
+                state["simformer"], device=fitter.device)
+        elif fitter.engine in ("npe", "nle", "nre"):
+            spec = state["flow_spec"]
+            fitter.flow = (RatioEstimator.from_spec(spec, fitter.device)
+                           if spec.get("model") == "nre"
+                           else ConditionalFlow.from_spec(spec,
+                                                          fitter.device))
+            params = params_from_numpy(state["params"], fitter.device)
+            k = int(tree_leaves(params)[0].shape[0])
+            if state.get("n_members", k) != k:
+                raise ValueError(
+                    f"saved state names {state['n_members']} members, its "
+                    f"parameters carry {k}")
+            fitter._set_posterior(params)
+        else:
+            raise ValueError(f"unknown saved engine {fitter.engine!r}")
         flags = state.get("feature_flags")
         fitter.feature_flags = flags
         # spectral features (`create_feature_array_from_raw_spectra`) have

@@ -45,7 +45,8 @@ from .nsf import make_affine_coupling, make_ncsf, make_nsf
 
 __all__ = ["ConditionalFlow", "build_flow", "flatten_params",
            "unflatten_params", "params_from_numpy", "params_to_numpy",
-           "tree_map", "tree_leaves", "tree_unflatten"]
+           "tree_map", "tree_leaves", "tree_unflatten", "module_params",
+           "load_module_params"]
 
 # the JAX package's registry (`ConditionalFlow.__post_init__`)
 _MAKERS = {"maf": make_maf, "made": make_maf, "nsf": make_nsf,
@@ -142,6 +143,36 @@ def params_from_numpy(tree, device):
 def params_to_numpy(tree):
     """Inverse of `params_from_numpy`: the same tree of numpy arrays."""
     return tree_map(lambda a: np.asarray(a.detach().cpu()), tree)
+
+
+def module_params(module: torch.nn.Module):
+    """An `nn.Module`'s parameters as the JAX package's tree: a module is a
+    dict of its parameters and submodules by attribute name, a
+    `ModuleList` a list. The leaves are the parameters themselves."""
+    if isinstance(module, torch.nn.ModuleList):
+        return [module_params(m) for m in module]
+    tree = dict(module._parameters)
+    tree.update({name: module_params(m)
+                 for name, m in module._modules.items()})
+    return tree
+
+
+def load_module_params(module: torch.nn.Module, tree) -> None:
+    """Copy the JAX package's parameter tree (numpy arrays or tensors, in
+    the layout `module_params` gives) into `module`'s parameters."""
+    mine = list(_leaves_with_path(module_params(module)))
+    theirs = list(_leaves_with_path(tree))
+    if [k for k, _ in mine] != [k for k, _ in theirs]:
+        raise ValueError("parameter tree does not match the module's layout")
+    with torch.no_grad():
+        for (_, p), (_, a) in zip(mine, theirs):
+            if isinstance(a, torch.Tensor):
+                a = a.detach().cpu()
+            a = torch.as_tensor(np.array(a), dtype=p.dtype)
+            if a.shape != p.shape:
+                raise ValueError(f"shape {tuple(a.shape)} for a parameter "
+                                 f"of shape {tuple(p.shape)}")
+            p.copy_(a)
 
 
 # -- the flow -----------------------------------------------------------

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import datetime
 import hashlib
+import inspect
 import json
 import os
 import pathlib
@@ -81,6 +82,17 @@ def _supports(sim, gate: str) -> bool:
     without the engine (a composite) and, by the gate itself, for a
     subclass with its own forward model (the AGN simulators)."""
     return getattr(sim, gate, lambda: False)()
+
+
+def _takes_row_offset(fn) -> bool:
+    """True when `fn`'s second positional parameter is named row_offset
+    (then `generate` passes each batch's absolute row offset)."""
+    try:
+        pos = [p for p in inspect.signature(fn).parameters.values()
+               if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    except (TypeError, ValueError):
+        return False
+    return len(pos) >= 2 and pos[1].name == "row_offset"
 
 
 def auto_batch_size(n: int, spectra_width: int | None = None) -> int:
@@ -515,7 +527,7 @@ class LibraryGenerator:
     def generate(self, n: int, batch_size: int | None = None, seed: int = 0,
                  out_path: str | None = None, want_spectra: bool = False,
                  pmapped_fn=None, resume_path: str | None = None,
-                 zsorted_fused: bool | str = "auto",
+                 presort: bool = False, zsorted_fused: bool | str = "auto",
                  device_sampling: bool | None = None) -> dict:
         """Generate n mock SEDs; returns the library dict and, with
         `out_path`, writes it as HDF5 with a Model group.
@@ -536,13 +548,15 @@ class LibraryGenerator:
         `zsorted_fused`: the window body of z-sorted runs; True (K1), False
         (the staged body) or "auto" (see `_choose_zsorted_fused`).
 
-        `pmapped_fn` (mesh-sharded batches) is not ported (ROADMAP M14
-        item 6, `parallel/`), nor `presort`, which only applies with it.
+        `pmapped_fn`: a batch function θ (B, P) on the device -> dict with
+        "photometry_njy" (and "fnu_njy" with spectra, the `simulate` outputs
+        with supplementary quantities) in place of the simulator: the hook
+        of `parallel/`'s sharded functions. It takes the host sampler, and
+        receives each batch's absolute row offset when its second positional
+        parameter is named `row_offset`. `presort` sorts the draws by
+        redshift first (rows are exchangeable; batches then span narrow z
+        ranges), for a batch function that windows by redshift.
         """
-        if pmapped_fn is not None:
-            raise NotImplementedError(
-                "generate(pmapped_fn=...) (mesh-sharded batches) is not "
-                "ported yet (ROADMAP M14 item 6, parallel/)")
         sim = self.simulator
         wide = want_spectra or bool(self.supplementary)
         if batch_size is None:
@@ -552,7 +566,8 @@ class LibraryGenerator:
             lib = self._empty_library(want_spectra)
             self._save(out_path, lib)
             return lib
-        device_ok = (not wide and not self.emission_lines
+        device_ok = (pmapped_fn is None and not wide
+                     and not self.emission_lines
                      and self.engine in ("lhc", "random")
                      and "redshift" in sim.param_names
                      and _supports(sim, "_window_supported"))
@@ -562,29 +577,45 @@ class LibraryGenerator:
             raise ValueError(
                 "device_sampling=True, but this generation needs the host "
                 "sampler (spectra, supplementary quantities or emission "
-                "lines, a scipy QMC engine, a fixed redshift, or a model the "
-                "window engine cannot run)")
+                "lines, a pmapped_fn, a scipy QMC engine, a fixed redshift, "
+                "or a model the window engine cannot run)")
         if device_sampling:
             lib = self._generate_device(n, batch_size, seed, resume_path,
                                         zsorted_fused)
         else:
             lib = self._generate_host(n, batch_size, seed, want_spectra,
-                                      resume_path, zsorted_fused)
+                                      resume_path, zsorted_fused, pmapped_fn,
+                                      presort)
         self._save(out_path, lib)
         return lib
 
     def _generate_host(self, n, batch_size, seed, want_spectra, resume_path,
-                       zsorted_fused) -> dict:
-        """θ from the host sampler; z-sorted through the window engine when
-        it runs the model and its window is not the whole table, else the
-        dense `simulate`, one batch of `batch_size` rows at a time."""
+                       zsorted_fused, pmapped_fn=None,
+                       presort: bool = False) -> dict:
+        """θ from the host sampler; through `pmapped_fn` when given, else
+        z-sorted through the window engine when it runs the model and its
+        window is not the whole table, else the dense `simulate`, one batch
+        of `batch_size` rows at a time."""
         sim = self.simulator
         wide = want_spectra or bool(self.supplementary)
         theta = self.sample_parameters(n, rng=np.random.default_rng(seed))
         n_pad = int(np.ceil(n / batch_size) * batch_size)
         n_batches = n_pad // batch_size
         batch_fn = None
-        if (not wide and "redshift" in sim.param_names
+        if pmapped_fn is not None:
+            row_order = "input"
+            if presort and "redshift" in sim.param_names:
+                iz = sim.param_names.index("redshift")
+                theta = theta[np.argsort(theta[:, iz], kind="stable")]
+                row_order = "zsorted"
+            theta_dev = self._padded(theta, n_pad)
+            offset = _takes_row_offset(pmapped_fn)
+
+            def batch_fn(t, i):
+                out = pmapped_fn(t, i) if offset else pmapped_fn(t)
+                return {k: torch.as_tensor(v, device=self.device)
+                        for k, v in out.items()}
+        elif (not wide and "redshift" in sim.param_names
                 and _supports(sim, "_window_supported")):
             iz = sim.param_names.index("redshift")
             ordered = theta[np.argsort(theta[:, iz], kind="stable")]

@@ -20,8 +20,10 @@ small tensor with the epoch's losses and patience counters comes back per
 epoch; the stop test and `epoch_callback` read it.
 
 `TrainConfig(live_plot=True)` draws `runtime.TerminalLossPlot` to stdout
-once per epoch. The `"orbax"` checkpoint backend raises NotImplementedError
-naming ROADMAP M14 item 6.
+once per epoch. Checkpoints are one pickle file (backend "pickle") or, with
+backend "orbax" (the JAX package's name; orbax itself imports JAX and is
+not used), a directory of per-rank `torch.save` files that is replaced
+atomically: every rank of a running process group writes its own file.
 """
 
 from __future__ import annotations
@@ -352,8 +354,11 @@ def train_ensemble(flow, theta, x, generator: torch.Generator | None = None,
         if bool((patience >= cfg.stop_after_epochs).all()):
             break
 
-    if ckpt and os.path.exists(ckpt):
-        os.remove(ckpt)  # success: drop the checkpoint
+    if ckpt and os.path.exists(ckpt):  # success: drop the checkpoint
+        if backend == "orbax" and os.path.isdir(ckpt):
+            _drop_checkpoint_dir(ckpt)
+        else:
+            os.remove(ckpt)
 
     val_arr = np.stack(val_hist) if val_hist else np.zeros((0, n_nets))
     tr_arr = np.stack(train_hist) if train_hist else np.zeros((0, n_nets))
@@ -379,14 +384,67 @@ def train_ensemble(flow, theta, x, generator: torch.Generator | None = None,
 # ---------------------------------------------------------------------------
 
 
+def _rank_world() -> tuple:
+    """(rank, world size) of the running process group, else (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier(world: int) -> None:
+    if world > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _rank_file(path: str, rank: int, world: int) -> str:
+    return os.path.join(path, f"rank{rank:05d}-of-{world:05d}.pt")
+
+
+def _drop_checkpoint_dir(path: str) -> None:
+    """Remove a directory checkpoint: rank 0 removes it after every rank
+    has finished with it."""
+    import shutil
+
+    rank, world = _rank_world()
+    _barrier(world)
+    if rank == 0:
+        shutil.rmtree(path)
+    _barrier(world)
+
+
 def save_checkpoint(path: str, state: dict, backend: str = "pickle") -> None:
-    """Atomically persist a training state of plain Python and numpy in one
-    file."""
+    """Atomically persist a training state of plain Python, numpy and
+    tensors.
+
+    backend "pickle": one file. backend "orbax": `path` is a directory in
+    which every rank of the process group (rank 0 alone without one)
+    writes its own state, `rank{r}-of-{n}.pt`; the directory is written
+    beside `path` and replaces it once every rank has written, so a crash
+    leaves the previous checkpoint whole. All ranks must call it."""
+    if backend == "orbax":
+        import shutil
+
+        rank, world = _rank_world()
+        tmp = path + ".tmp-new"
+        if rank == 0:
+            if os.path.isdir(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        _barrier(world)
+        torch.save(state, _rank_file(tmp, rank, world))
+        _barrier(world)
+        if rank == 0:
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            os.replace(tmp, path)
+        _barrier(world)
+        return
     if backend != "pickle":
-        raise NotImplementedError(
-            f"checkpoint backend {backend!r} (shard-local multi-host "
-            "checkpoints) is not ported yet (ROADMAP M14 item 6, "
-            "parallel/)")
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         pickle.dump(state, f)
@@ -394,10 +452,18 @@ def save_checkpoint(path: str, state: dict, backend: str = "pickle") -> None:
 
 
 def load_checkpoint(path: str, backend: str = "pickle") -> dict:
-    """Inverse of `save_checkpoint`. Load only files this program wrote."""
+    """Inverse of `save_checkpoint`: for "orbax", this rank's state (the
+    world size must be the one that wrote it). Load only files this program
+    wrote: unpickling can run code."""
+    if backend == "orbax":
+        rank, world = _rank_world()
+        f = _rank_file(path, rank, world)
+        if not os.path.exists(f):
+            raise FileNotFoundError(
+                f"{f}: no state for rank {rank} of {world} (written by "
+                "another world size?)")
+        return torch.load(f, weights_only=False)
     if backend != "pickle":
-        raise NotImplementedError(
-            f"checkpoint backend {backend!r} is not ported yet (ROADMAP M14 "
-            "item 6, parallel/)")
+        raise ValueError(f"unknown checkpoint backend {backend!r}")
     with open(path, "rb") as f:
         return pickle.load(f)

@@ -59,6 +59,13 @@ gate) and match their CPU route; a stellar-plus-AGN composite launches K2
 once per `photometry()` and equals the sum of its components' plain
 routes within the bound above.
 
+The simformer, HPO and `parallel/` slice on the card: the simformer's
+graphed reverse-SDE sampler and graphed probability-flow ODE equal their
+eager runs bit for bit and the CPU's score within 1e-4; on a one-rank NCCL
+group the sharded photometry launches K2 once per call and equals
+`photometry()` bit for bit, and the sharded training step (its `all_reduce`
+included) equals the trainer's step bit for bit.
+
 K1 and K2 share one core (`csrc/sed_tile.cuh`). K1's one launch over a
 batch of sub-chunks is held to the same bound with per-sub-chunk windows
 at unaligned columns, ragged tiles and B = 1, 3, 13; both kernels at 128
@@ -1174,3 +1181,113 @@ def test_composite_launches_k2_once_per_call(cuda):
     frac = comp.agn_fraction(theta[:256], agn_components=("agn",))
     assert frac.device.type == "cuda" and bool(((frac >= 0)
                                                 & (frac <= 1)).all())
+
+
+@pytest.mark.cuda
+def test_simformer_graphed_steps_match_eager(cuda):
+    """One captured graph per reverse-SDE step and per PF-ODE step: the
+    same bits as the eager kernels from the same generator; the score on
+    the card within 1e-4 of the CPU's from the same weights."""
+    from synference_tpu_torch import simformer as ts
+
+    cfg = ts.SimformerConfig(n_tokens=9, d_model=32, n_heads=4, n_layers=2)
+    model = ts.Simformer(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    with torch.no_grad():
+        model.out.w.normal_(0.0, 0.3)
+    rng = np.random.default_rng(0)
+    std = {"mu": rng.standard_normal(9).astype(np.float32),
+           "sd": rng.uniform(0.5, 2, 9).astype(np.float32),
+           "n_theta": 3, "n_x": 6}
+    post = ts.SimformerPosterior(model, None, std, n_steps=40)
+    xs = torch.as_tensor(rng.standard_normal((5, 6)).astype(np.float32),
+                         device=cuda)
+    draws = [post.sample_batch(xs, 64, torch.Generator(
+        device=cuda).manual_seed(3), graphed=g) for g in (True, False)]
+    assert draws[0].shape == (5, 64, 3) and torch.isfinite(draws[0]).all()
+    assert torch.equal(draws[0], draws[1])
+    theta = torch.as_tensor(rng.standard_normal((32, 3)).astype(np.float32),
+                            device=cuda)
+    lp = [post.log_prob(theta, xs[:1].expand(32, -1), n_steps=20,
+                        graphed=g) for g in (True, False)]
+    assert torch.equal(lp[0], lp[1]) and torch.isfinite(lp[0]).all()
+    cpu = ts.SimformerPosterior.from_state_dict(post.state_dict(),
+                                                device="cpu")
+    v = torch.randn(256, 9, generator=torch.Generator().manual_seed(1))
+    t = torch.rand(256, generator=torch.Generator().manual_seed(2))
+    cond = (torch.rand(256, 9, generator=torch.Generator().manual_seed(4))
+            < 0.5).float()
+    with torch.no_grad():
+        card = model.score(v.to(cuda), t.to(cuda), cond.to(cuda)).cpu()
+        ref = cpu.model.score(v, t, cond)
+    assert float((card - ref).abs().max() / ref.abs().max()) < 1e-4
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL process group on the card, taken down after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from synference_tpu_torch import parallel as par
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (NCCL)")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    assert par.initialize_multihost(f"localhost:{port}", 1, 0,
+                                    device="cuda") == (0, 1)
+    yield par.make_mesh(device="cuda")
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_photometry_launches_k2_on_one_nccl_rank(cuda, nccl_mesh):
+    from synference_tpu_torch import parallel as par
+
+    sim = _sim(cuda, 3)
+    theta = torch.as_tensor(_unsorted_theta(2048, seed=21), device=cuda)
+    fn = par.make_sharded_photometry_fn(sim, nccl_mesh)
+    counts = (k1.fused_window_photometry, k1.fused_sed_photometry,
+              pk.shift_photometry_num)
+    before = [c.launches for c in counts]
+    out = fn(theta)["photometry_njy"]
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == [0, 1, 0]
+    assert torch.equal(out, sim.photometry(theta))
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_one_nccl_rank(cuda, nccl_mesh):
+    """The step with its NCCL all_reduce over "data" is the trainer's
+    step on the same batch, bit for bit."""
+    from synference_tpu_torch import parallel as par
+    from synference_tpu_torch.flows.base import tree_leaves
+    from synference_tpu_torch.train import (TrainConfig, _EnsembleState,
+                                            _npe_loss)
+
+    rng = np.random.default_rng(0)
+    tb = torch.as_tensor(rng.standard_normal((512, 3)).astype(np.float32),
+                         device=cuda)
+    xb = torch.as_tensor(rng.standard_normal((512, 5)).astype(np.float32),
+                         device=cuda)
+    flow = tt.build_flow("nsf", 3, 5, hidden_features=16, num_transforms=2,
+                         device=cuda)
+    params = par.init_sharded_ensemble(
+        flow, torch.Generator(device=cuda).manual_seed(0), tb, xb, 2,
+        nccl_mesh)
+    cfg = TrainConfig(learning_rate=1e-3)
+    state = _EnsembleState(flow.init(torch.Generator(
+        device=cuda).manual_seed(0), tb, xb, n_members=2),
+        torch.full((2,), 1e-3, device=cuda), cfg)
+    step, place = par.make_sharded_train_step(flow, nccl_mesh, cfg)
+    opt = par.init_opt_state(params)
+    for _ in range(2):
+        params, opt, losses = step(params, opt, place(tb), place(xb))
+        ref = state.train_step(_npe_loss(flow), tb.expand(2, -1, -1),
+                               xb.expand(2, -1, -1))
+        assert torch.equal(losses, ref)
+    flat = torch.cat([a.reshape(2, -1) for a in tree_leaves(params)], 1)
+    assert torch.equal(flat, state.flat)

@@ -5,8 +5,9 @@ which imports the modules one after another and records what each added.
 The scripts that drive the port (`chip_smoke.py`, `profile_torch.py`,
 `examples/north_star_torch.py`, `examples/quickstart_torch.py`,
 `examples/spectra_quickstart_torch.py`, `scripts/probe_torch_*.py`) need a card, so their import statements are
-read from their source instead (`examples/agn_quickstart_torch.py` and
-`examples/gradient_fitting_torch.py` too). The optional packages (h5py,
+read from their source instead (`examples/agn_quickstart_torch.py`,
+`examples/gradient_fitting_torch.py` and `examples/paper63_e2e_torch.py`
+too). The probe covers the simformer, HPO and `parallel/` modules. The optional packages (h5py,
 scikit-learn, pandas, scipy, matplotlib, yaml) are imported only where
 they are used."""
 
@@ -53,6 +54,9 @@ def test_every_module_is_probed():
     """The probe covers every module of the package, `spectra.py` too."""
     assert "synference_tpu_torch.spectra" in MODULES
     assert "synference_tpu_torch.noise_models" in MODULES
+    assert {"synference_tpu_torch.simformer", "synference_tpu_torch.hpo",
+            "synference_tpu_torch.parallel.generate",
+            "synference_tpu_torch.parallel.multihost"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -95,7 +99,8 @@ SCRIPTS = ["chip_smoke.py", "profile_torch.py",
            "examples/quickstart_torch.py",
            "examples/spectra_quickstart_torch.py",
            "examples/gradient_fitting_torch.py",
-           "examples/agn_quickstart_torch.py"] + sorted(
+           "examples/agn_quickstart_torch.py",
+           "examples/paper63_e2e_torch.py"] + sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
         "probe_torch_*.py"))
 
@@ -114,16 +119,14 @@ def test_scripts_import_no_jax(script):
     assert banned == [], banned
 
 
-# the JAX package's public names the port does not export yet: the
-# simformer (ROADMAP M14 item 4) and HPO (item 5)
-NOT_YET_EXPORTED = {"Simformer", "SimformerConfig", "SimformerPosterior",
-                    "VPSDE", "train_simformer", "Study", "SearchSpace",
-                    "MedianPruner", "optimize_sbi", "sweep_learning_rates"}
+# the JAX package's public names the port does not export: none since the
+# simformer and HPO were ported
+NOT_YET_EXPORTED = set()
 
 
 def test_exports_every_ported_public_name():
-    """Every name of the JAX package's `__all__` is in the port's, but for
-    the simformer and HPO names; every exported name resolves."""
+    """Every name of the JAX package's `__all__` is in the port's; every
+    exported name resolves."""
     import synference_tpu as jst
     import synference_tpu_torch as tt
 

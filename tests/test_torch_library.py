@@ -143,13 +143,16 @@ def test_empty_library(port_gen):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(pmapped_fn=lambda th: th), NotImplementedError, "ROADMAP M14"),
+    (dict(pmapped_fn=lambda th: th, device_sampling=True), ValueError,
+     "pmapped_fn"),
     (dict(device_sampling=True, want_spectra=True), ValueError,
      "host sampler"),
 ])
 def test_unported_generation_paths_raise(port_gen, kw, err, match):
-    """Mesh-sharded batches are not ported; a device sampling the request
-    cannot use raises (the JAX package warns and takes the host sampler)."""
+    """A device sampling the request cannot use raises (the JAX package
+    warns and takes the host sampler): spectra, or a `pmapped_fn` (the
+    sharded batch functions of `parallel/`, which take the host
+    sampler)."""
     args = dict(n=1500, batch_size=256, seed=0)
     args.update(kw)
     with pytest.raises(err, match=match):

@@ -205,7 +205,8 @@ def test_run_from_config_reference_yaml(tmp_path):
 def test_json_config_library_and_cli(tmp_path, monkeypatch):
     """A JSON config needs no yaml: it names an HDF5 library and features,
     and the CLI trains on `--device cpu`; `--device cuda` raises where
-    there is no card; an optuna block raises naming its ROADMAP item."""
+    there is no card; an optuna block runs the HPO study (two trials) and
+    keeps it on the fitter."""
     lib = tt.LibraryGenerator(
         tt.AGNGridSimulator(tt.make_synthetic_agn_grid(n_u=3, n_nh=2,
                                                        n_wav=512),
@@ -237,9 +238,19 @@ def test_json_config_library_and_cli(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tconfig.main([str(cfg_path)])
-    cfg["train_args"] = {"skip_optimization": False, "optuna": {}}
-    with pytest.raises(NotImplementedError, match="ROADMAP M14 item 5"):
-        tt.run_from_config(cfg, device="cpu")
+    cfg["train_args"] = {
+        "skip_optimization": False,
+        "fixed_params": {"model_choice": "nsf"},
+        "optuna": {"n_trials": 2, "build_final_model": False,
+                   "search_space": {
+                       "hidden_features": ["categorical", [8]],
+                       "num_transforms": ["categorical", [2]],
+                       "learning_rate": ["float", 1e-3, 1e-2, "log"]}}}
+    cfg["verbose"] = False
+    fitter = tt.run_from_config(cfg, device="cpu")
+    assert len(fitter.hpo_study.trials) == 2
+    assert all(t["state"] in ("COMPLETE", "PRUNED")
+               for t in fitter.hpo_study.trials)
 
 
 def test_fitter_figures_validation_and_dataframe(tmp_path):

@@ -294,9 +294,11 @@ def test_checkpoint_resume_continues_to_the_same_result(tmp_path):
 
 
 def test_unported_options_name_their_roadmap_item(tmp_path):
-    """The "orbax" checkpoint backend names its ROADMAP item; `live_plot`,
-    refused before `runtime.py` was ported, now draws one line per epoch
-    to a non-terminal stdout."""
+    """The "orbax" checkpoint backend, refused before `parallel/` was
+    ported, now keeps a directory with this rank's `torch.save` file while
+    training runs and removes it on success; `live_plot`, refused before
+    `runtime.py` was ported, draws one line per epoch to a non-terminal
+    stdout."""
     import contextlib
     import io
 
@@ -306,10 +308,18 @@ def test_unported_options_name_their_roadmap_item(tmp_path):
         train_ensemble(_flow(), theta, x, _gen(),
                        TrainConfig(max_epochs=1, live_plot=True))
     assert buf.getvalue().startswith("epoch    0  train ")
-    with pytest.raises(NotImplementedError, match="ROADMAP M14 item 6"):
-        train_ensemble(_flow(), theta, x, _gen(), TrainConfig(
-            max_epochs=1, checkpoint_every=1, checkpoint_backend="orbax",
-            checkpoint_path=str(tmp_path / "ck")))
+    ck = tmp_path / "ck"
+    seen = []
+
+    def look(epoch, tr, va):
+        seen.append(sorted(p.name for p in ck.iterdir())
+                    if ck.is_dir() else None)
+
+    train_ensemble(_flow(), theta, x, _gen(), TrainConfig(
+        max_epochs=2, checkpoint_every=1, checkpoint_backend="orbax",
+        checkpoint_path=str(ck)), epoch_callback=look)
+    assert seen == [None, ["rank00000-of-00001.pt"]]
+    assert not ck.exists()
 
 
 def test_final_validation_loss_in_the_jax_trainers_band():
