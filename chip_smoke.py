@@ -91,10 +91,16 @@ unsorted θ):
    staged body; the particle SFZHs bitwise equal across two batchings; K2
    against its plain version on 65536 unsorted headline rows of each;
 16. paper-63 width (phase 1's grid with all 63 survey bands): "auto" picks
-   interp (a knot matrix of a few hundred MiB); `conv` answers one
-   65536-row batch through `photometry()` and through the window engine,
-   within the JAX package's conv/interp bound of interp (K2); each route's
-   time;
+   interp (a knot matrix of a few hundred MiB); `photometry()` (K2) and the
+   fused window engine (K1) each answer one 65536-row batch, counted with
+   the counts set to 0 just before; `conv` answers it through
+   `photometry()` and through the window engine, within the JAX package's
+   conv/interp bound of interp (K2); each route's time; K1 (grouped) and
+   K2 at F8 64, which run in thread-block clusters of `cluster_size(64)`
+   band groups, against their plain versions (phase 7's bound: cuBLAS sums
+   the plain first product in another order at these shapes), two runs
+   bitwise equal and bitwise equal to the kernel on each 8-band slice of
+   the tables, with times, bounds and shares;
 17. spectral path at the spectroscopic twin's width: `generate(30000,
    want_spectra=True)` through the R = 100 `SpectralFeaturePipeline`
    (the pipeline on 256 spectra against the CPU, max relative < 1e-5),
@@ -201,13 +207,16 @@ unsorted θ):
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
-on the path (with its launches on the main path and on phases 19-29 by
-phase, each kernel's share of its bound, and `first_product_ms`:
+on the path (with its launches on the main path and on phases 16 and
+19-29 by phase, each kernel's share of its bound, `first_product_ms`:
 the fp32 first product alone as one cuBLAS `torch.matmul` with TF32 off, a
-yardstick for the kernels' core that the port never calls); the last line
+yardstick for the kernels' core that the port never calls, and for K1 and
+K2 `paper63`: their time, bound and share at F8 64 and the cluster size
+they ran with); the last line
 is `{"ok": true, "device": {...}}`.
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -1588,11 +1597,14 @@ def families_and_particles(tt, k1, sim, dev):
     return launches
 
 
-def paper63(tt, k1, sim, dev):
+def paper63(tt, k1, pk, sim, dev):
     """Phase 16: the paper-63 width (phase 1's grid, all 63 survey bands):
-    "auto" picks interp; conv answers one 65536-row batch through
-    `photometry()` and the window engine, within the JAX package's
-    conv/interp bound; each route's time."""
+    "auto" picks interp; interp's `photometry()` (K2) and fused window
+    engine (K1) answer one 65536-row batch each, counted from 0; conv
+    answers it through `photometry()` and the window engine, within the JAX
+    package's conv/interp bound; each route's time; K1 and K2 alone
+    (`paper63_bounds`). Returns {"counts": (K1, K2, K3) launches of the
+    driven path, "K1": stats, "K2": stats}."""
     filters = tt.load_instrument_filters()
     t0 = time.perf_counter()
     auto = tt.BatchSEDSimulator(sim.grid, filters, PNAMES, sfh="lognormal",
@@ -1618,10 +1630,15 @@ def paper63(tt, k1, sim, dev):
     theta = gen.sample_parameters_device(HEADLINE_BATCH, g)
     z = theta[:, PNAMES.index("redshift")]
     sorted_theta = theta[torch.sort(z, stable=True).indices]
-    k1.fused_sed_photometry.launches = 0
+    _zero_counts(k1, pk)
     interp = auto.photometry(theta)
+    auto.photometry_zsorted_device(sorted_theta, sub_chunk=1024, fused=True)
     torch.cuda.synchronize()
-    check(k1.fused_sed_photometry.launches == 1, "interp took K2 once")
+    counts = _counts(k1, pk)
+    log(f"[paper63] interp photometry() and fused window engine: launches "
+        f"(K1, K2, K3) {counts}")
+    check(counts == (1, 1, 0), f"the paper-63 path launched {counts}, "
+          "expected one K1 and one K2")
     dense = conv.photometry(theta)
     window = conv.photometry_zsorted_device(sorted_theta, sub_chunk=1024)
     torch.cuda.synchronize()
@@ -1655,7 +1672,8 @@ def paper63(tt, k1, sim, dev):
     for name, ms in times.items():
         log(f"[paper63] {name}: {ms:.3f} ms per {HEADLINE_BATCH} rows = "
             f"{HEADLINE_BATCH / ms * 1e3:,.0f} SEDs/s (CUDA events)")
-    paper63_bounds(k1, auto, theta, sorted_theta)
+    return dict(paper63_bounds(k1, auto, theta, sorted_theta),
+                counts=counts)
 
 
 def spectral_path(tt, dev):
@@ -2210,9 +2228,60 @@ def online_engines(tt, k1, dev):
     return total
 
 
-def paper63_bounds(k1, auto, theta, sorted_theta):
-    """K1 and K2 alone at the paper-63 width (F8 64), beside their bounds
-    computed with `k1_bound` / `bound` at these shapes."""
+def band_slices(k1, launch, tables: dict, n_knots: int, f8: int):
+    """The kernel `launch(tables, f8)` on each 8-band slice of `tables`
+    (`band_group_tables`), the slices' outputs side by side."""
+    return torch.cat([launch(k1.band_group_tables(tables, g, n_knots), 8)
+                      for g in range(f8 // 8)], dim=1)
+
+
+def cluster_check(k1, name: str, launch, plain, tables: dict, n_knots: int,
+                  f8: int, bnd: dict, tol_p99: float, tol_max: float,
+                  reps: int = 5) -> dict:
+    """A kernel at F8 > 8 (clusters of `cluster_size(F8)` band groups)
+    against its plain version (relative differences: p99 < tol_p99, max <
+    tol_max), two runs bitwise equal, bitwise equal to its
+    8-band slices; its time, the plain version's and the share of the bound
+    `bnd`."""
+    out = launch(tables, f8)
+    torch.cuda.synchronize()
+    ref = plain()
+    med, p99, mx, abs_err = rel_stats(out, ref)
+    log(f"[paper63] {name} vs plain: rel median={med:.3e} p99={p99:.3e} "
+        f"max={mx:.3e} (tol p99<{tol_p99} max<{tol_max}); max abs err "
+        f"{abs_err:.4e} nJy")
+    check(p99 < tol_p99 and mx < tol_max,
+          f"{name} disagrees with its plain version")
+    check(torch.equal(out, launch(tables, f8)), f"two {name} runs differ")
+    check(torch.equal(out, band_slices(k1, launch, tables, n_knots, f8)),
+          f"{name} differs from its 8-band slices")
+    stats = dict(bnd, max_abs_err=abs_err, cluster=k1.cluster_size(f8),
+                 ms=time_ms(lambda: launch(tables, f8), reps=reps),
+                 plain_ms=time_ms(plain, reps=2, warmup=1))
+    stats["share_of_bound"] = stats["bound_ms"] / stats["ms"]
+    log(f"[paper63] {name} alone: {stats['ms']:.4f} ms against a bound of "
+        f"{stats['bound_ms']:.4f} ms ({stats['bound_by']}), share "
+        f"{stats['share_of_bound']:.3f}; plain {stats['plain_ms']:.4f} ms; "
+        f"clusters of {stats['cluster']}; two runs and the {f8 // 8} "
+        f"8-band slices bitwise equal (CUDA events)")
+    return stats
+
+
+def paper63_bounds(k1, auto, theta, sorted_theta) -> dict:
+    """K1 (grouped) and K2 alone at the paper-63 width (F8 64): against
+    their plain versions, bitwise across two runs and against their 8-band
+    slices, timed beside their bounds (`k1_bound` summed over the
+    sub-chunks, `bound` for K2). Returns {"K1": stats, "K2": stats}."""
+    from synference_tpu_torch.ops import _cuda
+
+    f8 = auto._f8
+    n = k1.cluster_size(f8)
+    resident = ctypes.c_int(0)
+    err = _cuda.load_library().k1_max_active_clusters(n,
+                                                      ctypes.byref(resident))
+    check(err == 0, f"cudaOccupancyMaxActiveClusters failed ({err})")
+    log(f"[paper63] F8 {f8}: clusters of {n} band groups, "
+        f"{resident.value} resident at once (cudaOccupancyMaxActiveClusters)")
     a = k2_args(auto, theta)
     b, c = a["sfzh"].shape
     n_l = a["sed_w"].shape[1]
@@ -2220,21 +2289,47 @@ def paper63_bounds(k1, auto, theta, sorted_theta):
                 flops_bf16=2.0 * b * n_l * 4 * a["f8"],
                 nbytes=4 * (b * c + c * n_l + n_l + a["kc"] * a["f8"] + 3 * b
                             + b * a["f8"]) + 2 * n_l * a["kc"] * a["f8"])
-    k2_ms = time_ms(lambda: k2_call(k1, a), reps=5)
+    tables = dict(sed=a["sed_w"], curve=a["curve_w"], knot=a["knot_w"],
+                  den=a["den_w"])
+
+    def k2(t, f):
+        return k1.fused_sed_photometry(
+            a["sfzh"], a["s_rel"], a["tau_v"], a["scale"], t, a["kc"],
+            a["delta"], f, order=a["order"], fesc=a["fesc"])
+
+    # At these shapes, as at the north-star width (phase 7), cuBLAS sums
+    # the plain versions' first product over cells in another order than
+    # the kernels' FMA chain (measured medians 1.9e-7, where the headline
+    # width gives 0), so bf16 roundings of the knot product's input flip,
+    # and one flip in a narrow band moves a flux by up to ~1e-4 (measured
+    # max 2.2e-5 for K2, 1.7e-4 for K1 on an H100): the bound is phase 7's.
+    # Both kernels' bits also equal their 8-band slices', the lone-block
+    # kernels that phases 3-7 hold.
+    tol = dict(tol_p99=TOL_STAGED_P99, tol_max=TOL_STAGED_MAX)
+    log(f"[paper63] K2 at B={b} C={c} L_sup={n_l} n_knots={a['kc']} F8={f8}")
+    k2s = cluster_check(k1, "K2", k2,
+                        lambda: k1.fused_window_photometry_reference(**a),
+                        tables, a["kc"], f8, k2b, **tol)
     chunk, sub, kc, w_cols, k0, l0 = auto._plan_windows(sorted_theta, 1024)
     subs = [s for *_, s in auto._window_calls(chunk, sub, w_cols, kc, k0, l0)]
     bounds = [k1_bound(s) for s in subs]
-    k1b = sum(x["bound_ms"] for x in bounds)
-    by = ("operations" if all(x["bound_by"] == "operations" for x in bounds)
-          else "bytes")
+    k1b = {"bound_ms": sum(x["bound_ms"] for x in bounds),
+           "bound_by": ("operations" if all(x["bound_by"] == "operations"
+                                             for x in bounds) else "bytes")}
     g = auto._window_grouped_args(chunk, sub, w_cols, kc, k0, l0)
-    k1_ms = time_ms(lambda: k1.fused_window_photometry_grouped(**g), reps=5)
-    log(f"[paper63] K2 alone (B={b} C={c} L_sup={n_l} F8={a['f8']}): "
-        f"{k2_ms:.4f} ms against a bound of {k2b['bound_ms']:.4f} ms "
-        f"({k2b['bound_by']}), share {k2b['bound_ms'] / k2_ms:.3f}; K1 alone "
-        f"({len(k0)} sub-chunks, W={w_cols}, kc={kc}): {k1_ms:.4f} ms "
-        f"against the sum of its sub-chunks' bounds {k1b:.4f} ms ({by}), "
-        f"share {k1b / k1_ms:.3f} (CUDA events)")
+
+    def k1g(t, f):
+        return k1.fused_window_photometry_grouped(**dict(g, tables=t, f8=f))
+
+    log(f"[paper63] K1 at {len(k0)} sub-chunks of {sub} rows, W={w_cols}, "
+        f"kc={kc}, F8={f8} (bound: the sum of the sub-chunks')")
+    k1s = cluster_check(
+        k1, "K1", k1g,
+        lambda: k1.fused_window_photometry_grouped_reference(**g),
+        g["tables"], auto._n_knots, f8, k1b, **tol)
+    for st in (k1s, k2s):
+        st["resident_clusters"] = resident.value
+    return {"K1": k1s, "K2": k2s}
 
 
 # -- phases 22-23: the gradient fitters and the rest of diagnostics ----------
@@ -3346,6 +3441,7 @@ def main() -> None:
     # phase 20 retrains this fitter as NLE and NRE; phases 22-23 use the NPE
     npe = {k: getattr(fitter, k)
            for k in ("engine", "flow", "train_result", "posterior")}
+    p63 = {}  # phase 16: its driven path's launches, K1 and K2 at F8 64
     for name, phase in (
             ("11 library file", lambda: library_file(tt, dev)),
             ("12 auto and resume",
@@ -3354,7 +3450,8 @@ def main() -> None:
             ("14 catalogue", lambda: catalogue(tt, fitter, sim, k1, dev)),
             ("15 families and particles",
              lambda: families_and_particles(tt, k1, sim, dev)),
-            ("16 paper-63 conv and auto", lambda: paper63(tt, k1, sim, dev)),
+            ("16 paper-63 conv and auto",
+             lambda: p63.update(paper63(tt, k1, pk, sim, dev))),
             ("17 spectral path", lambda: spectral_path(tt, dev)),
             ("18 noise models and lines",
              lambda: noise_and_lines(tt, lib, dev))):
@@ -3426,10 +3523,12 @@ def main() -> None:
         log(f"[phase] {name} {label}: {time.perf_counter() - t0:.1f} s, "
             f"launches (K1, K2, K3) {slice_counts[name]}")
     log(f"[phase] 26-29 together: {time.perf_counter() - t_new:.1f} s")
-    by_phase = {"K1": {"4": k1_stats["launches"], "19-21": k1_19_21},
-                "K2": {"6": k2_stats["launches"], "19-20": k2_19_20,
-                       "21": k2_online},
-                "K3": {"8": k3_stats["launches"], "19-21": k3_19_21}}
+    by_phase = {"K1": {"4": k1_stats["launches"], "16": p63["counts"][0],
+                       "19-21": k1_19_21},
+                "K2": {"6": k2_stats["launches"], "16": p63["counts"][1],
+                       "19-20": k2_19_20, "21": k2_online},
+                "K3": {"8": k3_stats["launches"], "16": p63["counts"][2],
+                       "19-21": k3_19_21}}
     for i, key in enumerate(("K1", "K2", "K3")):
         by_phase[key].update({ph: c[i] for ph, c in slice_counts.items()})
     for key, st in (("K1", k1_stats), ("K2", k2_stats), ("K3", k3_stats)):
@@ -3461,6 +3560,12 @@ def main() -> None:
             "library_ms": None,
             "share_of_bound": share,
             "first_product_ms": st["first_product_ms"]})
+        if key in p63:  # at the paper-63 width: F8 64, band-group clusters
+            rows[-1]["paper63"] = {
+                k: p63[key][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "share_of_bound", "max_abs_err", "cluster",
+                    "resident_clusters")}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,10 @@
 // the knot product on the tensor cores, instead of gathering each galaxy's
 // 4·F8 knot columns from L2 for every λ row. The arithmetic, its bound and
 // its design are the core shared with K1 (sed_tile.cuh), over one window
-// that is the whole table.
+// that is the whole table. At more than 8 bands the band-group blocks of a
+// galaxy tile run as one thread-block cluster (`k2_fused_sed_cluster_kernel`)
+// that computes the tile's first product once per λ column, not once per
+// band group.
 //
 // Not carried over from the TPU kernel: 8-row block padding, 128-lane
 // padding and power-of-two knot slots, lane-mask row selection, the log-step
@@ -39,6 +42,11 @@ k2_fused_sed_kernel(sed_tile::Args p) {
   sed_tile::run_block(p);
 }
 
+__global__ void __launch_bounds__(sed_tile::NT, sed_tile::MIN_BLOCKS)
+k2_fused_sed_cluster_kernel(sed_tile::Args p) {
+  sed_tile::run_cluster(p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -46,14 +54,14 @@ extern "C" {
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
 // `order` is a permutation of the B rows (int32); `sfzh_t` the tile-major
 // copy of sfzh in that order (`_tile_major` in ops/fused_sed.py), row
-// stride ld_a; out is in row order.
+// stride ld_a; out is in row order. `cluster` as in k1_fused_window.
 int k2_fused_sed(const float* sfzh_t, int64_t ld_a, const int* order,
                  const float* s, const float* tau_v, const float* scale,
                  const float* sed, int64_t ld_sed, const float* curve,
                  const __nv_bfloat16* knot, int64_t ld_knot, const float* den,
                  int64_t ld_den, float* out, int B, int C, int L, int n_knots,
                  int f8, int delta, int interp_order, float fesc,
-                 void* stream) {
+                 int cluster, void* stream) {
   sed_tile::Args p{};
   p.sfzh_t = sfzh_t;
   p.ld_a = ld_a;
@@ -79,8 +87,8 @@ int k2_fused_sed(const float* sfzh_t, int64_t ld_a, const int* order,
   p.order_interp = interp_order;
   p.group_rows = B;
   p.fesc = fesc;
-  return sed_tile::launch(k2_fused_sed_kernel, p, 1,
-                          static_cast<cudaStream_t>(stream));
+  return sed_tile::launch(k2_fused_sed_kernel, k2_fused_sed_cluster_kernel, p,
+                          1, cluster, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -22,7 +22,10 @@
 // knots (knot_interp.cuh). The arithmetic, its bound and its design are the
 // core shared with K2 (sed_tile.cuh); a galaxy tile never straddles two
 // sub-chunks, so a sub-chunk that is not a multiple of 128 rows masks its
-// last tile.
+// last tile. At F8 = 8 each block is alone (`k1_fused_window_kernel`); at
+// more bands the band-group blocks of a galaxy tile run as one thread-block
+// cluster (`k1_fused_window_cluster_kernel`) that computes the tile's first
+// product once and shares its fw tiles through distributed shared memory.
 //
 // Not carried over from the TPU kernel: 8-row block padding, 128-lane padding
 // and power-of-two knot slots, lane-mask row selection and the log-step roll
@@ -37,6 +40,11 @@ k1_fused_window_kernel(sed_tile::Args p) {
   sed_tile::run_block(p);
 }
 
+__global__ void __launch_bounds__(sed_tile::NT, sed_tile::MIN_BLOCKS)
+k1_fused_window_cluster_kernel(sed_tile::Args p) {
+  sed_tile::run_cluster(p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -49,14 +57,17 @@ const char* k1_error_string(int code) {
 // Rows [g·sub, (g+1)·sub) of the batch are sub-chunk g, with window start
 // win[2g] (knot) and win[2g+1] (λ column); win = null puts one window at
 // (0, 0). `s` is the absolute column shift; `sfzh_t` the tile-major copy
-// of sfzh (`_tile_major` in ops/fused_sed.py), row stride ld_a.
+// of sfzh (`_tile_major` in ops/fused_sed.py), row stride ld_a. `cluster`
+// blocks share one galaxy tile's first product (1 at f8 = 8; at most 8;
+// `cluster_size` in ops/fused_sed.py).
 int k1_fused_window(const float* sfzh_t, int64_t ld_a, const float* s,
                     const float* tau_v, const float* scale, const float* sed,
                     int64_t ld_sed, const float* curve,
                     const __nv_bfloat16* knot, int64_t ld_knot,
                     const float* den, int64_t ld_den, const int* win,
                     float* out, int B, int C, int W, int kc, int f8, int delta,
-                    int order, float fesc, int sub, void* stream) {
+                    int order, float fesc, int sub, int cluster,
+                    void* stream) {
   sed_tile::Args p{};
   p.sfzh_t = sfzh_t;
   p.ld_a = ld_a;
@@ -82,8 +93,17 @@ int k1_fused_window(const float* sfzh_t, int64_t ld_a, const float* s,
   p.order_interp = order;
   p.group_rows = sub;
   p.fesc = fesc;
-  return sed_tile::launch(k1_fused_window_kernel, p, (B + sub - 1) / sub,
+  return sed_tile::launch(k1_fused_window_kernel,
+                          k1_fused_window_cluster_kernel, p,
+                          (B + sub - 1) / sub, cluster,
                           static_cast<cudaStream_t>(stream));
+}
+
+// Into *out: how many clusters of `cluster` blocks of K1's (and K2's: the
+// same core and resources) cluster kernel the card keeps resident at once.
+int k1_max_active_clusters(int cluster, int* out) {
+  return sed_tile::max_active_clusters(k1_fused_window_cluster_kernel,
+                                       cluster, out);
 }
 
 }  // extern "C"

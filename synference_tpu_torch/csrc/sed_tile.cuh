@@ -1,9 +1,11 @@
 // The SED -> photometry core shared by K1 (fused_window.cu) and K2
 // (fused_sed.cu), for Hopper (sm_90a).
 //
-// One block owns TG = 128 galaxies and one group of 8 bands. Over its λ
-// window of W columns (K1: a z-sorted sub-chunk's window, K2: the whole λ
-// support) and its knot table of nk rows it computes
+// One block owns TG = 128 galaxies and one group of 8 bands (blockIdx.y).
+// At more than 8 bands the blocks of one galaxy tile form a thread-block
+// cluster that computes the first product once (see "Band groups" below).
+// Over its λ window of W columns (K1: a z-sorted sub-chunk's window, K2:
+// the whole λ support) and its knot table of nk rows it computes
 //
 //   lnu[b,l]  = Σ_c sfzh[b,c] · sed[c,l]               (fp32 FMA, c ascending)
 //   fw[b,l]   = bf16( lnu · (fesc + (1−fesc)·exp(−τ_V[b]·k[l])) )
@@ -50,9 +52,32 @@
 //   more passes and stay exact.
 // - No split over cells or λ, no atomics, no partial buffers: two runs give
 //   the same bits.
+//
+// Band groups (F8 > 8). lnu and fw do not depend on the band, so the blocks
+// of one galaxy tile that differ only in their band group (blockIdx.y) run
+// as one cluster of n ≤ 8 blocks (`run_cluster`, launched with
+// cudaLaunchKernelEx and a (1, n, 1) cluster dimension; n is chosen by the
+// caller, `cluster_size` in ops/fused_sed.py). The cluster walks the window
+// in super-chunks of n λ chunks: block r computes the first product and
+// screen of chunk r of the super-chunk into its own fw tile, exactly as a
+// lone block does; after a cluster barrier every block contracts all n fw
+// tiles, in ascending λ, against its own band group's knot slab, reading
+// its peers' tiles through distributed shared memory (16-byte loads of a
+// fragment-major tile) and streaming the slab in 64-row halves (one in
+// flight while the other is contracted); a second cluster barrier frees
+// the fw tiles for the next super-chunk. Each lnu element is computed once
+// per cluster, and the knot product's accumulator sees the same mma.sync
+// steps in the same order as in a lone block, so the output equals, bit
+// for bit, the kernel run on each 8-band slice of the tables. F8 = 8 takes
+// `run_block` unclustered. A padding slot of the last cluster (more slots
+// than band groups) computes its share of the first product and no bands.
+// Shared memory is the lone block's, so 2 blocks per SM still fit. The
+// knot phase is not overlapped with the first product: at 64 bands it is
+// about a quarter of the kernel's time.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -313,7 +338,299 @@ __device__ __forceinline__ void knot_mma(float* acc_s,
   }
 }
 
-// The whole block: TG galaxies of one window group, FB bands.
+// The cluster path (run_cluster) from here on.
+//
+// Its fw tile is stored fragment-major: the A fragment of mma.sync k-step
+// ks for lane `lane` of warp w (rows 16w + gid and + 8, bf16 pairs at
+// columns 16ks + 2tig and + 8) is one 16-byte word at
+// ((w·8 + ks)·32 + lane)·16 bytes. A warp reads a k-step as 512 contiguous
+// bytes, and a peer's tile comes over distributed shared memory in 16-byte
+// loads: 4-byte loads of the padded row-major tile made the cluster's knot
+// product cost a third of the kernel at 64 bands.
+constexpr size_t FWF_BYTES = sizeof(__nv_bfloat16) * TG * TL;
+// The knot product runs over halves of a λ chunk: 64 rows, KH k-steps.
+constexpr int HALF = TL / 2;
+constexpr int KH = HALF / 16;
+static_assert(FWF_BYTES <= RING_BYTES, "the fw tile lies over the ring");
+static_assert(HALF * NKP % NT == 0, "a slab half is whole copies per thread");
+
+// The warp's (16 galaxies × 64 knot columns) accumulator tile: thread
+// (gid, tig) holds rows r0 = 16·warp + gid and r0 + 8, columns 8·nt + 2·tig
+// and + 1.
+__device__ __forceinline__ void load_acc(float (&d)[NJ / 8][4],
+                                         const float* acc_s) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = 16 * (threadIdx.x / 32) + (lane >> 2), tig = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NJ / 8; ++nt) {
+    const float2 lo = *reinterpret_cast<const float2*>(
+        acc_s + r0 * LDACC + nt * 8 + 2 * tig);
+    const float2 hi = *reinterpret_cast<const float2*>(
+        acc_s + (r0 + 8) * LDACC + nt * 8 + 2 * tig);
+    d[nt][0] = lo.x;
+    d[nt][1] = lo.y;
+    d[nt][2] = hi.x;
+    d[nt][3] = hi.y;
+  }
+}
+
+__device__ __forceinline__ void store_acc(const float (&d)[NJ / 8][4],
+                                          float* acc_s) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = 16 * (threadIdx.x / 32) + (lane >> 2), tig = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NJ / 8; ++nt) {
+    *reinterpret_cast<float2*>(acc_s + r0 * LDACC + nt * 8 + 2 * tig) =
+        make_float2(d[nt][0], d[nt][1]);
+    *reinterpret_cast<float2*>(acc_s + (r0 + 8) * LDACC + nt * 8 + 2 * tig) =
+        make_float2(d[nt][2], d[nt][3]);
+  }
+}
+
+// One k-step of 16 λ rows: d += a (the warp's fw fragment) · slab rows
+// 16·ks .. 16·ks + 15, all 64 knot columns.
+__device__ __forceinline__ void mma_kstep(float (&d)[NJ / 8][4],
+                                          const uint32_t (&a)[4],
+                                          const __nv_bfloat16* slab_s,
+                                          int ks) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int np = 0; np < NJ / 16; ++np) {
+    // B fragments of n-tiles 2np and 2np+1 from the [λ][column] slab
+    const unsigned addr = smem_addr(
+        slab_s + (ks * 16 + (lane & 15)) * LDJ + (2 * np + (lane >> 4)) * 8);
+    uint32_t b[4];
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+        : "r"(addr));
+    mma_bf16(d[2 * np], a, b[0], b[1]);
+    mma_bf16(d[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// Index, in 32-bit words of the fragment-major fw tile, of the bf16 pair
+// (galaxy g, columns c and c + 1), c even.
+__device__ __forceinline__ int frag_word(int g, int c) {
+  const int gid = g & 7, hi = (g >> 3) & 1;
+  const int c16 = c & 15;
+  const int lane = 4 * gid + ((c16 & 7) >> 1);
+  return (((g >> 4) * (TL / 16) + (c >> 4)) * 32 + lane) * 4 +
+         2 * (c16 >> 3) + hi;
+}
+
+// The warp's A fragments of half `half` of a fragment-major fw tile, which
+// may lie in a peer block's shared memory: one 16-byte load per k-step.
+__device__ __forceinline__ void half_fragments(uint32_t (&a)[KH][4],
+                                               const uint32_t* fwf,
+                                               int half) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int ks = 0; ks < KH; ++ks) {
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        fwf + ((warp * (TL / 16) + half * KH + ks) * 32 + lane) * 4);
+    a[ks][0] = v.x;
+    a[ks][1] = v.y;
+    a[ks][2] = v.z;
+    a[ks][3] = v.w;
+  }
+}
+
+// d += a half's fragments · its 64-row slab half.
+__device__ __forceinline__ void mma_half(float (&d)[NJ / 8][4],
+                                         const uint32_t (&a)[KH][4],
+                                         const __nv_bfloat16* slab_s) {
+#pragma unroll
+  for (int ks = 0; ks < KH; ++ks) mma_kstep(d, a[ks], slab_s, ks);
+}
+
+// The block's shared memory: the first product's ring, over which the fw
+// tile lies once the product is done; the knot slab; the accumulator; the
+// galaxies' rows, knot intervals, fractions and dust depths; a reduction
+// scratch.
+struct Smem {
+  float* ring;
+  __nv_bfloat16* fw;
+  __nv_bfloat16* slab;
+  float* acc;
+  int* rows;
+  int* k;
+  float* t;
+  float* tau;
+  int* red;  // [2][NWARP]
+};
+
+__device__ __forceinline__ Smem smem_layout() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem s;
+  s.ring = reinterpret_cast<float*>(smem_raw);
+  s.fw = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  s.slab = reinterpret_cast<__nv_bfloat16*>(smem_raw + RING_BYTES);
+  s.acc = reinterpret_cast<float*>(smem_raw + RING_BYTES + SLAB_BYTES);
+  s.rows = reinterpret_cast<int*>(s.acc + TG * LDACC);
+  s.k = s.rows + TG;
+  s.t = reinterpret_cast<float*>(s.k + TG);
+  s.tau = s.t + TG;
+  s.red = reinterpret_cast<int*>(s.tau + TG);
+  return s;
+}
+
+// The block's galaxy tile: its window group and start (k0, l0), and the
+// first knots its galaxies read, band_lo .. band_top (band_top < 0: the
+// tile holds no galaxy).
+struct Tile {
+  int k0, l0, band_lo, band_top;
+};
+
+// Reads the tile's galaxies into shared memory (row, knot interval,
+// fraction, dust depth) and reduces the band of first knots they span.
+__device__ __forceinline__ Tile setup_tile(const Args& p, const Smem& sm) {
+  const int tid = threadIdx.x;
+  const int grp = blockIdx.x / p.tiles_per_group;
+  const int tile = blockIdx.x % p.tiles_per_group;
+  Tile t;
+  t.k0 = p.win ? p.win[2 * grp] : 0;
+  t.l0 = p.win ? p.win[2 * grp + 1] : 0;
+  if (tid < TG) {
+    const int loc = tile * TG + tid;
+    const int idx = grp * p.group_rows + loc;
+    const bool ok = loc < p.group_rows && idx < p.B;
+    const int row = ok ? (p.order ? p.order[idx] : idx) : -1;
+    int lo_min = 0x7fffffff, lo_max = -1, k = 0;
+    float f = 0.f, tau = 0.f;
+    if (ok) {
+      const float s_rel = p.s[row] - (float)(t.k0 * p.delta);
+      const float c = fminf(fmaxf(s_rel, 0.f), p.s_max) / (float)p.delta;
+      k = (int)floorf(c);
+      f = c - (float)k;
+      tau = p.tau_v[row];
+      lo_min = lo_max = max(k - 1, 0);  // first of the galaxy's knots
+    }
+    sm.rows[tid] = row;
+    sm.k[tid] = k;
+    sm.t[tid] = f;
+    sm.tau[tid] = tau;
+    lo_min = __reduce_min_sync(0xffffffffu, lo_min);
+    lo_max = __reduce_max_sync(0xffffffffu, lo_max);
+    if (tid % 32 == 0) {
+      sm.red[tid / 32] = lo_min;
+      sm.red[NWARP + tid / 32] = lo_max;
+    }
+  }
+  __syncthreads();
+  t.band_lo = sm.red[0];
+  t.band_top = sm.red[NWARP];
+#pragma unroll
+  for (int w = 1; w < TG / 32; ++w) {
+    t.band_lo = min(t.band_lo, sm.red[w]);
+    t.band_top = max(t.band_top, sm.red[NWARP + w]);
+  }
+  return t;
+}
+
+// This thread's copies: galaxies 4·(tid%32).., cells tid/32, +8; λ column
+// tid%128, cells tid/128, +2, ...
+__device__ __forceinline__ Loader make_loader(const Args& p) {
+  const int tid = threadIdx.x;
+  Loader ld;
+  ld.a_c = tid / (TG / 4);
+  ld.a_src = p.sfzh_t + (int64_t)ld.a_c * p.ld_a + (int64_t)blockIdx.x * TG +
+             4 * (tid % (TG / 4));
+  ld.a_off = ld.a_c * LDA + 4 * (tid % (TG / 4));
+  ld.b_c = tid / TL;
+  ld.b_off = CK * LDA + ld.b_c * LDB + tid % TL;
+  return ld;
+}
+
+// Points the loader's B copies at window column lw0 + tid%128 (zero fill
+// past the window).
+__device__ __forceinline__ void at_chunk(Loader& ld, const Args& p, int l0,
+                                         int lw0) {
+  const int lb = lw0 + threadIdx.x % TL;
+  ld.b_n = lb < p.W ? 4 : 0;
+  ld.b_src = p.sed + (int64_t)ld.b_c * p.ld_sed + l0 + (ld.b_n ? lb : 0);
+}
+
+// Rows lw0 .. lw0 + ROWS − 1 of the window's knot slab [λ][knot·8 + band]
+// for band group fb0 and knots pk0 .. pk0 + 7, one 16-byte copy per λ row
+// and knot; rows past the window and knots past nk are zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void load_slab(__nv_bfloat16* slab_s,
+                                          const Args& p, const Tile& t,
+                                          int pk0, int fb0, int lw0) {
+#pragma unroll
+  for (int i = 0; i < ROWS * NKP / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int r = e % NKP, l = e / NKP;
+    const bool ok = pk0 + r < p.nk && lw0 + l < p.W;
+    const __nv_bfloat16* src =
+        ok ? p.knot + (int64_t)(t.l0 + lw0 + l) * p.ld_knot +
+                 (int64_t)(t.k0 + pk0 + r) * p.f8 + fb0
+           : p.knot;
+    cp_async16(slab_s + l * LDJ + r * FB, src, ok ? 16 : 0);
+  }
+}
+
+// Dust screen, then bf16 (the knot product's input type), into the
+// fragment-major fw tile.
+__device__ __forceinline__ void screen(const float (&lnu)[8][8],
+                                       const Smem& sm, const Args& p, int l0,
+                                       int lw0, int tx, int ty) {
+  uint32_t* fwf = reinterpret_cast<uint32_t*>(sm.fw);
+  float k_l[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int lw = lw0 + tile_idx(j, tx);
+    k_l[j] = lw < p.W ? p.curve[l0 + lw] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int g = tile_idx(i, ty);
+    const float tau = sm.tau[g];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t bits[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float att = expf(-tau * k_l[4 * h + j]);
+        if (p.fesc != 0.f) att = p.fesc + (1.f - p.fesc) * att;
+        bits[j] = __bfloat16_as_ushort(
+            __float2bfloat16_rn(lnu[i][4 * h + j] * att));
+      }
+      // two bf16 pairs, the lower column in the lower bits
+      const int c = tile_idx(4 * h, tx);
+      fwf[frag_word(g, c)] = bits[0] | (bits[1] << 16);
+      fwf[frag_word(g, c + 2)] = bits[2] | (bits[3] << 16);
+    }
+  }
+}
+
+// The galaxies whose 4 knots pass `pass` holds are finished: their fluxes
+// in the block's 8 bands from the accumulator.
+__device__ __forceinline__ void finish_pass(const Args& p, const Smem& sm,
+                                            const Tile& t, int pass, int pk0,
+                                            int fb0) {
+  for (int e = threadIdx.x; e < TG * FB; e += NT) {
+    const int g = e / FB, fl = e % FB, f = fb0 + fl;
+    const int row = sm.rows[g];
+    const int k = sm.k[g];
+    if (row < 0 || (max(k - 1, 0) - t.band_lo) / PASS_STEP != pass) continue;
+    const float* acc_g = sm.acc + g * LDACC + fl;
+    const auto num_at = [&](int kk) { return acc_g[(kk - pk0) * FB]; };
+    const auto den_at = [&](int kk) {
+      return p.den[(int64_t)(t.k0 + kk) * p.ld_den + f];
+    };
+    const float num = knot_interp(num_at, k, sm.t[g], p.nk, p.order_interp);
+    const float dn = knot_interp(den_at, k, sm.t[g], p.nk, p.order_interp);
+    p.out[(int64_t)row * p.f8 + f] = num / fmaxf(dn, 1.0e-30f) * p.scale[row];
+  }
+}
+
+// The whole block: TG galaxies of one window group, FB bands. The lone
+// block (F8 = 8) keeps its own straight-line code rather than the helpers
+// above: built from them it takes one more register and spills, and runs 3%
+// slower.
 __device__ __forceinline__ void run_block(const Args& p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ring = reinterpret_cast<float*>(smem_raw);
@@ -457,19 +774,149 @@ __device__ __forceinline__ void run_block(const Args& p) {
   }
 }
 
-// Launch `kernel` (a __global__ wrapper of run_block) over `groups` window
-// groups of `p.group_rows` rows and every band group, on `stream`.
+// One block of a cluster of n along y (F8 > 8): the galaxy tile's first
+// product shared by the cluster's band groups (header: "Band groups").
+// Every barrier below is reached by every block of the cluster: the tile,
+// its passes and the window are the cluster's.
+//
+// The knot product of a super-chunk walks its 2·n_tiles λ halves in
+// ascending order. Slab halves alternate between the two halves of the slab
+// buffer, one in flight while the other is contracted; a half's A
+// fragments, usually a peer's, are read in four 16-byte loads before its
+// mma.sync steps (reading the next half's ahead cost more registers than
+// it hid).
+__device__ __forceinline__ void run_cluster(const Args& p) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const dim3 dims = cluster.dim_blocks();
+  const int n = (int)(dims.x * dims.y * dims.z);
+  const int rank = (int)cluster.block_rank();
+  const Smem sm = smem_layout();
+  const Tile t = setup_tile(p, sm);
+  if (t.band_top < 0) return;  // uniform per cluster: the same galaxies
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int fb0 = blockIdx.y * FB;
+  const bool bands = fb0 < p.f8;  // false in a padding slot
+  Loader ld = make_loader(p);
+  // slab half h of the super-chunk, in buffer h % 2 of the slab region
+  const auto slab_buf = [&](int h) { return sm.slab + (h % 2) * HALF * LDJ; };
+  // A fragments of half h of the super-chunk: half h % 2 of the fw tile of
+  // block h / 2
+  const auto fragments = [&](uint32_t(&a)[KH][4], int h) {
+    half_fragments(a, reinterpret_cast<const uint32_t*>(
+                          cluster.map_shared_rank(sm.fw, h / 2)),
+                   h % 2);
+  };
+
+  const int n_pass = (t.band_top - t.band_lo) / PASS_STEP + 1;
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const int pk0 = t.band_lo + pass * PASS_STEP;
+    for (int e = tid; e < TG * LDACC; e += NT) sm.acc[e] = 0.f;
+    for (int sc0 = 0; sc0 < p.W; sc0 += n * TL) {  // super-chunk
+      const int n_tiles = min(n, (p.W - sc0 + TL - 1) / TL);
+      if (bands) {  // halves 0 and 1, in flight during the first product
+        load_slab<HALF>(slab_buf(0), p, t, pk0, fb0, sc0);
+        load_slab<HALF>(slab_buf(1), p, t, pk0, fb0, sc0 + HALF);
+      }
+      if (rank < n_tiles) {  // this block's chunk: fw of columns lw0..
+        const int lw0 = sc0 + rank * TL;
+        at_chunk(ld, p, t.l0, lw0);
+        float lnu[8][8];
+        first_product(lnu, sm.ring, ld, p.ld_a, p.ld_sed, p.C, tx, ty);
+        __syncthreads();  // every warp is done with the ring
+        screen(lnu, sm, p, t.l0, lw0, tx, ty);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      cluster.sync();  // every fw tile of the super-chunk is written
+      if (bands) {
+        const int n_half = 2 * n_tiles;
+        float d[NJ / 8][4];
+        load_acc(d, sm.acc);
+        uint32_t a[KH][4];
+        for (int h = 0; h < n_half; ++h) {
+          if (h > 0) {
+            cp_async_wait<0>();
+            __syncthreads();  // half h landed; half h − 1's buffer is free
+            if (h + 1 < n_half)
+              load_slab<HALF>(slab_buf(h + 1), p, t, pk0, fb0,
+                              sc0 + (h + 1) * HALF);
+            cp_async_commit();
+          }
+          fragments(a, h);
+          mma_half(d, a, slab_buf(h));
+        }
+        store_acc(d, sm.acc);
+      }
+      cluster.sync();  // the peers are done with this block's fw tile
+    }
+    if (bands) finish_pass(p, sm, t, pass, pk0, fb0);
+    __syncthreads();  // acc read before the next pass clears it
+  }
+}
+
+// Launch over `groups` window groups of `p.group_rows` rows and every band
+// group, on `stream`: `kernel` (a __global__ wrapper of run_block) for
+// cluster = 1, else `cluster_kernel` (of run_cluster) in clusters of
+// `cluster` blocks along y, the band groups padded up to whole clusters.
+// cluster must lie in [1, 8], the portable cluster sizes. Returns the
+// launch's cudaError_t (0 = ok); a cluster launch the card refuses returns
+// its error and runs nothing.
 template <class Kernel>
-inline int launch(Kernel kernel, Args p, int groups, cudaStream_t stream) {
+inline int launch(Kernel kernel, Kernel cluster_kernel, Args p, int groups,
+                  int cluster, cudaStream_t stream) {
+  if (cluster < 1 || cluster > 8) return (int)cudaErrorInvalidValue;
+  Kernel k = cluster == 1 ? kernel : cluster_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   p.tiles_per_group = (p.group_rows + TG - 1) / TG;
   // same clip bound as `_knot_interp`: computed in double, rounded to float
   p.s_max = (float)((p.nk - 1) * (double)p.delta - 1.0e-3);
-  const dim3 grid(groups * p.tiles_per_group, p.f8 / FB);  // f8 % FB == 0
-  kernel<<<grid, NT, SMEM_BYTES, stream>>>(p);
+  const int band_groups = p.f8 / FB;  // f8 % FB == 0
+  const dim3 grid(groups * p.tiles_per_group,
+                  (band_groups + cluster - 1) / cluster * cluster);
+  if (cluster == 1) {
+    kernel<<<grid, NT, SMEM_BYTES, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = cluster;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, cluster_kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks of `cluster_kernel` the card keeps
+// resident at once (cudaOccupancyMaxActiveClusters), into *out.
+template <class Kernel>
+inline int max_active_clusters(Kernel cluster_kernel, int cluster, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = cluster;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, cluster);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(out, cluster_kernel, &cfg);
 }
 
 }  // namespace sed_tile

@@ -16,7 +16,9 @@ sub-chunks in one launch (the counterpart of the JAX package's `lax.scan`
 over sub-chunks), `fused_window_photometry` one sub-chunk. K2
 (`fused_sed_photometry`, `csrc/fused_sed.cu`) runs it over the whole λ
 support and knot table for θ in any order, visiting the rows in the order
-of `k2_row_order`. Both kernels share one core (`csrc/sed_tile.cuh`). The
+of `k2_row_order`. Both kernels share one core (`csrc/sed_tile.cuh`); at
+more than 8 bands its blocks run in thread-block clusters of
+`cluster_size(F8)` band groups that share one first product. The
 wrappers launch their kernel for tensors on a card and take the plain
 version only for CPU tensors. `fused_window_photometry_reference` is the
 one plain version (the grouped one loops it over sub-chunks, K2's runs it
@@ -40,11 +42,34 @@ __all__ = ["fused_window_photometry", "fused_window_photometry_reference",
            "fused_window_photometry_grouped_reference",
            "fused_sed_photometry", "fused_sed_photometry_reference",
            "k2_row_order", "prepare_megakernel_tables", "knot_product",
-           "window_ratio", "TILE_ROWS"]
+           "window_ratio", "cluster_size", "band_group_tables", "TILE_ROWS"]
 
 # galaxies per block of both kernels: the unit that `k2_row_order` packs
 # into narrow knot bands
 TILE_ROWS = 128
+
+
+def cluster_size(f8: int) -> int:
+    """Blocks per thread-block cluster of K1 and K2 at F8 bands: the band
+    groups of 8 that share one galaxy tile's first product. The f8/8 groups
+    go into the fewest clusters of at most 8 blocks (the portable cluster
+    size), ceil(f8/64), as evenly as they go; the last cluster may hold
+    padding slots that compute their share of the product and no bands. So
+    each λ column's first product is computed ceil(f8/64) times per galaxy:
+    once up to 64 bands, twice at 128. 1 (no cluster) at F8 = 8."""
+    groups = f8 // 8
+    return -(-groups // -(-groups // 8))
+
+
+def band_group_tables(tables: dict, g: int, n_knots: int) -> dict:
+    """Bands 8g .. 8g+7 of kernel tables of F8 bands: the knot columns
+    k·F8 + 8g .. k·F8 + 8g + 7 of every knot k re-packed as an 8-band knot
+    matrix, and the den columns 8g .. 8g + 7. K1 and K2 at F8 bands equal,
+    bit for bit, their F8 = 8 launches on these tables side by side."""
+    n_l, f8 = tables["knot"].shape[0], tables["den"].shape[1]
+    knot = tables["knot"].reshape(n_l, n_knots, f8)[:, :, 8 * g:8 * g + 8]
+    return dict(tables, knot=knot.reshape(n_l, 8 * n_knots).contiguous(),
+                den=tables["den"][:, 8 * g:8 * g + 8].contiguous())
 
 
 def knot_product(fw: torch.Tensor, knot_w: torch.Tensor) -> torch.Tensor:
@@ -180,7 +205,7 @@ def _launch_k1(sfzh, s, tau_v, scale, sed, curve, knot, den, win, w: int,
         scale.data_ptr(), sed.data_ptr(), sed.stride(0), curve.data_ptr(),
         knot.data_ptr(), knot.stride(0), den.data_ptr(), den.stride(0),
         None if win is None else win.data_ptr(), out.data_ptr(), b, c, w, kc,
-        f8, delta, order, float(fesc), sub, stream)
+        f8, delta, order, float(fesc), sub, cluster_size(f8), stream)
     if err:
         raise RuntimeError(
             f"K1 launch failed: {lib.k1_error_string(err).decode()}")
@@ -401,7 +426,7 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
         tau_v.data_ptr(), scale.data_ptr(), sed.data_ptr(), sed.stride(0),
         curve.data_ptr(), knot.data_ptr(), knot.stride(0), den.data_ptr(),
         den.stride(0), out.data_ptr(), b, c, sed.shape[1], n_knots, f8,
-        delta, order, float(fesc), stream)
+        delta, order, float(fesc), cluster_size(f8), stream)
     if err:
         raise RuntimeError(
             f"K2 launch failed: {lib.k1_error_string(err).decode()}")

@@ -361,6 +361,59 @@ def _spans(kind, b, n_knots, delta, rng):
     return np.linspace(-1.0, top + 1.0, b)
 
 
+# W = 1351 columns is 11 chunks of 128: a partial last super-chunk for
+# clusters of 2, 3 and 8 blocks
+_BANDS_W = 1351
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "whole-table"])
+@pytest.mark.parametrize("f8", [16, 24, 64, 128])
+def test_band_clusters_match_plain_and_8_band_slices(cuda, f8, kind):
+    """K1 (grouped) and K2 at F8 > 8 run in clusters of `cluster_size(F8)`
+    band groups that share each galaxy tile's first product: within the
+    plain bound of their plain versions, and bit for bit the kernel
+    launched on each 8-band slice of the tables, for rows in knot order,
+    out of it and spanning the whole table (several passes of knots)."""
+    assert 11 * 128 - 128 < _BANDS_W < 11 * 128
+    c, delta, b = 45, 3, 300
+    rng = np.random.default_rng(f8)
+    # K1: 3 sub-chunks of 100 rows, each with its own window of 12 knots
+    # (3 passes for whole-table spans) at an unaligned column
+    n_knots, kc, sub = 20, 12, 100
+    k0 = rng.integers(0, n_knots - kc + 1, 3)
+    l0 = np.array([0, 77, 1500 - _BANDS_W])
+    s = np.repeat(k0, sub) * delta + np.concatenate(
+        [_spans(kind, sub, kc, delta, rng) for _ in k0])
+    a = dict(**_rows(cuda, b, c, s, f8),
+             tables=_tables(cuda, c, 1500, n_knots, f8, seed=f8), k0=k0,
+             l0=l0, sub=sub, w_cols=_BANDS_W, kc=kc, delta=delta, f8=f8)
+    before = k1.fused_window_photometry.launches
+    out = k1.fused_window_photometry_grouped(**a)
+    torch.cuda.synchronize()
+    assert k1.fused_window_photometry.launches == before + 1
+    _assert_close(out, k1.fused_window_photometry_grouped_reference(**a))
+    slices = torch.cat([k1.fused_window_photometry_grouped(
+        **dict(a, tables=k1.band_group_tables(a["tables"], g, n_knots),
+               f8=8))
+        for g in range(f8 // 8)], dim=1)
+    assert torch.equal(out, slices)
+    # K2: the whole 1351-column table of 40 knots
+    n_knots = 40
+    tables = _tables(cuda, c, _BANDS_W, n_knots, f8, seed=f8 + 1)
+    r = _rows(cuda, b, c, _spans(kind, b, n_knots, delta, rng), f8 + 1)
+    args = (r["sfzh"], r["s"], r["tau_v"], r["scale"])
+    rest = (n_knots, delta)
+    out = k1.fused_sed_photometry(*args, tables, *rest, f8)
+    torch.cuda.synchronize()
+    _assert_close(out, k1.fused_sed_photometry_reference(*args, tables,
+                                                         *rest, f8))
+    slices = torch.cat([k1.fused_sed_photometry(
+        *args, k1.band_group_tables(tables, g, n_knots), *rest, 8)
+        for g in range(f8 // 8)], dim=1)
+    assert torch.equal(out, slices)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,b", [("single-z", 777), ("sorted", 777),
                                     ("unsorted", 777), ("whole-table", 13),

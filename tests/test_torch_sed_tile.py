@@ -11,6 +11,12 @@ the same float32 operations on the same rows; the plain K2 on gathered rows
 against the plain K2 within 1e-6 relative (each output row depends on its
 own input row only; only the matrix library's blocking of the rows can
 differ).
+
+At more than 8 bands the kernels share each galaxy tile's first product
+across a cluster of `cluster_size(F8)` band groups, and the card tests hold
+them bit for bit to the same kernel launched on each 8-band slice of the
+tables. Here the plain versions are held to the same property exactly, and
+the cluster size to its rule for every F8 the wrappers take.
 """
 
 import numpy as np
@@ -25,6 +31,17 @@ PNAMES = ("log10_mass", "redshift", "peak_age", "tau", "log10_metallicity",
 _CODES = ["F090W", "F115W", "F150W", "F200W", "F277W", "F356W", "F444W"]
 _CENTERS = [9000., 11500., 15000., 20000., 27700., 35600., 44400.]
 _WIDTHS = [2000., 2600., 3300., 4600., 7000., 7800., 10200.]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: beside the other test
+    workers torch's default pool oversubscribes the cores, and its many
+    small ops then run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tables(rng, c, n_l, n_knots, f8):
@@ -45,10 +62,10 @@ def _rows(rng, b, c, s):
                 scale=torch.as_tensor(rng.uniform(.5, 1.5, b), dtype=f32))
 
 
-def _grouped(seed=0, b=290, sub=100):
+def _grouped(seed=0, b=290, sub=100, f8=8):
     """Grouped K1 inputs: ceil(b/sub) sub-chunks (the last one short), each
     with its own window at an unaligned column."""
-    c, n_l, n_knots, kc, w, delta, f8 = 45, 300, 12, 6, 131, 3, 8
+    c, n_l, n_knots, kc, w, delta = 45, 300, 12, 6, 131, 3
     rng = np.random.default_rng(seed)
     n_sub = -(-b // sub)
     k0 = np.array([0, 6, 3])[:n_sub]
@@ -225,3 +242,68 @@ def test_cuda_input_checks_want_16_byte_knot_rows():
             torch.empty(b, c, **m), torch.empty(b, **m), torch.empty(b, **m),
             torch.empty(b, **m), torch.empty(c, w, **m), torch.empty(w, **m),
             knot, torch.empty(kc, f8, **m), kc, 2, f8, 3)
+
+
+@pytest.mark.parametrize("order", [1, 3])
+def test_plain_kernels_at_64_bands_are_their_8_band_slices(order):
+    """The plain grouped K1 and the plain K2 at F8 64 equal, exactly, the
+    concatenation of their results on the 8 band slices of the tables: the
+    first product and screen do not see the bands, each band's knot column
+    is its own dot product over λ (summed in the same order whatever
+    columns sit beside it, at these widths), and the interpolation is per
+    band. The card tests hold the clustered kernels to the same property
+    bit for bit."""
+    f8 = 64
+    a = _grouped(seed=7 + order, f8=f8)
+    out = k1.fused_window_photometry_grouped(**a, order=order)
+    parts = [k1.fused_window_photometry_grouped(
+        **dict(a, tables=k1.band_group_tables(a["tables"], g, 12), f8=8),
+        order=order) for g in range(f8 // 8)]
+    assert torch.equal(out, torch.cat(parts, dim=1))
+    n_knots, delta, c, b = 40, 3, 45, 290
+    rng = np.random.default_rng(order)
+    tables = _tables(rng, c, 300, n_knots, f8)
+    r = _rows(rng, b, c, rng.uniform(0, (n_knots - 1) * delta, b))
+    args = (r["sfzh"], r["s"], r["tau_v"], r["scale"])
+    out = k1.fused_sed_photometry(*args, tables, n_knots, delta, f8,
+                                  order=order)
+    parts = [k1.fused_sed_photometry(
+        *args, k1.band_group_tables(tables, g, n_knots), n_knots, delta, 8,
+        order=order) for g in range(f8 // 8)]
+    assert torch.equal(out, torch.cat(parts, dim=1))
+
+
+@pytest.mark.parametrize("f8", range(8, 129, 8))
+def test_cluster_size(f8):
+    """The f8/8 band groups go into the fewest clusters of at most 8 blocks
+    (the portable size), as evenly as they go: a lone block at 8 bands, one
+    cluster up to 64, two at 72-128, and fewer padding slots than
+    clusters."""
+    groups = f8 // 8
+    n = k1.cluster_size(f8)
+    clusters = -(-groups // n)
+    assert 1 <= n <= 8 and clusters == -(-groups // 8)
+    assert clusters * n - groups < clusters
+    assert (n == 1) == (f8 == 8)
+    expected = {8: 1, 16: 2, 24: 3, 56: 7, 64: 8, 72: 5, 88: 6, 120: 8,
+                128: 8}
+    if f8 in expected:
+        assert n == expected[f8]
+
+
+@pytest.mark.parametrize("f8,ok", [(8, True), (24, True), (128, True),
+                                   (136, False), (20, False)])
+def test_cuda_input_checks_take_f8_multiples_of_8_up_to_128(f8, ok):
+    """The wrappers' checks before a launch: F8 a multiple of 8, at most
+    128 (two clusters of 8 band groups)."""
+    b, c, w, kc = 64, 48, 256, 8
+    m = dict(device="meta")
+    args = (torch.empty(b, c, **m), torch.empty(b, **m), torch.empty(b, **m),
+            torch.empty(b, **m), torch.empty(c, w, **m), torch.empty(w, **m),
+            torch.empty(w, kc * f8, dtype=torch.bfloat16, **m),
+            torch.empty(kc, f8, **m), kc, 2, f8, 3)
+    if ok:
+        k1._check_cuda_inputs(*args)
+    else:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            k1._check_cuda_inputs(*args)
