@@ -12,22 +12,26 @@ unsorted θ):
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles every kernel in `synference_tpu_torch/csrc/` (K1, K2,
    K3), one nvcc process per source, all started together;
-3. K1 vs plain: K1 against its plain PyTorch version on main-path
-   sub-chunks (orders 1 and 3) and, in its one-launch form, on a whole
-   main-path batch of 64 sub-chunks, with both timings per batch beside
-   the sum of the sub-chunks' bounds and the cuBLAS first product, and a
-   check that the bound rejects the plain version with a TF32 or a bf16
-   first product;
+3. K1 vs plain: K1 against its plain PyTorch version and against the
+   exact first product (float64, rounded once; the exact gate) on
+   main-path sub-chunks (orders 1 and 3) and, in its one-launch form, on a
+   whole main-path batch of 64 sub-chunks, with both timings per batch
+   beside the sum of the sub-chunks' bounds (fp32 FMA, and a 3xTF32
+   route's for comparison) and the cuBLAS first product, and a check that
+   both bounds reject the plain version with a TF32 or a bf16 first
+   product (the three-call 3xTF32 emulation's reading printed beside);
 4. main path: `LibraryGenerator.generate(n=2^20, zsorted_fused=True)`,
    checking that K1 ran once per 65536-row batch, that the photometry is
    finite and non-negative, and that one sub-chunk agrees with the staged
    window body;
 5. features: asinh features with depth noise and errors;
 6. dense photometry: `sim.photometry(θ)` on the headline model launches K2
-   once; K2 against its plain version (and the TF32 / bf16 power check),
-   the result against the plain `_photometry_fused` route, with times;
-7. K2 at the north-star width: one unsorted batch, K2 and its plain
-   version, and both routes' times (the card's crossover record);
+   once; K2 against its plain version and the exact first product (and
+   the power check), the result against the plain `_photometry_fused`
+   route, with times and both bounds;
+7. K2 at the north-star width: one unsorted batch, K2 against its plain
+   version and the exact first product, both bounds, and both routes'
+   times (the card's crossover record);
 8. exact spectra: `simulate(θ, want_spectra=True)` with the "roll" and
    "bank" variants launches K3 once; the whole call's time; K3 against its
    plain version at the headline batch, on row- and column-sliced views of
@@ -98,9 +102,10 @@ unsorted θ):
    conv/interp bound of interp (K2); each route's time; K1 (grouped) and
    K2 at F8 64, which run in thread-block clusters of `cluster_size(64)`
    band groups, against their plain versions (phase 7's bound: cuBLAS sums
-   the plain first product in another order at these shapes), two runs
-   bitwise equal and bitwise equal to the kernel on each 8-band slice of
-   the tables, with times, bounds and shares;
+   the plain first product in another order at these shapes) and the
+   exact first product, two runs bitwise equal and bitwise equal to the
+   kernel on each 8-band slice of the tables, with times, both bounds and
+   shares;
 17. spectral path at the spectroscopic twin's width: `generate(30000,
    want_spectra=True)` through the R = 100 `SpectralFeaturePipeline`
    (the pipeline on 256 spectra against the CPU, max relative < 1e-5),
@@ -260,6 +265,9 @@ TOL_EXACT_SNAP, TOL_EXACT_LERP = 2.5e-2, 6e-2
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
+# TF32 tensor cores: the ceiling of a 3xTF32 first product, which the
+# kernels do not take (the three-call emulation fails the exact gate below)
+PEAK_TF32_FLOP_S = 495e12
 # The NPE path: the north-star model at full width, cut in depth.
 TRAIN_STRIDE = 4  # every fourth library row: 2^18 rows spanning all z
 # the fewest epochs after which every member's best later validation loss
@@ -364,6 +372,8 @@ def kernel_vs_plain(sim, gen, k1):
                 f"max abs err={abs_err:.4e} nJy")
             check(mx < TOL_KERNEL_MAX,
                   f"K1 disagrees with its plain version (order {order})")
+            exact_gate(k1, "kernel", f"K1 order={order} sub-chunk {i}", out,
+                       k1.fused_window_photometry_exact(**a), ref)
             worst["max_abs_err"] = max(worst["max_abs_err"], abs_err)
     a = dict(a0, order=3)
     bound_has_power(k1, a, "K1")
@@ -387,12 +397,17 @@ def kernel_vs_plain(sim, gen, k1):
             f"max<{TOL_KERNEL_MAX}); max abs err={abs_err:.4e} nJy")
         check(mx < TOL_KERNEL_MAX,
               f"grouped K1 disagrees with its plain version (order {order})")
+        exact_gate(k1, "kernel", f"grouped K1 order={order}", out,
+                   k1.fused_window_photometry_grouped_reference(
+                       **dict(g, order=order),
+                       first_product=k1.exact_first_product), ref)
         worst["max_abs_err"] = max(worst["max_abs_err"], abs_err)
     check(torch.equal(out, k1.fused_window_photometry_grouped(**g)),
           "two K1 runs differ")
     subs = [a for *_, a in sim._window_calls(chunk, sub, w_cols, kc, k0, l0)]
     bounds = [k1_bound(a) for a in subs]
     worst["bound_ms"] = sum(b["bound_ms"] for b in bounds)
+    worst["tf32x3_bound_ms"] = sum(b["tf32x3_bound_ms"] for b in bounds)
     worst["bound_by"] = ("operations" if all(
         b["bound_by"] == "operations" for b in bounds) else "bytes")
     worst["ms"] = time_ms(lambda: k1.fused_window_photometry_grouped(**g),
@@ -404,31 +419,46 @@ def kernel_vs_plain(sim, gen, k1):
     log(f"[kernel] K1 per batch of {bs} rows ({len(k0)} sub-chunks, one "
         f"launch, order 3): {worst['ms']:.4f} ms, plain "
         f"{worst['plain_ms']:.4f} ms; sum of the sub-chunks' bounds "
-        f"{worst['bound_ms']:.4f} ms ({worst['bound_by']}); cuBLAS fp32 "
+        f"{worst['bound_ms']:.4f} ms ({worst['bound_by']}; fp32 FMA, the "
+        f"kernel's arithmetic), share {worst['bound_ms'] / worst['ms']:.3f};"
+        f" a 3xTF32 route's bound {worst['tf32x3_bound_ms']:.4f} ms; cuBLAS fp32 "
         f"first product of the batch's shape {worst['first_product_ms']:.4f}"
         f" ms (CUDA events); two runs bitwise equal")
     return worst, calls[0]
 
 
 def bound_has_power(k1, a, name: str = "kernel") -> None:
-    """The kernel bound must reject the shortcuts a kernel could take in its
-    first product: the plain version with TF32, and with bf16 inputs. `a`
-    holds K1's plain version's arguments (K2's plain version is K1's over
-    the whole tables)."""
+    """The bounds must reject the shortcuts a kernel could take in its first
+    product: the plain version with one TF32 product, and with bf16 inputs,
+    miss both the fp32 plain bound and the exact gate. The three-call
+    3xTF32 emulation (`tf32x3_first_product`, TF32 tensor cores) is read
+    against the exact gate too. `a` holds K1's plain version's arguments
+    (K2's plain version is K1's over the whole tables)."""
     ref = k1.fused_window_photometry_reference(**a)
-    torch.backends.cuda.matmul.allow_tf32 = True
-    tf32 = k1.fused_window_photometry_reference(**a)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    bf16 = k1.fused_window_photometry_reference(**dict(
-        a, sfzh=a["sfzh"].bfloat16().float(),
-        sed_w=a["sed_w"].bfloat16().float()))
-    for low, out in (("TF32", tf32), ("bf16", bf16)):
+    exact = k1.fused_window_photometry_exact(**a)
+
+    def tf32(x, y):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return x @ y
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    for low, fp in (("TF32", tf32),
+                    ("bf16", lambda x, y: x.bfloat16().float()
+                     @ y.bfloat16().float()),
+                    ("three-call 3xTF32", k1.tf32x3_first_product)):
+        out = k1.fused_window_photometry_reference(**a, first_product=fp)
         med, p99, mx, _ = rel_stats(out, ref)
-        log(f"[{name}] plain with a {low} first product vs plain: rel "
-            f"median={med:.3e} p99={p99:.3e} max={mx:.3e} (must exceed "
-            f"{TOL_KERNEL_MAX})")
-        check(mx > TOL_KERNEL_MAX,
-              f"the {name} bound does not reject a {low} first product")
+        g = k1.exact_gate(out, exact, ref)
+        log(f"[{name}] plain with a {low} first product: vs plain rel "
+            f"median={med:.3e} p99={p99:.3e} max={mx:.3e}; vs exact "
+            f"p99={g['p99']:.3e} max={g['max']:.3e} share>1e-5="
+            f"{g['share']:.3e} (gate share<={2 * g['share_plain'] + 1e-4:.3e}"
+            f"): {'passes' if g['ok'] else 'fails'} the exact gate")
+        if low != "three-call 3xTF32":
+            check(mx > TOL_KERNEL_MAX and not g["ok"],
+                  f"the {name} bounds do not reject a {low} first product")
 
 
 def main_path(sim, gen, k1, kc: int, w_cols: int):
@@ -484,11 +514,30 @@ def features(tt, lib, dev):
 def bound(flops_fp32: float, flops_bf16: float, nbytes: float) -> dict:
     """The least time the card could take for a kernel's work: the larger of
     its bytes (each input read once, each output written once) over the
-    memory rate and its operations over the peak rate of their type."""
+    memory rate and its operations over the peak rate of their type. Also
+    "tf32x3_bound_ms": the same with the fp32 first product as three TF32
+    products on the tensor cores, a route the kernels do not take, printed
+    beside the bound as the ceiling it would have had."""
     t_ops = (flops_fp32 / PEAK_FP32_FLOP_S + flops_bf16 / PEAK_BF16_FLOP_S)
+    t_tf32 = 3 * flops_fp32 / PEAK_TF32_FLOP_S + flops_bf16 / PEAK_BF16_FLOP_S
     t_bytes = nbytes / PEAK_BYTES_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tf32x3_bound_ms": 1e3 * max(t_tf32, t_bytes)}
+
+
+def exact_gate(k1, tag: str, what: str, out, exact, plain) -> dict:
+    """A kernel's output against the exact first product (`exact_gate`:
+    p99 < 1e-5, max < 1e-3, and at most twice the fp32 plain version's
+    share of fluxes off by more than 1e-5, plus 1e-4); fails the run if it
+    misses."""
+    g = k1.exact_gate(out, exact, plain)
+    log(f"[{tag}] {what} vs the exact first product: p99={g['p99']:.3e} "
+        f"max={g['max']:.3e} share>1e-5={g['share']:.3e} (fp32 plain "
+        f"{g['share_plain']:.3e}; gate p99<1e-5 max<1e-3 share<="
+        f"{2 * g['share_plain'] + 1e-4:.3e})")
+    check(g["ok"], f"{what} misses the exact gate")
+    return g
 
 
 def headline_model(tt, dev, variant: str, backend: str = "auto"):
@@ -557,7 +606,10 @@ def k2_vs_plain(k1, sim, theta, name: str, reps: int,
         f"err={abs_err:.4e} nJy")
     check(mx < tol_max and (not tol_p99 or p99 < tol_p99),
           f"K2 disagrees with its plain version ({name})")
-    check(torch.equal(out, k2_call(k1, a)), f"two K2 runs differ ({name})")
+    exact_gate(k1, name, "K2", out, k1.fused_window_photometry_exact(**a),
+               ref)
+    check(torch.equal(out, k2_call(k1, a)),
+          f"two K2 runs differ ({name})")
     stats = {"max_abs_err": abs_err,
              "ms": time_ms(lambda: k2_call(k1, a), reps=reps),
              "plain_ms": time_ms(
@@ -570,8 +622,9 @@ def k2_vs_plain(k1, sim, theta, name: str, reps: int,
                     + b * a["f8"]) + 2 * n_l * a["kc"] * a["f8"]))
     log(f"[{name}] K2 {stats['ms']:.4f} ms, plain {stats['plain_ms']:.4f} ms"
         f" per batch (CUDA events); bound {stats['bound_ms']:.4f} ms "
-        f"({stats['bound_by']}), share "
-        f"{stats['bound_ms'] / stats['ms']:.3f}; cuBLAS fp32 first product "
+        f"({stats['bound_by']}; fp32 FMA, the kernel's arithmetic), share "
+        f"{stats['bound_ms'] / stats['ms']:.3f}; a 3xTF32 route's bound "
+        f"{stats['tf32x3_bound_ms']:.4f} ms; cuBLAS fp32 first product "
         f"{stats['first_product_ms']:.4f} ms; two runs bitwise equal")
     return stats, a
 
@@ -2235,14 +2288,14 @@ def band_slices(k1, launch, tables: dict, n_knots: int, f8: int):
                       for g in range(f8 // 8)], dim=1)
 
 
-def cluster_check(k1, name: str, launch, plain, tables: dict, n_knots: int,
-                  f8: int, bnd: dict, tol_p99: float, tol_max: float,
-                  reps: int = 5) -> dict:
+def cluster_check(k1, name: str, launch, plain, exact, tables: dict,
+                  n_knots: int, f8: int, bnd: dict, tol_p99: float,
+                  tol_max: float, reps: int = 5) -> dict:
     """A kernel at F8 > 8 (clusters of `cluster_size(F8)` band groups)
     against its plain version (relative differences: p99 < tol_p99, max <
-    tol_max), two runs bitwise equal, bitwise equal to its
-    8-band slices; its time, the plain version's and the share of the bound
-    `bnd`."""
+    tol_max) and the exact first product (`exact()`, the exact gate), two
+    runs bitwise equal, bitwise equal to its 8-band slices; its time, the
+    plain version's and the share of the bound `bnd`."""
     out = launch(tables, f8)
     torch.cuda.synchronize()
     ref = plain()
@@ -2252,6 +2305,7 @@ def cluster_check(k1, name: str, launch, plain, tables: dict, n_knots: int,
         f"{abs_err:.4e} nJy")
     check(p99 < tol_p99 and mx < tol_max,
           f"{name} disagrees with its plain version")
+    exact_gate(k1, "paper63", name, out, exact(), ref)
     check(torch.equal(out, launch(tables, f8)), f"two {name} runs differ")
     check(torch.equal(out, band_slices(k1, launch, tables, n_knots, f8)),
           f"{name} differs from its 8-band slices")
@@ -2260,8 +2314,9 @@ def cluster_check(k1, name: str, launch, plain, tables: dict, n_knots: int,
                  plain_ms=time_ms(plain, reps=2, warmup=1))
     stats["share_of_bound"] = stats["bound_ms"] / stats["ms"]
     log(f"[paper63] {name} alone: {stats['ms']:.4f} ms against a bound of "
-        f"{stats['bound_ms']:.4f} ms ({stats['bound_by']}), share "
-        f"{stats['share_of_bound']:.3f}; plain {stats['plain_ms']:.4f} ms; "
+        f"{stats['bound_ms']:.4f} ms ({stats['bound_by']}; fp32 FMA), share "
+        f"{stats['share_of_bound']:.3f}; a 3xTF32 route's bound "
+        f"{stats['tf32x3_bound_ms']:.4f} ms; plain {stats['plain_ms']:.4f} ms; "
         f"clusters of {stats['cluster']}; two runs and the {f8 // 8} "
         f"8-band slices bitwise equal (CUDA events)")
     return stats
@@ -2289,8 +2344,7 @@ def paper63_bounds(k1, auto, theta, sorted_theta) -> dict:
                 flops_bf16=2.0 * b * n_l * 4 * a["f8"],
                 nbytes=4 * (b * c + c * n_l + n_l + a["kc"] * a["f8"] + 3 * b
                             + b * a["f8"]) + 2 * n_l * a["kc"] * a["f8"])
-    tables = dict(sed=a["sed_w"], curve=a["curve_w"], knot=a["knot_w"],
-                  den=a["den_w"])
+    tables = auto._mega_tables
 
     def k2(t, f):
         return k1.fused_sed_photometry(
@@ -2309,13 +2363,15 @@ def paper63_bounds(k1, auto, theta, sorted_theta) -> dict:
     log(f"[paper63] K2 at B={b} C={c} L_sup={n_l} n_knots={a['kc']} F8={f8}")
     k2s = cluster_check(k1, "K2", k2,
                         lambda: k1.fused_window_photometry_reference(**a),
+                        lambda: k1.fused_window_photometry_exact(**a),
                         tables, a["kc"], f8, k2b, **tol)
     chunk, sub, kc, w_cols, k0, l0 = auto._plan_windows(sorted_theta, 1024)
     subs = [s for *_, s in auto._window_calls(chunk, sub, w_cols, kc, k0, l0)]
     bounds = [k1_bound(s) for s in subs]
     k1b = {"bound_ms": sum(x["bound_ms"] for x in bounds),
            "bound_by": ("operations" if all(x["bound_by"] == "operations"
-                                             for x in bounds) else "bytes")}
+                                             for x in bounds) else "bytes"),
+           "tf32x3_bound_ms": sum(x["tf32x3_bound_ms"] for x in bounds)}
     g = auto._window_grouped_args(chunk, sub, w_cols, kc, k0, l0)
 
     def k1g(t, f):
@@ -2326,6 +2382,8 @@ def paper63_bounds(k1, auto, theta, sorted_theta) -> dict:
     k1s = cluster_check(
         k1, "K1", k1g,
         lambda: k1.fused_window_photometry_grouped_reference(**g),
+        lambda: k1.fused_window_photometry_grouped_reference(
+            **g, first_product=k1.exact_first_product),
         g["tables"], auto._n_knots, f8, k1b, **tol)
     for st in (k1s, k2s):
         st["resident_clusters"] = resident.value
@@ -3564,8 +3622,8 @@ def main() -> None:
             rows[-1]["paper63"] = {
                 k: p63[key][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
-                    "share_of_bound", "max_abs_err", "cluster",
-                    "resident_clusters")}
+                    "share_of_bound", "max_abs_err",
+                    "cluster", "resident_clusters")}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,12 +19,15 @@ prints how many clusters of each size the card keeps resident
 (cudaOccupancyMaxActiveClusters).
 
     python3 scripts/probe_torch_bands.py [--f8 16 64] [--reps 5]
+        [--repeat N]
     python3 scripts/probe_torch_bands.py --f8 8 --root DIR
 
 `--f8 8` times each kernel alone at 8 bands; `--root` imports the package
 from another checkout (a parent commit unpacked with `git archive`), so two
-versions can be timed in one call on one card. Prints the card's name and
-power limit first; times are CUDA events.
+versions can be timed in one call on one card. `--repeat N` launches the
+clustered kernel N more times and counts the launches whose bits differ
+from the slices' (a race in the clusters' hand-off shows there). Prints
+the card's name and power limit first; times are CUDA events.
 """
 
 import argparse
@@ -67,7 +70,7 @@ def tables(g, c, n_l, n_knots, f8, dev):
         den=torch.rand(n_knots, f8, generator=g, device=dev) + 1.0)
 
 
-def report(k1, name, launch, t, n_knots, f8, bnd, reps):
+def report(k1, name, launch, t, n_knots, f8, bnd, reps, repeat=0):
     if f8 == 8:
         ms = time_ms(lambda: launch(t, 8), reps)
         print(f"{name} F8=8: {ms:.4f} ms, share of its bound {bnd / ms:.3f} "
@@ -79,6 +82,13 @@ def report(k1, name, launch, t, n_knots, f8, bnd, reps):
     parts = torch.cat([launch(s, 8) for s in sliced], dim=1)
     torch.cuda.synchronize()
     same = torch.equal(out, parts)
+    if repeat:
+        differ = 0
+        for _ in range(repeat):
+            differ += not torch.equal(launch(t, f8), parts)
+        print(f"{name} F8={f8}: {differ} of {repeat} more launches differ "
+              "from the slices", flush=True)
+        same &= differ == 0
     ms = time_ms(lambda: launch(t, f8), reps)
     ms_slices = time_ms(lambda: [launch(s, 8) for s in sliced], reps)
     ms_one = time_ms(lambda: launch(sliced[0], 8), reps)
@@ -94,6 +104,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--f8", type=int, nargs="+", default=[64])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--repeat", type=int, default=0,
+                    help="launches of the clustered kernel to hold to the "
+                         "slices' bits after the first")
     ap.add_argument("--root", default=None,
                     help="import synference_tpu_torch from this checkout")
     args = ap.parse_args()
@@ -123,13 +136,13 @@ def main():
     for f8 in args.f8:
         if f8 > 8:
             print(f"cluster_size({f8}) = {k1.cluster_size(f8)}", flush=True)
-        ok &= run(k1, f8, args.reps)
+        ok &= run(k1, f8, args.reps, args.repeat)
     if not ok:
         raise SystemExit("probe_torch_bands: clustered output differs from "
                          "the 8-band slices")
 
 
-def run(k1, f8, reps):
+def run(k1, f8, reps, repeat=0):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
@@ -151,7 +164,7 @@ def run(k1, f8, reps):
     ok = report(k1, "K2", k2, t, n_knots, f8, bound_ms(
         2.0 * b * c * n_l, 2.0 * b * n_l * 4 * f8,
         4 * (b * c + c * n_l + n_l + n_knots * f8 + 3 * b + b * f8)
-        + 2 * n_l * n_knots * f8), reps)
+        + 2 * n_l * n_knots * f8), reps, repeat)
 
     # K1: 64 z-sorted sub-chunks of 1024 rows, each with its own window;
     # a sub-chunk's galaxies read knots 0-5 of its window (one pass)
@@ -170,7 +183,7 @@ def run(k1, f8, reps):
         2.0 * sub * c * w, 2.0 * sub * w * kc * f8,
         4 * (sub * c + c * w + w + kc * f8 + 3 * sub + sub * f8)
         + 2 * w * kc * f8)
-    ok &= report(k1, "K1", k1g, t, n_knots, f8, bnd, reps)
+    ok &= report(k1, "K1", k1g, t, n_knots, f8, bnd, reps, repeat)
     return ok
 
 

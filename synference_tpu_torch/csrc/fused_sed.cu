@@ -37,14 +37,14 @@
 
 namespace {
 
-__global__ void __launch_bounds__(sed_tile::NT, sed_tile::MIN_BLOCKS)
-k2_fused_sed_kernel(sed_tile::Args p) {
-  sed_tile::run_block(p);
+__global__ void __launch_bounds__(sed_tile::NT, 1)
+k2_fused_sed_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<false>(p);
 }
 
-__global__ void __launch_bounds__(sed_tile::NT, sed_tile::MIN_BLOCKS)
-k2_fused_sed_cluster_kernel(sed_tile::Args p) {
-  sed_tile::run_cluster(p);
+__global__ void __launch_bounds__(sed_tile::NT_CL, 1)
+k2_fused_sed_cluster_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<true>(p);
 }
 
 }  // namespace
@@ -52,25 +52,24 @@ k2_fused_sed_cluster_kernel(sed_tile::Args p) {
 extern "C" {
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
-// `order` is a permutation of the B rows (int32); `sfzh_t` the tile-major
-// copy of sfzh in that order (`_tile_major` in ops/fused_sed.py), row
-// stride ld_a; out is in row order. `cluster` as in k1_fused_window.
-int k2_fused_sed(const float* sfzh_t, int64_t ld_a, const int* order,
-                 const float* s, const float* tau_v, const float* scale,
-                 const float* sed, int64_t ld_sed, const float* curve,
-                 const __nv_bfloat16* knot, int64_t ld_knot, const float* den,
-                 int64_t ld_den, float* out, int B, int C, int L, int n_knots,
-                 int f8, int delta, int interp_order, float fesc,
-                 int cluster, void* stream) {
+// `order` is a permutation of the B rows (int32); `sfzh` the (a_rows, C)
+// A operand, sfzh's rows in that order, row stride ld_a (`k_major` in
+// ops/fused_sed.py); `sed_k` the (L, C) K-major table, row stride ld_sed
+// (`k_major`); both with 16-byte aligned rows (TMA); out is in row order.
+// `cluster` as in k1_fused_window.
+int k2_fused_sed(const float* sfzh, int64_t a_rows, int64_t ld_a,
+                 const int* order, const float* s, const float* tau_v,
+                 const float* scale, const float* sed_k, int64_t ld_sed,
+                 const float* curve, const __nv_bfloat16* knot,
+                 int64_t ld_knot, const float* den, int64_t ld_den,
+                 float* out, int B, int C, int L, int n_knots, int f8,
+                 int delta, int interp_order, float fesc, int cluster,
+                 void* stream) {
   sed_tile::Args p{};
-  p.sfzh_t = sfzh_t;
-  p.ld_a = ld_a;
   p.order = order;
   p.s = s;
   p.tau_v = tau_v;
   p.scale = scale;
-  p.sed = sed;
-  p.ld_sed = ld_sed;
   p.curve = curve;
   p.knot = knot;
   p.ld_knot = ld_knot;
@@ -88,7 +87,8 @@ int k2_fused_sed(const float* sfzh_t, int64_t ld_a, const int* order,
   p.group_rows = B;
   p.fesc = fesc;
   return sed_tile::launch(k2_fused_sed_kernel, k2_fused_sed_cluster_kernel, p,
-                          1, cluster, static_cast<cudaStream_t>(stream));
+                          sfzh, a_rows, ld_a, sed_k, L, ld_sed, 1, cluster,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -35,14 +35,14 @@
 
 namespace {
 
-__global__ void __launch_bounds__(sed_tile::NT, sed_tile::MIN_BLOCKS)
-k1_fused_window_kernel(sed_tile::Args p) {
-  sed_tile::run_block(p);
+__global__ void __launch_bounds__(sed_tile::NT, 1)
+k1_fused_window_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<false>(p);
 }
 
-__global__ void __launch_bounds__(sed_tile::NT, sed_tile::MIN_BLOCKS)
-k1_fused_window_cluster_kernel(sed_tile::Args p) {
-  sed_tile::run_cluster(p);
+__global__ void __launch_bounds__(sed_tile::NT_CL, 1)
+k1_fused_window_cluster_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<true>(p);
 }
 
 }  // namespace
@@ -56,27 +56,25 @@ const char* k1_error_string(int code) {
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
 // Rows [g·sub, (g+1)·sub) of the batch are sub-chunk g, with window start
 // win[2g] (knot) and win[2g+1] (λ column); win = null puts one window at
-// (0, 0). `s` is the absolute column shift; `sfzh_t` the tile-major copy
-// of sfzh (`_tile_major` in ops/fused_sed.py), row stride ld_a. `cluster`
-// blocks share one galaxy tile's first product (1 at f8 = 8; at most 8;
-// `cluster_size` in ops/fused_sed.py).
-int k1_fused_window(const float* sfzh_t, int64_t ld_a, const float* s,
-                    const float* tau_v, const float* scale, const float* sed,
-                    int64_t ld_sed, const float* curve,
-                    const __nv_bfloat16* knot, int64_t ld_knot,
-                    const float* den, int64_t ld_den, const int* win,
-                    float* out, int B, int C, int W, int kc, int f8, int delta,
-                    int order, float fesc, int sub, int cluster,
-                    void* stream) {
+// (0, 0). `s` is the absolute column shift; `sfzh` the (a_rows, C) A
+// operand, row stride ld_a (`k_major` in ops/fused_sed.py); `sed_k`
+// the (n_l, C) K-major table, row stride ld_sed (`k_major`); both with
+// 16-byte aligned rows (TMA). `cluster` blocks share one galaxy tile's
+// first product (1 at f8 = 8; at most 8; `cluster_size` in
+// ops/fused_sed.py).
+int k1_fused_window(const float* sfzh, int64_t a_rows, int64_t ld_a,
+                    const float* s, const float* tau_v, const float* scale,
+                    const float* sed_k, int64_t n_l, int64_t ld_sed,
+                    const float* curve, const __nv_bfloat16* knot,
+                    int64_t ld_knot, const float* den, int64_t ld_den,
+                    const int* win, float* out, int B, int C, int W, int kc,
+                    int f8, int delta, int order, float fesc, int sub,
+                    int cluster, void* stream) {
   sed_tile::Args p{};
-  p.sfzh_t = sfzh_t;
-  p.ld_a = ld_a;
   p.order = nullptr;
   p.s = s;
   p.tau_v = tau_v;
   p.scale = scale;
-  p.sed = sed;
-  p.ld_sed = ld_sed;
   p.curve = curve;
   p.knot = knot;
   p.ld_knot = ld_knot;
@@ -94,9 +92,9 @@ int k1_fused_window(const float* sfzh_t, int64_t ld_a, const float* s,
   p.group_rows = sub;
   p.fesc = fesc;
   return sed_tile::launch(k1_fused_window_kernel,
-                          k1_fused_window_cluster_kernel, p,
-                          (B + sub - 1) / sub, cluster,
-                          static_cast<cudaStream_t>(stream));
+                          k1_fused_window_cluster_kernel, p, sfzh, a_rows,
+                          ld_a, sed_k, n_l, ld_sed, (B + sub - 1) / sub,
+                          cluster, static_cast<cudaStream_t>(stream));
 }
 
 // Into *out: how many clusters of `cluster` blocks of K1's (and K2's: the

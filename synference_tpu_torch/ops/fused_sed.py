@@ -16,7 +16,9 @@ sub-chunks in one launch (the counterpart of the JAX package's `lax.scan`
 over sub-chunks), `fused_window_photometry` one sub-chunk. K2
 (`fused_sed_photometry`, `csrc/fused_sed.cu`) runs it over the whole λ
 support and knot table for θ in any order, visiting the rows in the order
-of `k2_row_order`. Both kernels share one core (`csrc/sed_tile.cuh`); at
+of `k2_row_order`. Both kernels share one core (`csrc/sed_tile.cuh`): an
+fp32 FMA first product fed by TMA with K-major operands (sfzh's rows and
+the spectra's (L, C) transpose, both through `k_major`); at
 more than 8 bands its blocks run in thread-block clusters of
 `cluster_size(F8)` band groups that share one first product. The
 wrappers launch their kernel for tensors on a card and take the plain
@@ -24,12 +26,16 @@ version only for CPU tensors. `fused_window_photometry_reference` is the
 one plain version (the grouped one loops it over sub-chunks, K2's runs it
 over the full tables); `window_ratio` is the one num/den/interpolation
 definition the kernels' plain versions and the simulator's plain bodies
-use.
+use. `fused_window_photometry_exact` (the first product in float64) and
+`exact_gate` are what the card checks hold the kernels to;
+`tf32x3_first_product` is the tensor-core scheme that gate rejects on the
+card.
 """
 
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -38,11 +44,13 @@ from ._cuda import refuse_autodiff
 from .photometry_kernel import _knot_interp
 
 __all__ = ["fused_window_photometry", "fused_window_photometry_reference",
+           "fused_window_photometry_exact",
            "fused_window_photometry_grouped",
            "fused_window_photometry_grouped_reference",
            "fused_sed_photometry", "fused_sed_photometry_reference",
            "k2_row_order", "prepare_megakernel_tables", "knot_product",
-           "window_ratio", "cluster_size", "band_group_tables", "TILE_ROWS"]
+           "window_ratio", "cluster_size", "band_group_tables", "TILE_ROWS",
+           "tf32_split", "k_major", "exact_first_product", "exact_gate"]
 
 # galaxies per block of both kernels: the unit that `k2_row_order` packs
 # into narrow knot bands
@@ -101,27 +109,113 @@ def prepare_megakernel_tables(sed_table, wlam, dust_curve, knot_matrix,
     den = torch.zeros(den_knots.shape[0], f8, dtype=torch.float32,
                       device=den_knots.device)
     den[:, :den_knots.shape[1]] = den_knots
-    return {
-        "sed": (sed_table * wlam[None, :]).contiguous(),
-        "curve": dust_curve.contiguous(),
-        "knot": knot_matrix.to(torch.bfloat16).contiguous(),
-        "den": den,
-    }
+    sed = (sed_table * wlam[None, :]).contiguous()
+    return {"sed": sed, "curve": dust_curve.contiguous(),
+            "knot": knot_matrix.to(torch.bfloat16).contiguous(), "den": den}
+
+
+def k_major(x):
+    """x (R, C) float32 as the kernels' TMA loads read an operand: K-major,
+    each row's C cells contiguous and 16-byte aligned. x itself when it
+    already is so, else a copy with its cells zero-padded to a multiple of
+    4. The kernels' B operand is `k_major(sed.t())` (`_b_operand`); their
+    A operand is sfzh in the blocks' row order."""
+    if x.stride(1) == 1 and x.stride(0) % 4 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    r, c = x.shape
+    out = x.new_zeros((r, -(-c // 4) * 4))
+    out[:, :c] = x
+    return out
+
+
+def tf32_truncate(x):
+    """x with the 13 low mantissa bits cleared: the TF32 value the tensor
+    cores read from a float32."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_split(a):
+    """(hi, lo) float32 tensors with hi = a rounded to TF32 to nearest, ties
+    away from zero (PTX `cvt.rna.tf32.f32`: round on the 13 low mantissa
+    bits), and lo = a − hi, which is exact: hi + lo == a bit for bit."""
+    bits = a.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, a - hi
+
+
+def exact_first_product(sfzh, sed_w):
+    """sfzh @ sed_w taken in float64 and rounded once to float32: the exact
+    first product, which the kernels are held to."""
+    return (sfzh.double() @ sed_w.double()).float()
+
+
+def tf32x3_first_product(sfzh, sed_w):
+    """A 3xTF32 first product as three matrix products: (lo_a·hi_b +
+    hi_a·lo_b) + hi_a·hi_b, with (hi, lo) from `tf32_split` and each lo
+    truncated to TF32 as the tensor cores read it. The products of TF32
+    values are exact in float32, so on the CPU this is the split with
+    float32 sums, which passes `exact_gate`; on a card it runs TF32 matrix
+    products (TF32 allowed for the call) on the tensor cores, whose
+    accumulation fails the gate at the main-path shapes, so the kernels do
+    not take this route."""
+    hi_a, lo_a = tf32_split(sfzh)
+    hi_b, lo_b = tf32_split(sed_w)
+    lo_a, lo_b = tf32_truncate(lo_a), tf32_truncate(lo_b)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return (lo_a @ hi_b + hi_a @ lo_b) + hi_a @ hi_b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def exact_gate(out, exact, plain) -> dict:
+    """The kernels' correctness gate against the exact first product, on
+    fluxes above 1e-3 of their row's maximum in `exact`: relative p99 <
+    1e-5, max < 1e-3, and a share of fluxes off by more than 1e-5 at most
+    twice the fp32 plain version's share against the same exact answer,
+    plus 1e-4. Returns the readings and "ok"."""
+    def rel(x):
+        x, e = x.detach().cpu().double(), exact.detach().cpu().double()
+        r = (x - e).abs() / e.abs().clamp(min=1e-30)
+        return r[e > 1e-3 * e.max(dim=1, keepdim=True).values]
+
+    r, r_plain = rel(out), rel(plain)
+    share = float((r > 1e-5).double().mean())
+    share_plain = float((r_plain > 1e-5).double().mean())
+    p99 = float(torch.quantile(r, 0.99)) if r.numel() else 0.0
+    mx = float(r.max()) if r.numel() else 0.0
+    finite = bool(torch.isfinite(out).all())
+    return {"p99": p99, "max": mx, "share": share,
+            "share_plain": share_plain,
+            "ok": (finite and p99 < 1e-5 and mx < 1e-3
+                   and share <= 2 * share_plain + 1e-4)}
 
 
 def fused_window_photometry_reference(sfzh, s_rel, tau_v, scale, sed_w,
                                       curve_w, knot_w, den_w, kc: int,
                                       delta: int, f8: int, order: int = 3,
-                                      fesc: float = 0.0):
+                                      fesc: float = 0.0,
+                                      first_product=torch.matmul):
     """Plain PyTorch K1 (same arguments as `fused_window_photometry`).
     On a card, fp32 matrix products must not use TF32
-    (`torch.backends.cuda.matmul.allow_tf32` False, PyTorch's default)."""
-    lnu = sfzh @ sed_w
+    (`torch.backends.cuda.matmul.allow_tf32` False, PyTorch's default).
+    `first_product(sfzh, sed_w)` computes lnu (tests and the card checks
+    pass `exact_first_product` or an emulation)."""
+    lnu = first_product(sfzh, sed_w)
     att = torch.exp(-tau_v[:, None] * curve_w[None, :])
     if fesc:
         att = fesc + (1.0 - fesc) * att
     acc = knot_product(lnu * att, knot_w)
     return window_ratio(acc, den_w[:, :f8], s_rel, scale, kc, delta, order)
+
+
+def fused_window_photometry_exact(*args, **kwargs):
+    """`fused_window_photometry_reference` with the exact first product
+    (`exact_first_product`): what K1 and K2 are held to (`exact_gate`).
+    For tests and card checks only."""
+    return fused_window_photometry_reference(
+        *args, first_product=exact_first_product, **kwargs)
 
 
 def _require(cond: bool, msg: str,
@@ -168,44 +262,52 @@ def _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
     req(b * max(f8, kc * f8) < 2**31, "batch too large")
 
 
-def _tile_major(sfzh, sub: int, rows=None):
-    """The kernels' A operand: a (C, n_sub·T) copy of sfzh (B, C), with
-    T = `sub` rounded up to `TILE_ROWS`. Sub-chunk i's rows [i·sub,
-    (i+1)·sub), gathered by `rows` first when given, fill columns
-    [i·T, i·T + sub); the rest are zeros. Every block of the kernels then
-    reads its 128 galaxies of one cell as 512 contiguous, aligned bytes."""
-    if rows is not None:
-        sfzh = sfzh.index_select(0, rows)
-    b, c = sfzh.shape
-    n_sub = -(-b // sub)
-    t = -(-sub // TILE_ROWS) * TILE_ROWS
-    if b == n_sub * sub and t == sub:
-        return sfzh.t().contiguous()
-    padded = sfzh.new_zeros((n_sub * sub, c))
-    padded[:b] = sfzh
-    out = sfzh.new_zeros((c, n_sub, t))
-    out[:, :, :sub] = padded.t().reshape(c, n_sub, sub)
-    return out.view(c, -1)
+# id(sed) -> (weak reference to sed, its version, k_major(sed.t())): the
+# kernels' B operand of each live spectra table, made on its first launch
+_SED_K: dict = {}
 
 
-def _launch_k1(sfzh, s, tau_v, scale, sed, curve, knot, den, win, w: int,
+def _b_operand(sed):
+    """The kernels' B operand, `k_major(sed.t())`: made once per spectra
+    table (the simulator's, on its first launch) and made anew when the
+    table is written in place; "sed" stays the one copy of the spectra.
+    Inference tensors, which keep no version, get one per call, as does a
+    table already K-major (its operand is a view that would keep it
+    alive)."""
+    key = id(sed)
+    hit = _SED_K.get(key)
+    if hit is not None and hit[0]() is sed and hit[1] == sed._version:
+        return hit[2]
+    sed_k = k_major(sed.t())
+    if not sed.is_inference() and sed_k.data_ptr() != sed.data_ptr():
+        _SED_K[key] = (weakref.ref(sed, lambda _, k=key: _SED_K.pop(k, None)),
+                       sed._version, sed_k)
+    return sed_k
+
+
+def _launch_k1(sfzh, s, tau_v, scale, sed_k, curve, knot, den, win, w: int,
                kc: int, delta: int, f8: int, order: int, fesc: float,
                sub: int):
     """One K1 launch over ceil(B/sub) sub-chunks (`win` their (k0, l0)
-    int32 starts on the card, None for one window at (0, 0))."""
+    int32 starts on the card, None for one window at (0, 0)); `sed_k` the
+    (L, C) K-major spectra (`k_major`)."""
     from ._cuda import load_library
 
     lib = load_library()
     b, c = sfzh.shape
-    a = _tile_major(sfzh, sub)
+    # block x of a window group reads its 128 galaxies as one TMA box of
+    # rows; rows of a box past its group are the next group's (or zeros past
+    # the end), and the kernel drops them
+    a = k_major(sfzh)
     out = torch.empty((b, f8), dtype=torch.float32, device=sfzh.device)
     stream = torch.cuda.current_stream(sfzh.device).cuda_stream
     err = lib.k1_fused_window(
-        a.data_ptr(), a.stride(0), s.data_ptr(), tau_v.data_ptr(),
-        scale.data_ptr(), sed.data_ptr(), sed.stride(0), curve.data_ptr(),
-        knot.data_ptr(), knot.stride(0), den.data_ptr(), den.stride(0),
-        None if win is None else win.data_ptr(), out.data_ptr(), b, c, w, kc,
-        f8, delta, order, float(fesc), sub, cluster_size(f8), stream)
+        a.data_ptr(), a.shape[0], a.stride(0), s.data_ptr(), tau_v.data_ptr(),
+        scale.data_ptr(), sed_k.data_ptr(), sed_k.shape[0], sed_k.stride(0),
+        curve.data_ptr(), knot.data_ptr(), knot.stride(0), den.data_ptr(),
+        den.stride(0), None if win is None else win.data_ptr(),
+        out.data_ptr(), b, c, w, kc, f8, delta, order, float(fesc), sub,
+        cluster_size(f8), stream)
     if err:
         raise RuntimeError(
             f"K1 launch failed: {lib.k1_error_string(err).decode()}")
@@ -245,9 +347,9 @@ def fused_window_photometry(sfzh, s_rel, tau_v, scale, sed_w, curve_w,
                     sed_w, curve_w, knot_w, den_w)
     _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
                        den_w, kc, delta, f8, order)
-    return _launch_k1(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
-                      den_w, None, sed_w.shape[1], kc, delta, f8, order,
-                      fesc, sfzh.shape[0])
+    return _launch_k1(sfzh, s_rel, tau_v, scale, k_major(sed_w.t()), curve_w,
+                      knot_w, den_w, None, sed_w.shape[1], kc, delta, f8,
+                      order, fesc, sfzh.shape[0])
 
 
 fused_window_photometry.launches = 0
@@ -284,9 +386,11 @@ def fused_window_photometry_grouped_reference(sfzh, s, tau_v, scale,
                                               sub: int, w_cols: int,
                                               kc: int, delta: int, f8: int,
                                               order: int = 3,
-                                              fesc: float = 0.0):
+                                              fesc: float = 0.0,
+                                              first_product=torch.matmul):
     """Plain PyTorch grouped K1: `fused_window_photometry_reference` per
-    sub-chunk, each on its own window of the tables."""
+    sub-chunk, each on its own window of the tables (`first_product` as
+    there)."""
     out = torch.empty((sfzh.shape[0], f8), dtype=torch.float32,
                       device=sfzh.device)
     for i, (k, l) in enumerate(zip(np.asarray(k0).tolist(),
@@ -297,7 +401,8 @@ def fused_window_photometry_grouped_reference(sfzh, s, tau_v, scale,
             sfzh[r], s[r] - float(k * delta), tau_v[r], scale[r],
             tables["sed"][:, cols], tables["curve"][cols],
             tables["knot"][cols, k * f8:(k + kc) * f8],
-            tables["den"][k:k + kc], kc, delta, f8, order=order, fesc=fesc)
+            tables["den"][k:k + kc], kc, delta, f8, order=order, fesc=fesc,
+            first_product=first_product)
     return out
 
 
@@ -336,19 +441,20 @@ def fused_window_photometry_grouped(sfzh, s, tau_v, scale, tables: dict, k0,
     _check_cuda_inputs(sfzh, s, tau_v, scale, sed, curve, knot, den,
                        n_knots, delta, f8, order, who=who)
     win = torch.as_tensor(win).to(sfzh.device, non_blocking=True)
-    return _launch_k1(sfzh, s, tau_v, scale, sed, curve, knot, den, win,
-                      w_cols, kc, delta, f8, order, fesc, sub)
+    return _launch_k1(sfzh, s, tau_v, scale, _b_operand(sed), curve, knot,
+                      den, win, w_cols, kc, delta, f8, order, fesc, sub)
 
 
 def fused_sed_photometry_reference(sfzh, s, tau_v, scale, tables: dict,
                                    n_knots: int, delta: int, f8: int,
-                                   order: int = 3, fesc: float = 0.0):
+                                   order: int = 3, fesc: float = 0.0,
+                                   first_product=torch.matmul):
     """Plain PyTorch K2: K1's plain version over the whole tables
-    (kc = n_knots, shifts relative to knot 0)."""
+    (kc = n_knots, shifts relative to knot 0; `first_product` as there)."""
     return fused_window_photometry_reference(
         sfzh, s, tau_v, scale, tables["sed"], tables["curve"],
         tables["knot"], tables["den"], n_knots, delta, f8, order=order,
-        fesc=fesc)
+        fesc=fesc, first_product=first_product)
 
 
 def k2_row_order(s, n_knots: int, delta: int) -> torch.Tensor:
@@ -418,12 +524,13 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
 
     lib = load_library()
     b, c = sfzh.shape
-    a = _tile_major(sfzh, b, rows)
+    a = k_major(sfzh.index_select(0, rows))
+    b_op = _b_operand(sed)
     out = torch.empty((b, f8), dtype=torch.float32, device=sfzh.device)
     stream = torch.cuda.current_stream(sfzh.device).cuda_stream
     err = lib.k2_fused_sed(
-        a.data_ptr(), a.stride(0), rows.data_ptr(), s.data_ptr(),
-        tau_v.data_ptr(), scale.data_ptr(), sed.data_ptr(), sed.stride(0),
+        a.data_ptr(), a.shape[0], a.stride(0), rows.data_ptr(), s.data_ptr(),
+        tau_v.data_ptr(), scale.data_ptr(), b_op.data_ptr(), b_op.stride(0),
         curve.data_ptr(), knot.data_ptr(), knot.stride(0), den.data_ptr(),
         den.stride(0), out.data_ptr(), b, c, sed.shape[1], n_knots, f8,
         delta, order, float(fesc), cluster_size(f8), stream)

@@ -20,6 +20,15 @@ inputs to it 2.5e-3 (`test_bound_rejects_lower_precision_first_product`).
 `chip_smoke.py` holds K1 to max < 1e-5 at the north-star sub-chunk, where
 bands span hundreds of columns.
 
+K1 and K2 are also held to the exact first product (float64, rounded once
+to fp32: `fused_window_photometry_exact`): p99 < 1e-5 and max < 1e-3, the
+per-flux parts of `exact_gate`, whose share part `chip_smoke.py` holds at
+the main-path shapes; one TF32 product and bf16 inputs miss the p99
+(`test_bound_rejects_lower_precision_first_product`). The kernels' first
+product is an fp32 FMA chain over cells in ascending order, fed by TMA, so
+each shape is also covered at a cell count that is a multiple of 4 but not
+of the 32-cell ring stage.
+
 K2 (the dense path's full-table kernel) runs the same arithmetic over the
 whole λ support and is held to the same bound and power check, at batch
 sizes 1, 3, 13 and 777. K3 (exact-shift numerators) sums fp32 products of
@@ -129,6 +138,18 @@ def _assert_close(out, ref):
     assert rel.max() < 2e-3, rel.max()
 
 
+def _assert_exact(out, exact, plain):
+    """The kernel against the exact first product: `exact_gate`'s p99 <
+    1e-5 and max < 1e-3. Its third part, a share of fluxes off by more than
+    1e-5 at most twice the fp32 plain version's plus 1e-4, is held at the
+    main-path shapes (`chip_smoke.py`, 65536 rows): at these shapes, a few
+    hundred to a few thousand fluxes, 1e-4 is less than one flux and a
+    single bf16 flip decides it."""
+    g = k1.exact_gate(out, exact, plain)
+    assert g["p99"] < 1e-5 and g["max"] < 1e-3, g
+    assert bool(torch.isfinite(out).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("order,fesc", [(1, 0.0), (3, 0.0), (3, 0.25)])
 def test_kernel_matches_plain(cuda, order, fesc):
@@ -139,7 +160,9 @@ def test_kernel_matches_plain(cuda, order, fesc):
     for _, _, _, a in sim._window_calls(theta, sub, w_cols, kc, k0, l0):
         out = k1.fused_window_photometry(**a)
         torch.cuda.synchronize()
-        _assert_close(out, k1.fused_window_photometry_reference(**a))
+        ref = k1.fused_window_photometry_reference(**a)
+        _assert_close(out, ref)
+        _assert_exact(out, k1.fused_window_photometry_exact(**a), ref)
     assert k1.fused_window_photometry.launches == before + len(k0)
 
 
@@ -163,6 +186,8 @@ def test_bound_rejects_lower_precision_first_product(cuda, precision):
                 a, sfzh=a["sfzh"].bfloat16().float(),
                 sed_w=a["sed_w"].bfloat16().float()))
         rels.append(_rel(low, ref))
+        exact = k1.fused_window_photometry_exact(**a)
+        assert k1.exact_gate(low, exact, ref)["p99"] > 1e-5
     p99 = np.quantile(np.concatenate(rels), 0.99)
     assert p99 > 1e-5, p99
 
@@ -177,10 +202,13 @@ def test_window_engine_fused_matches_staged(cuda):
 
 
 @pytest.mark.cuda
-def test_ragged_shapes(cuda):
-    """Batch, cell and window sizes that are not multiples of the tiles."""
+@pytest.mark.parametrize("c", [45, 36])
+def test_ragged_shapes(cuda, c):
+    """Batch, cell and window sizes that are not multiples of the tiles:
+    45 cells (a padded A copy) and 36 (sfzh read as it is, a last ring stage
+    of 4 cells)."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    b, c, w, kc, f8 = 77, 45, 131, 6, 8
+    b, w, kc, f8 = 77, 131, 6, 8
     a = dict(
         sfzh=torch.rand(b, c, generator=g, device=cuda) * 1e9,
         s_rel=torch.rand(b, generator=g, device=cuda) * (kc - 1) * 3,
@@ -194,7 +222,9 @@ def test_ragged_shapes(cuda):
         kc=kc, delta=3, f8=f8)
     out = k1.fused_window_photometry(**a)
     torch.cuda.synchronize()
-    _assert_close(out, k1.fused_window_photometry_reference(**a))
+    ref = k1.fused_window_photometry_reference(**a)
+    _assert_close(out, ref)
+    _assert_exact(out, k1.fused_window_photometry_exact(**a), ref)
 
 
 def _unsorted_theta(n, seed=0):
@@ -227,7 +257,10 @@ def test_k2_matches_plain(cuda, b, order, fesc):
     out = k1.fused_sed_photometry(*args, **kw)
     torch.cuda.synchronize()
     assert k1.fused_sed_photometry.launches == before + 1
-    _assert_close(out, k1.fused_sed_photometry_reference(*args, **kw))
+    ref = k1.fused_sed_photometry_reference(*args, **kw)
+    _assert_close(out, ref)
+    _assert_exact(out, k1.fused_sed_photometry_reference(
+        *args, **kw, first_product=k1.exact_first_product), ref)
 
 
 @pytest.mark.cuda
@@ -250,6 +283,36 @@ def test_k2_bound_rejects_lower_precision_first_product(cuda, precision):
             dict(tables, sed=tables["sed"].bfloat16().float()), *rest)
     p99 = np.quantile(_rel(low, ref), 0.99)
     assert p99 > 1e-5, p99
+    exact = k1.fused_sed_photometry_reference(
+        sfzh, s, tau_v, scale, tables, *rest,
+        first_product=k1.exact_first_product)
+    assert k1.exact_gate(low, exact, ref)["p99"] > 1e-5
+
+
+@pytest.mark.cuda
+def test_k2_reads_the_spectra_it_is_given(cuda):
+    """The kernels' B operand follows "sed": the simulator's tables give the
+    same bits on every call, a table written in place and another table in
+    a copied dict are read as they are now, never as an earlier operand."""
+    sim = _sim(cuda, 3)
+    sfzh, s, tau_v, scale, tables, *rest = _k2_args(
+        sim, _unsorted_theta(777, seed=13))
+    first = k1.fused_sed_photometry(sfzh, s, tau_v, scale, tables, *rest)
+    assert torch.equal(
+        first, k1.fused_sed_photometry(sfzh, s, tau_v, scale, tables, *rest))
+    other = dict(tables, sed=tables["sed"] * 0.5)
+    out = k1.fused_sed_photometry(sfzh, s, tau_v, scale, other, *rest)
+    _assert_close(out, k1.fused_sed_photometry_reference(
+        sfzh, s, tau_v, scale, other, *rest))
+    sed = tables["sed"].clone()
+    tables = dict(tables, sed=sed)
+    k1.fused_sed_photometry(sfzh, s, tau_v, scale, tables, *rest)
+    sed.mul_(0.5)  # in place, after a launch made its operand
+    out = k1.fused_sed_photometry(sfzh, s, tau_v, scale, tables, *rest)
+    torch.cuda.synchronize()
+    _assert_close(out, k1.fused_sed_photometry_reference(
+        sfzh, s, tau_v, scale, tables, *rest))
+    assert not torch.equal(out, first)
 
 
 @pytest.mark.cuda
@@ -312,8 +375,10 @@ def test_grouped_k1_matches_plain(cuda, b, sub, order):
     out = k1.fused_window_photometry_grouped(**a, order=order)
     torch.cuda.synchronize()
     assert k1.fused_window_photometry.launches == before + 1
-    _assert_close(out, k1.fused_window_photometry_grouped_reference(
-        **a, order=order))
+    ref = k1.fused_window_photometry_grouped_reference(**a, order=order)
+    _assert_close(out, ref)
+    _assert_exact(out, k1.fused_window_photometry_grouped_reference(
+        **a, order=order, first_product=k1.exact_first_product), ref)
 
 
 @pytest.mark.cuda
@@ -336,7 +401,10 @@ def test_kernels_at_f8_128(cuda):
     a = _grouped_args(cuda, 300, 100, f8=128, seed=4)
     out = k1.fused_window_photometry_grouped(**a)
     torch.cuda.synchronize()
-    _assert_close(out, k1.fused_window_photometry_grouped_reference(**a))
+    ref = k1.fused_window_photometry_grouped_reference(**a)
+    _assert_close(out, ref)
+    _assert_exact(out, k1.fused_window_photometry_grouped_reference(
+        **a, first_product=k1.exact_first_product), ref)
     n_knots, delta = 12, 3
     tables = _tables(cuda, 45, 300, n_knots, 128, seed=5)
     rng = np.random.default_rng(5)
@@ -345,7 +413,10 @@ def test_kernels_at_f8_128(cuda):
             delta, 128)
     out = k1.fused_sed_photometry(*args)
     torch.cuda.synchronize()
-    _assert_close(out, k1.fused_sed_photometry_reference(*args))
+    ref = k1.fused_sed_photometry_reference(*args)
+    _assert_close(out, ref)
+    _assert_exact(out, k1.fused_sed_photometry_reference(
+        *args, first_product=k1.exact_first_product), ref)
 
 
 def _spans(kind, b, n_knots, delta, rng):
@@ -392,7 +463,10 @@ def test_band_clusters_match_plain_and_8_band_slices(cuda, f8, kind):
     out = k1.fused_window_photometry_grouped(**a)
     torch.cuda.synchronize()
     assert k1.fused_window_photometry.launches == before + 1
-    _assert_close(out, k1.fused_window_photometry_grouped_reference(**a))
+    ref = k1.fused_window_photometry_grouped_reference(**a)
+    _assert_close(out, ref)
+    _assert_exact(out, k1.fused_window_photometry_grouped_reference(
+        **a, first_product=k1.exact_first_product), ref)
     slices = torch.cat([k1.fused_window_photometry_grouped(
         **dict(a, tables=k1.band_group_tables(a["tables"], g, n_knots),
                f8=8))
@@ -406,8 +480,10 @@ def test_band_clusters_match_plain_and_8_band_slices(cuda, f8, kind):
     rest = (n_knots, delta)
     out = k1.fused_sed_photometry(*args, tables, *rest, f8)
     torch.cuda.synchronize()
-    _assert_close(out, k1.fused_sed_photometry_reference(*args, tables,
-                                                         *rest, f8))
+    ref = k1.fused_sed_photometry_reference(*args, tables, *rest, f8)
+    _assert_close(out, ref)
+    _assert_exact(out, k1.fused_sed_photometry_reference(
+        *args, tables, *rest, f8, first_product=k1.exact_first_product), ref)
     slices = torch.cat([k1.fused_sed_photometry(
         *args, k1.band_group_tables(tables, g, n_knots), *rest, 8)
         for g in range(f8 // 8)], dim=1)
@@ -429,7 +505,10 @@ def test_k2_knot_spans(cuda, kind, b):
             delta, f8)
     out = k1.fused_sed_photometry(*args)
     torch.cuda.synchronize()
-    _assert_close(out, k1.fused_sed_photometry_reference(*args))
+    ref = k1.fused_sed_photometry_reference(*args)
+    _assert_close(out, ref)
+    _assert_exact(out, k1.fused_sed_photometry_reference(
+        *args, first_product=k1.exact_first_product), ref)
 
 
 @pytest.mark.cuda
@@ -446,7 +525,10 @@ def test_k2_headline_rows(cuda):
             delta, f8)
     out = k1.fused_sed_photometry(*args)
     torch.cuda.synchronize()
-    _assert_close(out, k1.fused_sed_photometry_reference(*args))
+    ref = k1.fused_sed_photometry_reference(*args)
+    _assert_close(out, ref)
+    _assert_exact(out, k1.fused_sed_photometry_reference(
+        *args, first_product=k1.exact_first_product), ref)
 
 
 @pytest.mark.cuda

@@ -2,8 +2,9 @@
 
 K1 covers a whole batch of z-sorted sub-chunks in one launch
 (`fused_window_photometry_grouped`), K2 visits the rows of a batch in the
-order of `k2_row_order`; both read their A operand from the tile-major copy
-`_tile_major`. The kernels run only on a card (`tests/test_torch_cuda.py`);
+order of `k2_row_order`; both read K-major operands by TMA: sfzh's rows
+(`k_major`) and the (L, C) transpose of the spectra (`_b_operand`,
+`k_major`). The kernels run only on a card (`tests/test_torch_cuda.py`);
 here their plain versions, the helpers the CPU reaches and the wrappers'
 input checks are held to the per-sub-chunk plain K1 and the plain K2, on
 inputs made with numpy from a seed. Tolerances: exact where both sides run
@@ -11,6 +12,14 @@ the same float32 operations on the same rows; the plain K2 on gathered rows
 against the plain K2 within 1e-6 relative (each output row depends on its
 own input row only; only the matrix library's blocking of the rows can
 differ).
+
+The kernels are held to the exact first product (float64, rounded once to
+fp32: `fused_window_photometry_exact`) by `exact_gate`: p99 < 1e-5, max <
+1e-3 and at most twice the fp32 plain version's share of fluxes off by more
+than 1e-5, plus 1e-4. Here the gate is held to its power on the headline
+model's tables: a first product split into TF32 halves (`tf32_split`) and
+summed as three exact-product float32 matrix products passes it, one TF32
+product fails it.
 
 At more than 8 bands the kernels share each galaxy tile's first product
 across a cluster of `cluster_size(F8)` band groups, and the card tests hold
@@ -128,21 +137,137 @@ def test_window_engine_fused_body_is_one_grouped_call():
 
 
 def test_tile_major_layout():
-    """The kernels' A operand: sub-chunk i's rows in columns i·T.., T the
-    sub-chunk rounded up to 128 rows, zeros elsewhere; with a row order,
-    the gathered rows."""
+    """The kernels' A operand is K-major (`k_major`): sfzh itself when its
+    rows of cells are 16-byte aligned (C a multiple of 4), else a copy with
+    the cells zero-padded to a multiple of 4. The B operand (`_b_operand`)
+    is the spectra's (L, C) transpose, padded alike, made once per table
+    and made anew when the table is written in place."""
     rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((290, 8)), dtype=torch.float32)
+    assert k1.k_major(x) is x
     x = torch.as_tensor(rng.standard_normal((290, 5)), dtype=torch.float32)
-    a = k1._tile_major(x, 100)
-    assert a.shape == (5, 3 * 128)
-    for i in range(3):
-        n = min(100, 290 - 100 * i)
-        assert torch.equal(a[:, i * 128:i * 128 + n],
-                           x[100 * i:100 * i + n].T)
-        assert not a[:, i * 128 + n:(i + 1) * 128].any()
-    rows = torch.as_tensor(rng.permutation(256), dtype=torch.int32)
-    x = x[:256]
-    assert torch.equal(k1._tile_major(x, 256, rows), x[rows.long()].T)
+    a = k1.k_major(x)
+    assert a.shape == (290, 8) and a.is_contiguous()
+    assert torch.equal(a[:, :5], x) and not a[:, 5:].any()
+    view = torch.zeros(290, 12)[:, 1:9]  # rows start 4 bytes off 16
+    assert k1.k_major(view) is not view
+    assert torch.equal(k1.k_major(view), view)
+    sed = torch.as_tensor(rng.uniform(0, 1, (45, 301)), dtype=torch.float32)
+    t = k1.prepare_megakernel_tables(sed, torch.ones(301), torch.rand(301),
+                                     torch.rand(301, 16), torch.rand(2, 7),
+                                     8)
+    assert "sed_k" not in t  # the spectra are kept once, as "sed"
+    b = k1._b_operand(t["sed"])
+    assert b.shape == (301, 48)
+    assert torch.equal(b[:, :45], t["sed"].T) and not b[:, 45:].any()
+    assert k1._b_operand(t["sed"]) is b
+    t["sed"].mul_(2.0)  # written in place: the operand is made anew
+    b2 = k1._b_operand(t["sed"])
+    assert b2 is not b and torch.equal(b2[:, :45], t["sed"].T)
+    new = t["sed"] + 1.0  # another table, e.g. dict(t, sed=new)
+    assert torch.equal(k1._b_operand(new)[:, :45], new.T)
+    assert k1._b_operand(t["sed"]) is b2
+
+
+def test_tf32_split_is_exact_and_rounds_to_nearest():
+    """hi + lo == a bit for bit, hi has its 13 low mantissa bits clear and
+    is a rounded to nearest with ties away from zero (PTX `cvt.rna`); the
+    truncation the tensor cores apply to a float32 clears the same bits."""
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal(20000) * 10.0 ** rng.uniform(-30, 30, 20000)
+    a = np.concatenate([a, [0.0, -0.0, 1.0, -1.0]]).astype(np.float32)
+    bits = a.view(np.uint32)
+    ties = (bits & ~np.uint32(0x1FFF)) | np.uint32(0x1000)  # exact ties
+    a = np.concatenate([a, ties.view(np.float32)])
+    hi, lo = k1.tf32_split(torch.as_tensor(a))
+    assert torch.equal(hi + lo, torch.as_tensor(a))
+    hb = hi.numpy().view(np.uint32)
+    assert not (hb & 0x1FFF).any()
+    # round to nearest, ties away from zero, on the magnitude
+    mag = a.view(np.uint32) & np.uint32(0x7FFFFFFF)
+    want = ((mag + np.uint32(0x1000)) & np.uint32(0xFFFFE000)) | (
+        a.view(np.uint32) & np.uint32(0x80000000))
+    np.testing.assert_array_equal(hb, want)
+    t = k1.tf32_truncate(torch.as_tensor(a)).numpy().view(np.uint32)
+    np.testing.assert_array_equal(t, a.view(np.uint32) & np.uint32(0xFFFFE000))
+
+
+@pytest.fixture(scope="module")
+def headline_cut():
+    """K1 plain-version arguments on 2048 rows of the headline model (C 384,
+    L 1006, 162 knots; bench.py's θ ranges), built once for the module."""
+    grid = tt.make_synthetic_grid(n_ages=48, n_mets=8, n_wav=2048,
+                                  lam_min=300.0)
+    filters = tt.FilterSet([tt.tophat_filter(c, ct, w) for c, ct, w in
+                            zip(_CODES, _CENTERS, _WIDTHS)])
+    sim = tt.BatchSEDSimulator(grid, filters, PNAMES, sfh="lognormal",
+                               zdist="delta",
+                               emission=tt.EmissionConfig(igm="inoue14"),
+                               device="cpu")
+    rng = np.random.default_rng(0)
+    n = 2048
+    theta = np.stack([rng.uniform(7.5, 11, n), rng.uniform(0.05, 10, n),
+                      rng.uniform(5e7, 1e9, n), rng.uniform(0.1, 1.2, n),
+                      rng.uniform(-3.9, -1.5, n), rng.uniform(0, 3, n)],
+                     axis=1).astype(np.float32)
+    params = sim.theta_dict(torch.as_tensor(theta))
+    sfzh, _ = sim._sfzh(params)
+    z = params["redshift"]
+    t = sim._mega_tables
+    return dict(sfzh=sfzh, s_rel=sim._shift_of_z(z), tau_v=params["tau_v"],
+                scale=sim._scale_of_z(z), sed_w=t["sed"], curve_w=t["curve"],
+                knot_w=t["knot"], den_w=t["den"], kc=sim._n_knots,
+                delta=sim._knot_delta, f8=sim._f8, order=3)
+
+
+def _one_pass_tf32(a, b):
+    return k1.tf32_split(a)[0] @ k1.tf32_split(b)[0]
+
+
+@pytest.mark.parametrize("case", ["grid", "headline"])
+def test_exact_gate_passes_3xtf32_split_and_fails_one_tf32_product(
+        case, request):
+    """Against the exact first product: the fp32 plain version and the
+    3xTF32 split with float32 sums (exact TF32 products, as on the CPU) pass
+    the gate, one TF32 product fails it, at the test grid (the window
+    engine's grouped batch over 4096 z-sorted rows; the gate's slack of
+    1e-4 in the share of flipped fluxes is ~2.5 fluxes there, and at 2048
+    rows a single bf16 flip decides) and on 2048 headline rows. On the card
+    the three TF32 products run on the tensor cores and fail the gate
+    (PERF.md), which is why the kernels keep their fp32 FMA chain."""
+    if case == "grid":
+        sim = _sim()
+        theta, sub, kc, w_cols, k0, l0 = sim._plan_windows(
+            _sorted_theta(4096), 128)
+        a = sim._window_grouped_args(theta, sub, w_cols, kc, k0, l0)
+        run = k1.fused_window_photometry_grouped_reference
+    else:
+        a = request.getfixturevalue("headline_cut")
+        run = k1.fused_window_photometry_reference
+    plain = run(**a)
+    exact = run(**a, first_product=k1.exact_first_product)
+    assert k1.exact_gate(plain, exact, plain)["ok"]
+    split = run(**a, first_product=k1.tf32x3_first_product)
+    g = k1.exact_gate(split, exact, plain)
+    assert g["ok"], g
+    one = k1.exact_gate(run(**a, first_product=_one_pass_tf32), exact, plain)
+    assert not one["ok"] and one["p99"] > 1e-4, one
+
+
+def test_exact_gate_counts_only_significant_fluxes():
+    """The gate reads fluxes above 1e-3 of their row's maximum in the exact
+    answer: a wrong flux below that line passes, one above it fails, and a
+    non-finite output fails."""
+    exact = torch.tensor([[1.0, 2.0, 1e-4], [3.0, 1.0, 2.0]])
+    out = exact.clone()
+    out[0, 2] *= 2.0
+    assert k1.exact_gate(out, exact, exact)["ok"]
+    out[1, 1] *= 1.0 + 2e-3
+    g = k1.exact_gate(out, exact, exact)
+    assert not g["ok"] and g["max"] == pytest.approx(2e-3, rel=1e-3)
+    out = exact.clone()
+    out[0, 2] = float("nan")
+    assert not k1.exact_gate(out, exact, exact)["ok"]
 
 
 def _first_knot(s, n_knots, delta):
