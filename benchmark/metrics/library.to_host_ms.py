@@ -1,0 +1,13 @@
+"""library.to_host_ms: host milliseconds per `generate` call in the
+program's `library.to_host` spans (each batch's photometry and θ copied to
+the host and concatenated), from `ProgramTrace.program_spans`
+(`benchmark/program_trace.py`); nothing on a trace without them."""
+
+
+def read(trace):
+    spans = getattr(trace, "program_spans", None) or {}
+    calls = len(spans.get("library.generate", ()))
+    copies = spans.get("library.to_host")
+    if not calls or not copies:
+        return None
+    return 1e3 * sum(b - a for a, b in copies) / calls

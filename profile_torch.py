@@ -12,8 +12,8 @@ Builds `chip_smoke.py`'s north-star model on the card and prints:
 3. K1's one launch over that batch: CUDA-event time and its FLOPs (both
    products), hence its rate;
 4. a `torch.profiler` trace of one `generate(n)`: device self time per
-   kernel, and the device busy share, Σ device self time over the untraced
-   wall time of the same run (one stream, so kernels do not overlap);
+   kernel (the program's spans, `synference::*`, are in the trace too;
+   `benchmark/program_trace.py` puts the device's idle down to them);
 5. the same trace of the dense `photometry(θ)` on 65536 unsorted rows of
    `chip_smoke.py`'s headline model (K2 and what surrounds it);
 6. the same trace of 10 `simulate(θ, want_spectra=True)` calls on the
@@ -22,12 +22,12 @@ Builds `chip_smoke.py`'s north-star model on the card and prints:
 7. the same trace of 20 training steps of the north-star NSF ensemble (69
    hidden units, 15 transforms, 8 members as batched weights, batch 2048 per
    member, fp32 with TF32 off) on features of a 2^17-row library: kernels
-   launched per step, device busy share, the top device operations; and
+   launched per step, the top device operations; and
    the host-clock time of a step and of the validation pass;
 8. the same trace of the batched MCMC of the NLE posterior at the
    north-star width (NSF 69 × 15 × 8 members modelling the 14 features
    given θ, 256 objects, 64 walkers): 8 steps (16 half-steps of 8192 rows
-   per member), kernels per half-step and the device busy share.
+   per member) and kernels per half-step.
 
 Run from the repository root on a machine with a card:
 
@@ -94,10 +94,8 @@ def k1_rate(a: dict) -> None:
 
 
 def device_profile(fn, what: str, reps: int = 1) -> None:
-    """Trace `reps` calls of `fn`: device self time per kernel and the
-    busy share against the untraced wall time of as many calls."""
+    """Trace `reps` calls of `fn`: device self time per kernel."""
     fn()  # warm-up
-    wall = smoke.host_ms(lambda: [fn() for _ in range(reps)], 3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -107,8 +105,7 @@ def device_profile(fn, what: str, reps: int = 1) -> None:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     dev.sort(key=lambda e: -e.self_device_time_total)
     total = sum(e.self_device_time_total for e in dev) / 1e3
-    print(f"[trace] {what} x{reps}: device self time {total:.3f} ms, "
-          f"untraced wall {wall:.3f} ms, busy share {total / wall:.4f}; "
+    print(f"[trace] {what} x{reps}: device self time {total:.3f} ms; "
           f"{sum(e.count for e in dev) / reps:.1f} device operations per "
           f"call", flush=True)
     for e in dev[:12]:

@@ -52,6 +52,7 @@ import torch
 from .cosmology import Cosmology
 from .filters import FilterSet
 from .grids import SPSGrid
+from .runtime import span, traced
 from .sed import BatchSEDSimulator, EmissionConfig
 
 __all__ = ["auto_batch_size", "draw_from_hypercube",
@@ -355,6 +356,15 @@ def _load_chunks(resume_path: str, meta: dict) -> list:
     return chunks
 
 
+def _to_host(v) -> np.ndarray:
+    """A batch's part as a host array: a tensor is read back from its
+    device (one `readback.photometry` span), a host array is kept."""
+    if isinstance(v, np.ndarray):
+        return v
+    with span("readback.photometry"):
+        return v.cpu().numpy()
+
+
 def _save_chunk(resume_path: str, ci: int, meta: dict, arrays: dict) -> None:
     tmp = _chunk_file(resume_path, ci) + ".tmp.npz"
     np.savez(tmp, **meta, **arrays)
@@ -524,6 +534,7 @@ class LibraryGenerator:
                            dim=1)
 
     # -- generation -------------------------------------------------------
+    @traced("library.generate")
     def generate(self, n: int, batch_size: int | None = None, seed: int = 0,
                  out_path: str | None = None, want_spectra: bool = False,
                  pmapped_fn=None, resume_path: str | None = None,
@@ -659,8 +670,8 @@ class LibraryGenerator:
                                                        t, out)
             if self.emission_lines:
                 lq = sim.line_quantities(t, self.emission_lines, row_offset=i)
-                arrays["lines"] = torch.as_tensor(
-                    np.concatenate([lq["flux"], lq["ew_obs"]], axis=1))
+                arrays["lines"] = np.concatenate([lq["flux"], lq["ew_obs"]],
+                                                 axis=1)
             return arrays
 
         chunks = self._run_batches(run, n_pad, batch_size, meta, resume_path)
@@ -691,8 +702,9 @@ class LibraryGenerator:
     def _generate_device(self, n, batch_size, seed, resume_path,
                          zsorted_fused) -> dict:
         """Photometry-only generation on the device: θ drawn, z-sorted,
-        window-planned and simulated there; one readback for the plan, one
-        copy of θ and photometry to the host."""
+        window-planned and simulated there; two readbacks for the run's
+        plan, one a batch for its window starts, and one copy of each
+        batch's photometry and of θ to the host."""
         sim = self.simulator
         theta, sub, bs, kc, w_cols = self._draw_sorted(n, batch_size, seed)
         n_pad = theta.shape[0]
@@ -712,8 +724,11 @@ class LibraryGenerator:
         chunks = self._run_batches(
             lambda i: {"phot": chunk_fn(theta[i:i + bs], row_offset=i)},
             n_pad, bs, meta, resume_path)
-        return self._library(theta[:n].cpu().numpy(), chunks["phot"][:n])
+        with span("library.to_host"), span("readback.theta"):
+            theta = theta[:n].cpu().numpy()
+        return self._library(theta, chunks["phot"][:n])
 
+    @traced("library.draw_sorted")
     def _draw_sorted(self, n: int, batch_size: int, seed: int):
         """θ drawn on the device, sorted by redshift and padded to whole
         batches, with one window plan for every sub-chunk of the run (one
@@ -750,33 +765,39 @@ class LibraryGenerator:
             pad = -(-kb.shape[0] // sub) * sub - kb.shape[0]
             kb = torch.cat([kb, kb[-1:].expand(pad)])
             spans.append((kb[sub - 1::sub] - kb[::sub]).max())
-        return int(torch.stack(spans).max())
+        with span("readback.plan_span"):
+            return int(torch.stack(spans).max())
 
     def _run_batches(self, run, n_pad: int, batch_size: int, meta: dict,
                      resume_path: str | None) -> dict:
         """Run `run(row offset) -> {field: (B, ...) tensor}` over the
         batches, resuming from and writing chunk files when `resume_path`
-        is set. Photometry alone stays on the device until the end (no
-        wait for the card per batch); spectra and supplementary columns
-        come to the host batch by batch. Returns {field: (n_pad, ...) host
-        array}."""
+        is set. Photometry alone stays on the device until the end, when
+        each batch's part is copied to the host; spectra and supplementary
+        columns come to the host batch by batch. The card is still waited
+        for once a batch: the window engine reads each batch's window
+        starts back (`BatchSEDSimulator._plan_windows`). Returns {field:
+        (n_pad, ...) host array}."""
         n_batches = n_pad // batch_size
         done = ([] if resume_path is None
                 else _load_chunks(resume_path, meta))[:n_batches]
         parts = list(done)
         for ci in range(len(done), n_batches):
-            out = run(ci * batch_size)
+            with span("library.batch"):
+                out = run(ci * batch_size)
             if resume_path is None and list(out) == ["phot"]:
                 parts.append(out)
                 continue
-            arrays = {k: v.cpu().numpy() for k, v in out.items()}
+            with span("library.to_host"):
+                arrays = {k: _to_host(v) for k, v in out.items()}
             if resume_path is not None:
                 _save_chunk(resume_path, ci, meta, arrays)
             parts.append(arrays)
         if resume_path is not None:
             _remove_chunks(resume_path, n_batches)
-        return {k: np.concatenate([np.asarray(torch.as_tensor(p[k]).cpu())
-                                   for p in parts]) for k in parts[0]}
+        with span("library.to_host"):
+            return {k: np.concatenate([_to_host(p[k]) for p in parts])
+                    for k in parts[0]}
 
     # -- the window body ----------------------------------------------------
     def _check_fused_request(self, requested) -> None:

@@ -4,13 +4,15 @@ Counterpart of `synference_tpu/runtime.py`. `setup_logger` takes its rank
 from `torch.distributed` where a process group is initialised (0
 otherwise); `trace_profile` records a `torch.profiler` trace (the card's
 kernels too, where there is one) and writes it to `log_dir` as a Chrome
-trace; `TerminalLossPlot` draws the same text as the JAX package's for the
+trace; `span` and `traced` mark the program's own ranges in that trace;
+`TerminalLossPlot` draws the same text as the JAX package's for the
 same losses.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -24,6 +26,8 @@ __all__ = [
     "setup_logger",
     "StepTimer",
     "trace_profile",
+    "span",
+    "traced",
     "MetricsLogger",
     "TerminalLossPlot",
 ]
@@ -95,6 +99,38 @@ def trace_profile(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# The profiler's own flag: one call, and no range made, while no profiler
+# records (entering a `record_function` costs microseconds even then).
+_profiling = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range `synference::<name>` in the trace of a recording
+    `torch.profiler` (`trace_profile`'s), on the clock of the card's
+    kernels; a shared no-op context while none records. Ranges nest on the
+    host thread, so a range's parent is the one open around it. A span
+    never synchronises the device and never allocates on it."""
+    if not _profiling():
+        return _NO_SPAN
+    # the profiler's fast record function: a `cpu_op` range of the trace.
+    # `torch.profiler.record_function` would add a GPU-side annotation over
+    # the kernels launched inside it, which a reader of the trace's device
+    # timeline would count as device work.
+    return torch._C._profiler._RecordFunctionFast("synference::" + name)
+
+
+def traced(name: str):
+    """Decorator: each call of the function is `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 class MetricsLogger:

@@ -60,6 +60,7 @@ from .ops.photometry_kernel import (KNOT_INTERP_ORDER, N_SUB, _knot_interp,
                                     build_den_table, build_knot_matrix_device,
                                     build_subshift_table, conv_photometry_num,
                                     shift_decompose, shift_photometry_num)
+from .runtime import span, traced
 from .sfh import make_age_sampling, sfh_weights, zdist_weights
 from .units import C_AA_S
 
@@ -614,6 +615,7 @@ class BatchSEDSimulator:
         return w.scatter(1, idx[:, None], (1.0 - frac)[:, None]).scatter_add(
             1, (idx + 1)[:, None], frac[:, None])
 
+    @traced("sed.sfzh")
     def _sfzh(self, params):
         """(B, A·Z·extra) mass weights [Msun] and the (B, A) age marginal."""
         sfh_params = dict(params)
@@ -959,6 +961,7 @@ class BatchSEDSimulator:
                     w_cols=w_cols, kc=kc, delta=self._knot_delta,
                     f8=self._f8, order=self._interp_order, fesc=fesc)
 
+    @traced("sed.window_body")
     def _zsorted_run_raw(self, theta, sub: int, w_cols: int, kc: int, k0,
                          l0, fused: bool = False, row_offset: int = 0):
         """Run a window body over every sub-chunk -> (n_sub·sub, F).
@@ -1052,6 +1055,7 @@ class BatchSEDSimulator:
             validate_plan=kc is not None and w_cols is not None)
         return out.cpu().numpy()
 
+    @traced("sed.plan_windows")
     def _plan_windows(self, theta, sub_chunk: int, kc: int | None = None,
                       w_cols: int | None = None, validate_plan: bool = False):
         """Pad z-sorted θ to whole sub-chunks and plan their windows.
@@ -1075,8 +1079,9 @@ class BatchSEDSimulator:
                            dtype=torch.float32, device=self.device)
         k_flat = self._knot_interval_device(z)
         if kc is None or w_cols is None or validate_plan:
-            span = int(torch.max(k_flat[sub - 1::sub] - k_flat[::sub]))
-            kc_req, w_req = self._zsorted_plan(span)
+            with span("readback.plan_span"):
+                knots = int(torch.max(k_flat[sub - 1::sub] - k_flat[::sub]))
+            kc_req, w_req = self._zsorted_plan(knots)
             if validate_plan and kc is not None and w_cols is not None and (
                     int(kc) < kc_req or int(w_cols) < w_req):
                 raise ValueError(
@@ -1089,7 +1094,8 @@ class BatchSEDSimulator:
         if kc >= self._n_knots or w_cols >= self._l_sup:
             return theta, sub, int(kc), int(w_cols), None, None
         k0, l0 = self._window_starts(k_flat[::sub].to(torch.int64), kc, w_cols)
-        k0, l0 = torch.stack([k0, l0]).tolist()
+        with span("readback.window_starts"):
+            k0, l0 = torch.stack([k0, l0]).tolist()
         return theta, sub, int(kc), int(w_cols), k0, l0
 
     # ------------------------------------------------------------------
