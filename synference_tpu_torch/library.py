@@ -357,8 +357,9 @@ def _load_chunks(resume_path: str, meta: dict) -> list:
 
 
 def _to_host(v) -> np.ndarray:
-    """A batch's part as a host array: a tensor is read back from its
-    device (one `readback.photometry` span), a host array is kept."""
+    """A batch's part as a host array, for runs that need the host arrays
+    batch by batch: a tensor is read back from its device (one
+    `readback.photometry` span), a host array is kept."""
     if isinstance(v, np.ndarray):
         return v
     with span("readback.photometry"):
@@ -376,6 +377,147 @@ def _remove_chunks(resume_path: str, n_chunks: int) -> None:
         path = _chunk_file(resume_path, ci)
         if os.path.exists(path):
             os.remove(path)
+
+
+# ---------------------------------------------------------------------------
+# Copy-out of photometry-only runs: each batch's part lands in the run's
+# host arrays while the card computes the next batches
+# ---------------------------------------------------------------------------
+
+# pinned slots a generator keeps: one landing on the host, one copying, one
+# waiting for its batch
+_RING_SLOTS = 3
+
+
+def _rows_to_copy(v: torch.Tensor, rows: int) -> torch.Tensor:
+    """The first `rows` rows of a 2-D device part as a contiguous tensor:
+    a column slice of a row-major buffer padded by fewer than 8 columns
+    (K1's `out[:, :F]` of its (B, F8) output) is read whole over the same
+    memory, for the host to drop the padding; any other layout is made
+    contiguous on the device."""
+    s0 = v.stride(0)
+    if (v.stride(1) == 1 and v.shape[1] <= s0 < v.shape[1] + 8
+            and (v.storage_offset() + rows * s0) * v.element_size()
+            <= v.untyped_storage().nbytes()):
+        return v.as_strided((rows, s0), (s0, 1))
+    return v[:rows].contiguous()
+
+
+def _numpy_dtype(v) -> np.dtype:
+    if isinstance(v, np.ndarray):
+        return v.dtype
+    return torch.empty((), dtype=v.dtype).numpy().dtype
+
+
+class _PinnedRing:
+    """`_RING_SLOTS` pinned host slots per field and a copy stream from
+    PyTorch's pool: allocated at the first run of a batch shape and kept by
+    the generator while its runs keep that shape, so pinned memory depends
+    on the batch and not on a run's length."""
+
+    def __init__(self):
+        self.key = None
+        self.stream = None
+        self.slots: dict = {}  # field -> (slots, rows, width) pinned tensor
+        self.host: dict = {}  # field -> its numpy view
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.nbytes for t in self.slots.values())
+
+    @staticmethod
+    def key_of(rows: int, parts: dict) -> tuple:
+        """The slots' shape for batches of `rows` rows of `parts` ({field:
+        (·, width) device tensor})."""
+        device = next(iter(parts.values())).device
+        return device, rows, tuple((k, v.shape[1], v.dtype)
+                                   for k, v in parts.items())
+
+    def fit(self, key: tuple, parts: dict) -> None:
+        """Slots of shape `key` (`key_of`), reallocated only when it
+        changes. No copy into the old slots may be pending."""
+        if key == self.key:
+            return
+        device, rows, _ = key
+        self.slots = {k: torch.empty((_RING_SLOTS, rows, v.shape[1]),
+                                     dtype=v.dtype, pin_memory=True)
+                      for k, v in parts.items()}
+        self.host = {k: t.numpy() for k, t in self.slots.items()}
+        self.stream = torch.cuda.Stream(device)
+        self.key = key
+
+
+class _CopyOut:
+    """Lands a run's parts in host arrays of its first `n` rows, batch by
+    batch; pad rows past `n` are never copied. A CUDA part is copied on the
+    ring's stream, once the compute stream has finished its batch, into a
+    pinned slot; the host moves a slot into the result rows once its copy
+    has finished (`event.query`), and waits for it (`readback.part`) only
+    to reuse the slot or at the end. Host tensors and arrays are written in
+    place. The result arrays are new for each run: the caller owns them."""
+
+    def __init__(self, n: int, batch_size: int, ring: _PinnedRing):
+        self.n, self.batch_size, self.ring = n, batch_size, ring
+        self.out: dict = {}
+        self.pending: list = []  # (done event, slot, row offset, parts)
+        self.staged = 0
+
+    def stage(self, lo: int, parts: dict) -> None:
+        """Part rows [lo, lo + batch) of each field ({field: (B, width)})."""
+        rows = min(self.n, lo + self.batch_size) - lo
+        for k, v in parts.items():
+            if k not in self.out:
+                self.out[k] = np.empty((self.n, v.shape[1]), _numpy_dtype(v))
+        dev = {k: _rows_to_copy(v, rows) for k, v in parts.items()
+               if isinstance(v, torch.Tensor) and v.is_cuda}
+        if dev:
+            key = _PinnedRing.key_of(self.batch_size, dev)
+            # a new shape takes new slots; a slot is reused once landed
+            while self.pending and (key != self.ring.key
+                                    or len(self.pending) >= _RING_SLOTS):
+                self._land()
+            self.ring.fit(key, dev)
+        with span("library.stage"):
+            for k, v in parts.items():
+                if k not in dev:
+                    self.out[k][lo:lo + rows] = (
+                        v[:rows] if isinstance(v, np.ndarray)
+                        else v[:rows].numpy())
+            if dev:
+                self._enqueue(lo, rows, dev)
+            while self.pending and self.pending[0][0].query():
+                self._land()
+
+    def _enqueue(self, lo: int, rows: int, dev: dict) -> None:
+        slot = self.staged % _RING_SLOTS
+        self.staged += 1
+        stream = self.ring.stream
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            for k, v in dev.items():
+                self.ring.slots[k][slot, :rows].copy_(v, non_blocking=True)
+        done = stream.record_event()
+        # `dev` holds the parts' device memory until their copy has finished
+        self.pending.append((done, slot, lo, dev))
+
+    def _land(self) -> None:
+        """Move the oldest pending slot into the result rows, first waiting
+        for its copy if it has not finished."""
+        done, slot, lo, dev = self.pending.pop(0)
+        if not done.query():
+            with span("readback.part"):
+                done.synchronize()
+        for k, v in dev.items():
+            rows = v.shape[0]
+            self.out[k][lo:lo + rows] = (
+                self.ring.host[k][slot, :rows, :self.out[k].shape[1]])
+
+    def finish(self) -> dict:
+        """Wait for the last copies; {field: (n, width) host array}."""
+        with span("library.to_host"):
+            while self.pending:
+                self._land()
+        return self.out
 
 
 # ---------------------------------------------------------------------------
@@ -509,6 +651,8 @@ class LibraryGenerator:
         # "simulator", "short run", "cpu" or "unsupported"), and for a probe
         # both bodies' ms and the digest it was stored under
         self.last_probe: dict | None = None
+        # pinned slots through which photometry-only runs leave the card
+        self._pinned = _PinnedRing()
         drawn = [_strip_log_prefix(k) if k in self.unlog_keys else k
                  for k in self.param_ranges]
         missing = [p for p in simulator.param_names if p not in drawn]
@@ -674,12 +818,13 @@ class LibraryGenerator:
                                                  axis=1)
             return arrays
 
-        chunks = self._run_batches(run, n_pad, batch_size, meta, resume_path)
-        lib = self._library(theta, chunks["phot"][:n])
+        chunks = self._run_batches(run, n, n_pad, batch_size, meta,
+                                   resume_path)
+        lib = self._library(theta, chunks["phot"])
         if want_spectra:
-            lib["spectra"] = chunks["spec"][:n].T
+            lib["spectra"] = chunks["spec"].T
             lib["wavelengths"] = self._wavelengths()
-        supp = [chunks[k][:n].T for k in ("supp", "lines") if k in chunks]
+        supp = [chunks[k].T for k in ("supp", "lines") if k in chunks]
         if supp:
             lib["supplementary_parameters"] = np.concatenate(supp, axis=0)
             lib["supplementary_parameter_names"] = self._supp_names()
@@ -703,8 +848,9 @@ class LibraryGenerator:
                          zsorted_fused) -> dict:
         """Photometry-only generation on the device: θ drawn, z-sorted,
         window-planned and simulated there; two readbacks for the run's
-        plan, one a batch for its window starts, and one copy of each
-        batch's photometry and of θ to the host."""
+        plan and one a batch for its window starts; each batch's
+        photometry and its rows of θ leave the card while the next batches
+        run (`_CopyOut`)."""
         sim = self.simulator
         theta, sub, bs, kc, w_cols = self._draw_sorted(n, batch_size, seed)
         n_pad = theta.shape[0]
@@ -723,10 +869,11 @@ class LibraryGenerator:
                 "sampler": _DEVICE_SAMPLER}
         chunks = self._run_batches(
             lambda i: {"phot": chunk_fn(theta[i:i + bs], row_offset=i)},
-            n_pad, bs, meta, resume_path)
-        with span("library.to_host"), span("readback.theta"):
-            theta = theta[:n].cpu().numpy()
-        return self._library(theta, chunks["phot"][:n])
+            n, n_pad, bs, meta, resume_path, beside={"theta": theta})
+        if "theta" not in chunks:  # a resumed run's parts came batch by batch
+            with span("library.to_host"), span("readback.theta"):
+                chunks["theta"] = theta[:n].cpu().numpy()
+        return self._library(chunks["theta"], chunks["phot"])
 
     @traced("library.draw_sorted")
     def _draw_sorted(self, n: int, batch_size: int, seed: int):
@@ -768,25 +915,32 @@ class LibraryGenerator:
         with span("readback.plan_span"):
             return int(torch.stack(spans).max())
 
-    def _run_batches(self, run, n_pad: int, batch_size: int, meta: dict,
-                     resume_path: str | None) -> dict:
+    def _run_batches(self, run, n: int, n_pad: int, batch_size: int,
+                     meta: dict, resume_path: str | None,
+                     beside: dict | None = None) -> dict:
         """Run `run(row offset) -> {field: (B, ...) tensor}` over the
         batches, resuming from and writing chunk files when `resume_path`
-        is set. Photometry alone stays on the device until the end, when
-        each batch's part is copied to the host; spectra and supplementary
-        columns come to the host batch by batch. The card is still waited
-        for once a batch: the window engine reads each batch's window
-        starts back (`BatchSEDSimulator._plan_windows`). Returns {field:
-        (n_pad, ...) host array}."""
+        is set. Photometry alone, with the rows of each run-wide (n_pad,
+        ...) device tensor in `beside`, leaves the card part by part through
+        `_CopyOut` while the next batches run; spectra and supplementary
+        columns come to the host batch by batch (`_to_host`). The card is
+        still waited for once a batch: the window engine reads each batch's
+        window starts back (`BatchSEDSimulator._plan_windows`). Returns
+        {field: (n, ...) host array}; `beside`'s fields only where they
+        were copied out."""
         n_batches = n_pad // batch_size
         done = ([] if resume_path is None
                 else _load_chunks(resume_path, meta))[:n_batches]
         parts = list(done)
+        copy = _CopyOut(n, batch_size, self._pinned)
         for ci in range(len(done), n_batches):
+            lo = ci * batch_size
             with span("library.batch"):
-                out = run(ci * batch_size)
+                out = run(lo)
             if resume_path is None and list(out) == ["phot"]:
-                parts.append(out)
+                for k, v in (beside or {}).items():
+                    out[k] = v[lo:lo + batch_size]
+                copy.stage(lo, out)
                 continue
             with span("library.to_host"):
                 arrays = {k: _to_host(v) for k, v in out.items()}
@@ -795,8 +949,10 @@ class LibraryGenerator:
             parts.append(arrays)
         if resume_path is not None:
             _remove_chunks(resume_path, n_batches)
+        if not parts:
+            return copy.finish()
         with span("library.to_host"):
-            return {k: np.concatenate([_to_host(p[k]) for p in parts])
+            return {k: np.concatenate([p[k] for p in parts])[:n]
                     for k in parts[0]}
 
     # -- the window body ----------------------------------------------------

@@ -43,7 +43,9 @@ plain version.
 The quickstart slice on the card: the native OOD scores (float64) and
 `MissingPhotometryHandler` (draws passed in) against the CPU,
 `compute_supplementary` against the CPU on the same simulate() outputs,
-device-sampler resume bit for bit, the "auto" window-body probe (CUDA
+device-sampler resume bit for bit, nine batches copied out through the
+pinned slots bit for bit against per-part reads (with the slots' pinned
+bytes fixed as n grows), the "auto" window-body probe (CUDA
 events, cached on the simulator and in its file, a failing K1 raising), and
 "auto" on a run too short to probe taking K1 once per batch.
 
@@ -904,6 +906,38 @@ def test_resume_on_the_card_is_bitwise(cuda, tmp_path, monkeypatch):
     resumed = gen.generate(resume_path=prefix, **args)
     for key in ("parameters", "photometry"):
         np.testing.assert_array_equal(resumed[key], whole[key])
+
+
+@pytest.mark.cuda
+def test_copy_out_through_pinned_slots_is_bitwise(cuda, tmp_path):
+    """Nine K1 batches of 1024 rows, n ragged, leave the card through the
+    ring of pinned slots (each slot reused): the bits of a run that reads
+    each part back with `.cpu()` (`resume_path`); a later call leaves the
+    first call's arrays as they were; the pinned bytes the generator holds
+    do not grow with n."""
+    prior = {"log10_mass": (7.5, 11.0), "redshift": (0.1, 8.0),
+             "log10_peak_age": (7.6, 9.2), "tau": (0.1, 1.2),
+             "log10_metallicity": (-3.9, -1.6), "tau_v": (0.0, 2.0)}
+    gen = tt.LibraryGenerator(_sim(cuda, 3), prior,
+                              unlog_keys=["log10_peak_age"], device=cuda)
+    args = dict(batch_size=1024, seed=5, zsorted_fused=True)
+    n = 9 * 1024 - 300
+    before = k1.fused_window_photometry.launches
+    lib = gen.generate(n=n, **args)
+    assert k1.fused_window_photometry.launches == before + 9
+    ref = gen.generate(n=n, resume_path=str(tmp_path / "ck"), **args)
+    kept = {}
+    for key in ("parameters", "photometry"):
+        assert lib[key].shape[1] == n
+        np.testing.assert_array_equal(lib[key], ref[key])
+        kept[key] = lib[key].copy()
+    held = gen._pinned.nbytes
+    assert held == 3 * 1024 * (8 + 6) * 4  # three slots of (F8 + P) columns
+    for m in (2 * 1024 + 1, 20 * 1024 - 7):
+        gen.generate(n=m, **args)
+        assert gen._pinned.nbytes == held
+    for key, val in kept.items():
+        np.testing.assert_array_equal(lib[key], val)
 
 
 @pytest.mark.cuda

@@ -11,9 +11,11 @@ Under `trace_profile`, each
 `generate` call is one `synference::library.generate` range in the Chrome
 trace, every other program range nests inside it, and each blocking read
 of the card is one `synference::readback.<site>` range: on the device
-path, two for the run's plan, one a batch for its window starts, one a
-batch for its photometry and one for θ (2 + 2·batches + 1). The returned
-library is bitwise the same with the profiler on and off.
+path, two for the run's plan and one a batch for its window starts (2 +
+batches). Each batch's photometry and θ rows are one
+`synference::library.stage` range; on the CPU they are written in place,
+so no `readback.part` waits for a copy. The returned library is bitwise
+the same with the profiler on and off.
 """
 
 import json
@@ -132,18 +134,17 @@ def test_generate_spans_nest_and_count_readbacks(tmp_path, gen, batches):
     inside = per_call[0]
     assert len(inside) + 1 == len(ranges) // 2  # none outside a call
     readbacks = [n_ for n_ in inside if n_.startswith("readback.")]
-    assert len(readbacks) == 2 + 2 * batches + 1
+    assert len(readbacks) == 2 + batches
     assert {r: readbacks.count(r) for r in set(readbacks)} == {
-        "readback.plan_span": 1, "readback.window_starts": 1 + batches,
-        "readback.photometry": batches, "readback.theta": 1}
+        "readback.plan_span": 1, "readback.window_starts": 1 + batches}
     assert inside.count("library.draw_sorted") == 1
     assert inside.count("library.batch") == batches
     assert inside.count("sed.window_body") == batches
     assert inside.count("sed.sfzh") == batches
     assert inside.count("sed.plan_windows") == 1 + batches
-    assert inside.count("library.to_host") == 2
+    assert inside.count("library.stage") == batches
+    assert inside.count("library.to_host") == 1
     assert set(inside) == {
-        "library.draw_sorted", "library.batch", "library.to_host",
-        "sed.plan_windows", "sed.window_body", "sed.sfzh",
-        "readback.plan_span", "readback.window_starts",
-        "readback.photometry", "readback.theta"}
+        "library.draw_sorted", "library.batch", "library.stage",
+        "library.to_host", "sed.plan_windows", "sed.window_body",
+        "sed.sfzh", "readback.plan_span", "readback.window_starts"}
