@@ -356,13 +356,20 @@ def _load_chunks(resume_path: str, meta: dict) -> list:
     return chunks
 
 
-def _to_host(v) -> np.ndarray:
-    """A batch's part as a host array, for runs that need the host arrays
-    batch by batch: a tensor is read back from its device (one
-    `readback.photometry` span), a host array is kept."""
+# the span of each field's blocking read in `_to_host`
+_READBACK_SPANS = {"phot": "readback.photometry", "spec": "readback.spectra",
+                   "supp": "readback.supplementary",
+                   "lines": "readback.lines"}
+
+
+def _to_host(field: str, v) -> np.ndarray:
+    """A batch's part of `field` as a host array, for runs that need the
+    host arrays batch by batch: a tensor is read back from its device (one
+    `readback.<field>` span: `readback.photometry`, `readback.spectra`,
+    ...), a host array is kept."""
     if isinstance(v, np.ndarray):
         return v
-    with span("readback.photometry"):
+    with span(_READBACK_SPANS[field]):
         return v.cpu().numpy()
 
 
@@ -753,7 +760,9 @@ class LibraryGenerator:
         of `batch_size` rows at a time."""
         sim = self.simulator
         wide = want_spectra or bool(self.supplementary)
-        theta = self.sample_parameters(n, rng=np.random.default_rng(seed))
+        with span("library.draw_host"):
+            theta = self.sample_parameters(n,
+                                           rng=np.random.default_rng(seed))
         n_pad = int(np.ceil(n / batch_size) * batch_size)
         n_batches = n_pad // batch_size
         batch_fn = None
@@ -943,7 +952,7 @@ class LibraryGenerator:
                 copy.stage(lo, out)
                 continue
             with span("library.to_host"):
-                arrays = {k: _to_host(v) for k, v in out.items()}
+                arrays = {k: _to_host(k, v) for k, v in out.items()}
             if resume_path is not None:
                 _save_chunk(resume_path, ci, meta, arrays)
             parts.append(arrays)

@@ -763,6 +763,7 @@ class BatchSEDSimulator:
             out.append(num / torch.clamp(tw.sum(dim=2), min=1.0e-30))
         return torch.cat(out, dim=0)
 
+    @traced("sed.band_integral")
     def _photometry_batch(self, fnu_njy, z):
         """(B, L) f_ν, (B,) z -> (B, F): the spectra path's filter integral.
 
@@ -1116,8 +1117,9 @@ class BatchSEDSimulator:
             if not trim:
                 lnu = lnu[:, self._sup[0]:self._sup[1]]
             return {"_lnu": lnu, "_z": z}
-        lnu, intrinsic = self._apply_emission(params, sfzh)
-        out = {"fnu_njy": self._observe(params, lnu), "_z": z}
+        with span("sed.dense"):
+            lnu, intrinsic = self._apply_emission(params, sfzh)
+            out = {"fnu_njy": self._observe(params, lnu), "_z": z}
         if want_spectra:
             out.update(lnu=lnu, lnu_intrinsic=intrinsic, sfh_mass=sfh_mass,
                        sfzh=sfzh)

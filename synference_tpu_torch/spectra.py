@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .runtime import span, traced
+
 __all__ = [
     "generate_constant_r_grid",
     "resample_spectrum",
@@ -224,19 +226,23 @@ class SpectralFeaturePipeline:
             self._norm_mask = ((self.obs_lam >= lo)
                                & (self.obs_lam <= hi)).float()
 
+    @traced("spectra.pipeline")
     def __call__(self, fnu, z):
         """(B, L) rest-frame f_ν + (B,) redshifts -> (B, L_out [+1])."""
         fnu = torch.atleast_2d(torch.as_tensor(fnu, dtype=torch.float32,
                                                device=self.device))
         z = torch.atleast_1d(torch.as_tensor(z, dtype=torch.float32,
                                              device=self.device))
-        smoothed = match_resolution_constant_r(fnu, self.model_r,
-                                               self.instrument_r, self.grid_r)
-        lam_obs = self.rest_lam[None, :] * (1.0 + z[:, None])  # (B, L)
-        if self.flux_conserving:
-            out = resample_spectrum_conserve(self.obs_lam, lam_obs, smoothed)
-        else:
-            out = _interp_rows(self.obs_lam, lam_obs, smoothed)
+        with span("spectra.lsf"):
+            smoothed = match_resolution_constant_r(
+                fnu, self.model_r, self.instrument_r, self.grid_r)
+        with span("spectra.resample"):
+            lam_obs = self.rest_lam[None, :] * (1.0 + z[:, None])  # (B, L)
+            if self.flux_conserving:
+                out = resample_spectrum_conserve(self.obs_lam, lam_obs,
+                                                 smoothed)
+            else:
+                out = _interp_rows(self.obs_lam, lam_obs, smoothed)
         if self.norm_window is not None:
             m = self._norm_mask
             norm = (out * m).sum(-1) / torch.clamp(m.sum(), min=1.0)
