@@ -39,6 +39,7 @@ AGN simulators, a composite) take the host path and the dense `simulate`.
 
 from __future__ import annotations
 
+import concurrent.futures
 import datetime
 import hashlib
 import inspect
@@ -363,10 +364,10 @@ _READBACK_SPANS = {"phot": "readback.photometry", "spec": "readback.spectra",
 
 
 def _to_host(field: str, v) -> np.ndarray:
-    """A batch's part of `field` as a host array, for runs that need the
-    host arrays batch by batch: a tensor is read back from its device (one
-    `readback.<field>` span: `readback.photometry`, `readback.spectra`,
-    ...), a host array is kept."""
+    """A batch's part of `field` as a host array, for runs that write each
+    batch to its chunk file (`resume_path`): a tensor is read back from its
+    device (one `readback.<field>` span: `readback.photometry`,
+    `readback.spectra`, ...), a host array is kept."""
     if isinstance(v, np.ndarray):
         return v
     with span(_READBACK_SPANS[field]):
@@ -387,8 +388,8 @@ def _remove_chunks(resume_path: str, n_chunks: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Copy-out of photometry-only runs: each batch's part lands in the run's
-# host arrays while the card computes the next batches
+# Copy-out of runs without `resume_path`: each batch's parts land in the
+# run's host arrays while the card computes the next batches
 # ---------------------------------------------------------------------------
 
 # pinned slots a generator keeps: one landing on the host, one copying, one
@@ -417,20 +418,28 @@ def _numpy_dtype(v) -> np.dtype:
 
 
 class _PinnedRing:
-    """`_RING_SLOTS` pinned host slots per field and a copy stream from
-    PyTorch's pool: allocated at the first run of a batch shape and kept by
-    the generator while its runs keep that shape, so pinned memory depends
-    on the batch and not on a run's length."""
+    """`_RING_SLOTS` pinned host slots per field, a copy stream from
+    PyTorch's pool, and one host thread (`lander`, started at its first
+    use) that moves landed slots into a run's arrays. The slots are
+    allocated at the first run of a batch shape and kept by the generator
+    while its runs keep that shape, so pinned memory depends on the batch
+    and not on a run's length."""
 
     def __init__(self):
         self.key = None
         self.stream = None
         self.slots: dict = {}  # field -> (slots, rows, width) pinned tensor
-        self.host: dict = {}  # field -> its numpy view
+        self.lander = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="synference-copy-out")
 
     @property
     def nbytes(self) -> int:
         return sum(t.nbytes for t in self.slots.values())
+
+    @staticmethod
+    def takes(v) -> bool:
+        """Whether a part leaves through the slots: a CUDA tensor."""
+        return isinstance(v, torch.Tensor) and v.is_cuda
 
     @staticmethod
     def key_of(rows: int, parts: dict) -> tuple:
@@ -449,24 +458,47 @@ class _PinnedRing:
         self.slots = {k: torch.empty((_RING_SLOTS, rows, v.shape[1]),
                                      dtype=v.dtype, pin_memory=True)
                       for k, v in parts.items()}
-        self.host = {k: t.numpy() for k, t in self.slots.items()}
         self.stream = torch.cuda.Stream(device)
         self.key = key
+
+    def copy(self, slot: int, rows: int, parts: dict):
+        """Enqueue the copies of `parts`' first `rows` rows into `slot` on
+        the copy stream, behind the compute stream's work so far; returns
+        the event that marks them done."""
+        stream = self.stream
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            for k, v in parts.items():
+                self.slots[k][slot, :rows].copy_(v, non_blocking=True)
+        return stream.record_event()
+
+
+class _Staged:
+    """A staged batch: its copy's event, its slot of each field, its row
+    offset, its device parts, and its landing once handed to the ring's
+    thread."""
+
+    def __init__(self, done, slots: dict, lo: int, parts: dict):
+        self.done, self.slots, self.lo, self.parts = done, slots, lo, parts
+        self.landing = None
 
 
 class _CopyOut:
     """Lands a run's parts in host arrays of its first `n` rows, batch by
     batch; pad rows past `n` are never copied. A CUDA part is copied on the
     ring's stream, once the compute stream has finished its batch, into a
-    pinned slot; the host moves a slot into the result rows once its copy
-    has finished (`event.query`), and waits for it (`readback.part`) only
-    to reuse the slot or at the end. Host tensors and arrays are written in
-    place. The result arrays are new for each run: the caller owns them."""
+    pinned slot. Once that copy has finished (`event.query`, looked at as
+    each batch is staged) the ring's thread moves the slot into the result
+    rows while this thread goes on with the next batches; the ring's thread
+    makes no CUDA call. This thread waits (`readback.part`) only to reuse a
+    slot or at the end, and lands a copy it had to wait for itself. Host
+    tensors and arrays are written in place. The result arrays are new for
+    each run: the caller owns them."""
 
     def __init__(self, n: int, batch_size: int, ring: _PinnedRing):
         self.n, self.batch_size, self.ring = n, batch_size, ring
         self.out: dict = {}
-        self.pending: list = []  # (done event, slot, row offset, parts)
+        self.pending: list = []  # `_Staged` batches not yet landed, in order
         self.staged = 0
 
     def stage(self, lo: int, parts: dict) -> None:
@@ -476,13 +508,13 @@ class _CopyOut:
             if k not in self.out:
                 self.out[k] = np.empty((self.n, v.shape[1]), _numpy_dtype(v))
         dev = {k: _rows_to_copy(v, rows) for k, v in parts.items()
-               if isinstance(v, torch.Tensor) and v.is_cuda}
+               if self.ring.takes(v)}
         if dev:
             key = _PinnedRing.key_of(self.batch_size, dev)
             # a new shape takes new slots; a slot is reused once landed
             while self.pending and (key != self.ring.key
                                     or len(self.pending) >= _RING_SLOTS):
-                self._land()
+                self._wait_oldest()
             self.ring.fit(key, dev)
         with span("library.stage"):
             for k, v in parts.items():
@@ -491,39 +523,55 @@ class _CopyOut:
                         v[:rows] if isinstance(v, np.ndarray)
                         else v[:rows].numpy())
             if dev:
-                self._enqueue(lo, rows, dev)
-            while self.pending and self.pending[0][0].query():
-                self._land()
+                slot = self.staged % _RING_SLOTS
+                self.staged += 1
+                # `dev` holds the parts' device memory until their copy
+                # has finished
+                self.pending.append(_Staged(
+                    self.ring.copy(slot, rows, dev),
+                    {k: self.ring.slots[k][slot] for k in dev}, lo, dev))
+            self._hand_over()
 
-    def _enqueue(self, lo: int, rows: int, dev: dict) -> None:
-        slot = self.staged % _RING_SLOTS
-        self.staged += 1
-        stream = self.ring.stream
-        stream.wait_stream(torch.cuda.current_stream(stream.device))
-        with torch.cuda.stream(stream):
-            for k, v in dev.items():
-                self.ring.slots[k][slot, :rows].copy_(v, non_blocking=True)
-        done = stream.record_event()
-        # `dev` holds the parts' device memory until their copy has finished
-        self.pending.append((done, slot, lo, dev))
+    def _hand_over(self) -> None:
+        """Give the ring's thread each batch whose copy has finished (the
+        copies finish in order), and drop the batches that have landed."""
+        for b in self.pending:
+            if b.landing is None:
+                if not b.done.query():
+                    break
+                b.landing = self.ring.lander.submit(self._land, b)
+        while (self.pending and self.pending[0].landing is not None
+               and self.pending[0].landing.done()):
+            self.pending.pop(0).landing.result()
 
-    def _land(self) -> None:
-        """Move the oldest pending slot into the result rows, first waiting
-        for its copy if it has not finished."""
-        done, slot, lo, dev = self.pending.pop(0)
-        if not done.query():
-            with span("readback.part"):
-                done.synchronize()
-        for k, v in dev.items():
+    def _land(self, b: _Staged) -> None:
+        """Move a batch's slot into its result rows; its copy has
+        finished. Torch's host copy lets go of the interpreter lock, so the
+        other thread runs on (numpy's assignment holds the lock for much of
+        its copy)."""
+        for k, v in b.parts.items():
             rows = v.shape[0]
-            self.out[k][lo:lo + rows] = (
-                self.ring.host[k][slot, :rows, :self.out[k].shape[1]])
+            torch.from_numpy(self.out[k][b.lo:b.lo + rows]).copy_(
+                b.slots[k][:rows, :self.out[k].shape[1]])
+
+    def _wait_oldest(self) -> None:
+        b = self.pending.pop(0)
+        if b.landing is None:
+            if not b.done.query():
+                with span("readback.part"):
+                    b.done.synchronize()
+            self._land(b)
+        elif b.landing.done():
+            b.landing.result()
+        else:
+            with span("readback.part"):
+                b.landing.result()
 
     def finish(self) -> dict:
-        """Wait for the last copies; {field: (n, width) host array}."""
+        """Wait for the last landings; {field: (n, width) host array}."""
         with span("library.to_host"):
             while self.pending:
-                self._land()
+                self._wait_oldest()
         return self.out
 
 
@@ -658,7 +706,7 @@ class LibraryGenerator:
         # "simulator", "short run", "cpu" or "unsupported"), and for a probe
         # both bodies' ms and the digest it was stored under
         self.last_probe: dict | None = None
-        # pinned slots through which photometry-only runs leave the card
+        # pinned slots through which runs without resume_path leave the card
         self._pinned = _PinnedRing()
         drawn = [_strip_log_prefix(k) if k in self.unlog_keys else k
                  for k in self.param_ranges]
@@ -927,39 +975,32 @@ class LibraryGenerator:
     def _run_batches(self, run, n: int, n_pad: int, batch_size: int,
                      meta: dict, resume_path: str | None,
                      beside: dict | None = None) -> dict:
-        """Run `run(row offset) -> {field: (B, ...) tensor}` over the
-        batches, resuming from and writing chunk files when `resume_path`
-        is set. Photometry alone, with the rows of each run-wide (n_pad,
-        ...) device tensor in `beside`, leaves the card part by part through
-        `_CopyOut` while the next batches run; spectra and supplementary
-        columns come to the host batch by batch (`_to_host`). The card is
-        still waited for once a batch: the window engine reads each batch's
-        window starts back (`BatchSEDSimulator._plan_windows`). Returns
-        {field: (n, ...) host array}; `beside`'s fields only where they
-        were copied out."""
+        """Run `run(row offset) -> {field: (B, width) part}` over the
+        batches. Without `resume_path` every field, with the rows of each
+        run-wide (n_pad, ...) device tensor in `beside`, leaves the card
+        part by part through `_CopyOut` while the next batches run. With
+        it, each batch comes to the host as it finishes (`_to_host`) to be
+        written to its chunk file, and a restart resumes from the files;
+        `beside` is not copied. Returns {field: (n, width) host array}."""
         n_batches = n_pad // batch_size
-        done = ([] if resume_path is None
-                else _load_chunks(resume_path, meta))[:n_batches]
-        parts = list(done)
-        copy = _CopyOut(n, batch_size, self._pinned)
-        for ci in range(len(done), n_batches):
-            lo = ci * batch_size
-            with span("library.batch"):
-                out = run(lo)
-            if resume_path is None and list(out) == ["phot"]:
+        if resume_path is None:
+            copy = _CopyOut(n, batch_size, self._pinned)
+            for lo in range(0, n_pad, batch_size):
+                with span("library.batch"):
+                    out = run(lo)
                 for k, v in (beside or {}).items():
                     out[k] = v[lo:lo + batch_size]
                 copy.stage(lo, out)
-                continue
+            return copy.finish()
+        parts = _load_chunks(resume_path, meta)[:n_batches]
+        for ci in range(len(parts), n_batches):
+            with span("library.batch"):
+                out = run(ci * batch_size)
             with span("library.to_host"):
                 arrays = {k: _to_host(k, v) for k, v in out.items()}
-            if resume_path is not None:
-                _save_chunk(resume_path, ci, meta, arrays)
+            _save_chunk(resume_path, ci, meta, arrays)
             parts.append(arrays)
-        if resume_path is not None:
-            _remove_chunks(resume_path, n_batches)
-        if not parts:
-            return copy.finish()
+        _remove_chunks(resume_path, n_batches)
         with span("library.to_host"):
             return {k: np.concatenate([p[k] for p in parts])[:n]
                     for k in parts[0]}

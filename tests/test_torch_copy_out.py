@@ -1,17 +1,33 @@
-"""How photometry-only runs leave the device (`library._CopyOut`).
+"""How runs without `resume_path` leave the device (`library._CopyOut`).
 
-A photometry-only run without `resume_path` lands each batch's part, and
-on the device sampler its rows of θ, in host arrays of the run's first n
+Every field of such a run (photometry; spectra, the pipeline's features
+or the raw f_ν; supplementary columns and emission lines), and on the
+device sampler its rows of θ, lands in host arrays of the run's first n
 rows, part by part; on the card through a ring of pinned slots on a copy
 stream (`tests/test_torch_cuda.py`), on the CPU in place. The result is
 bitwise the concatenation of the parts cut to n rows, for n a multiple of
 the batch and ragged, and for every layout a part comes in: K1's column
-slice of a wider buffer, a contiguous tensor, a host array. Each call
-returns arrays of its own. Runs with `resume_path` still read each batch
-back as it finishes (`readback.photometry`, and θ once at the end).
+slice of a wider buffer, a contiguous tensor, a host array; and bitwise
+what a run with `resume_path` gives, field by field, for spectra with and
+without a `SpectralFeaturePipeline` and with supplementary quantities and
+emission lines. Each call returns arrays of its own. Runs with
+`resume_path` still read each batch back as it finishes
+(`readback.photometry`, `readback.spectra`, and θ once at the end).
+
+The ring's thread lands each slot whose copy has finished while the
+caller stages the next batches, and the caller lands a copy it had to
+wait for; a slot is copied into again only after it has landed. A ring
+over host memory whose copies are made at once and whose events report
+them finished a random while later holds that under many runs at once,
+with the interpreter switching threads every microsecond: a slot reused
+too early shows as wrong rows.
 """
 
+import concurrent.futures
 import json
+import os
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -164,3 +180,167 @@ def test_host_sampler_photometry_takes_the_copy_out(gen, tmp_path):
     ref = gen.generate(resume_path=str(tmp_path / "ck"), **kw)
     for key in ("parameters", "photometry"):
         np.testing.assert_array_equal(lib[key], ref[key])
+
+
+# the spectra runs: a log-uniform grid the pipeline accepts, emission
+# lines from its tables
+SPEC_BATCH = 32
+
+
+@pytest.fixture(scope="module")
+def spec_gens():
+    grid = tt.make_synthetic_grid(n_ages=8, n_mets=4, n_wav=2048,
+                                  lam_min=500.0, lam_max=1.0e5)
+    filt = tt.FilterSet([tt.tophat_filter("F150W", 15000., 3300.),
+                         tt.tophat_filter("F277W", 27700., 7000.)])
+    sim = tt.BatchSEDSimulator(grid, filt, PNAMES, sfh="lognormal",
+                               zdist="delta", emission=tt.EmissionConfig(),
+                               device="cpu")
+    pipe = tt.SpectralFeaturePipeline(
+        grid.lam, tt.generate_constant_r_grid(100, 6000, 40000),
+        instrument_r=100, norm_window=(15000, 25000), device="cpu")
+    lines = tuple(grid.lines["ids"][3:5])
+    kinds = {"pipeline": dict(spectral_pipeline=pipe), "raw": {},
+             "supp_lines": dict(spectral_pipeline=pipe,
+                                supplementary=("m_uv", "beta_uv"),
+                                emission_lines=lines)}
+    return {k: tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
+                                   device="cpu", **kw)
+            for k, kw in kinds.items()}
+
+
+_SPEC_KEYS = ("parameters", "photometry", "spectra", "wavelengths",
+              "supplementary_parameters")
+
+
+@pytest.mark.parametrize("kind", ["pipeline", "raw", "supp_lines"])
+@pytest.mark.parametrize("batches", [1, 2, 5])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_spectra_runs_take_the_copy_out(spec_gens, tmp_path, kind, batches,
+                                        ragged):
+    """Every field of a spectra run stages once a batch, reads nothing
+    back field by field, and equals the run through `resume_path`."""
+    gen = spec_gens[kind]
+    n = batches * SPEC_BATCH - (5 if ragged else 0)
+    kw = dict(n=n, batch_size=SPEC_BATCH, seed=batches, want_spectra=True)
+    with trace_profile(str(tmp_path / "trace")):
+        lib = gen.generate(**kw)
+    names = _program_names(tmp_path / "trace")
+    assert names.count("library.stage") == batches
+    assert names.count("library.to_host") == 1
+    assert not [s for s in names if s.startswith("readback.")
+                and s != "readback.part"]
+    ref = gen.generate(resume_path=str(tmp_path / "ck"), **kw)
+    keys = [k for k in _SPEC_KEYS if k in ref]
+    assert keys == [k for k in _SPEC_KEYS if k in lib]
+    assert ("supplementary_parameters" in keys) == (kind == "supp_lines")
+    for key in keys:
+        assert lib[key].dtype == ref[key].dtype
+        np.testing.assert_array_equal(lib[key], ref[key])
+    assert lib["spectra"].shape[1] == n
+    assert np.isfinite(lib["spectra"]).all()
+
+
+def test_second_spectra_call_leaves_first_arrays(spec_gens):
+    gen = spec_gens["supp_lines"]
+    kw = dict(n=3 * SPEC_BATCH - 7, batch_size=SPEC_BATCH,
+              want_spectra=True)
+    first = gen.generate(seed=1, **kw)
+    keys = ("spectra", "photometry", "supplementary_parameters")
+    kept = {k: first[k].copy() for k in keys}
+    for seed in (1, 2):
+        again = gen.generate(seed=seed, **kw)
+        for k in keys:
+            np.testing.assert_array_equal(first[k], kept[k])
+            assert not np.shares_memory(first[k], again[k])
+
+
+def test_spectra_resume_branch_reads_each_batch_back(spec_gens, tmp_path):
+    """With `resume_path` a spectra run reads each field of each batch
+    back as it finishes, stages nothing, and leaves no chunk file."""
+    batches = 3
+    prefix = tmp_path / "run" / "ck"
+    prefix.parent.mkdir()
+    with trace_profile(str(tmp_path / "trace")):
+        spec_gens["pipeline"].generate(
+            n=batches * SPEC_BATCH - 3, batch_size=SPEC_BATCH, seed=8,
+            want_spectra=True, resume_path=str(prefix))
+    names = _program_names(tmp_path / "trace")
+    assert names.count("readback.spectra") == batches
+    assert names.count("readback.photometry") == batches
+    assert "library.stage" not in names and "readback.part" not in names
+    assert list(prefix.parent.iterdir()) == []
+
+
+class _SlowEvent:
+    """A copy's event that finishes `seconds` after it is recorded."""
+
+    def __init__(self, seconds: float):
+        self.at = time.monotonic() + seconds
+
+    def query(self) -> bool:
+        return time.monotonic() >= self.at
+
+    def synchronize(self) -> None:
+        time.sleep(max(0.0, self.at - time.monotonic()))
+
+
+class _HostRing(tl._PinnedRing):
+    """The ring over host memory: CPU tensors take the slots, each copy is
+    made at once, and its event reports it finished a random while later."""
+
+    def __init__(self, seed: int):
+        super().__init__()
+        self.rng = np.random.default_rng(seed)
+
+    @staticmethod
+    def takes(v) -> bool:
+        return isinstance(v, torch.Tensor)
+
+    def fit(self, key, parts) -> None:
+        if key != self.key:
+            _, rows, _ = key
+            self.slots = {k: torch.empty((tl._RING_SLOTS, rows, v.shape[1]),
+                                         dtype=v.dtype)
+                          for k, v in parts.items()}
+            self.key = key
+
+    def copy(self, slot, rows, parts):
+        for k, v in parts.items():
+            self.slots[k][slot, :rows].copy_(v)
+        return _SlowEvent(float(self.rng.uniform(0.0, 2e-3)))
+
+
+def _ring_run(seed: int) -> bool:
+    """Two runs of ragged n through one host ring: every row in place."""
+    ring, bs = _HostRing(seed), 16
+    for n in (7 * bs - 5, 4 * bs):
+        rng = np.random.default_rng(seed + n)
+        phot = torch.as_tensor(rng.normal(size=(n + bs, 8))
+                               .astype(np.float32))
+        spec = torch.as_tensor(rng.normal(size=(n + bs, 40))
+                               .astype(np.float32))
+        copy = tl._CopyOut(n, bs, ring)
+        for lo in range(0, n, bs):
+            copy.stage(lo, {"phot": phot[lo:lo + bs, :7],
+                            "spec": spec[lo:lo + bs]})
+        got = copy.finish()
+        if not (np.array_equal(got["phot"], phot[:n, :7].numpy())
+                and np.array_equal(got["spec"], spec[:n].numpy())):
+            return False
+    ring.lander.shutdown()
+    return True
+
+
+def test_ring_thread_lands_every_slot_under_contention():
+    runs = 4 * (os.cpu_count() or 1)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(runs) as pool:
+            results = [f.result(timeout=60)
+                       for f in [pool.submit(_ring_run, i)
+                                 for i in range(runs)]]
+    finally:
+        sys.setswitchinterval(old)
+    assert results == [True] * runs

@@ -45,7 +45,9 @@ The quickstart slice on the card: the native OOD scores (float64) and
 `compute_supplementary` against the CPU on the same simulate() outputs,
 device-sampler resume bit for bit, nine batches copied out through the
 pinned slots bit for bit against per-part reads (with the slots' pinned
-bytes fixed as n grows), the "auto" window-body probe (CUDA
+bytes fixed as n grows), the same for a spectra run through a
+`SpectralFeaturePipeline`, its features and photometry both through the
+slots, the "auto" window-body probe (CUDA
 events, cached on the simulator and in its file, a failing K1 raising), and
 "auto" on a run too short to probe taking K1 once per batch.
 
@@ -938,6 +940,44 @@ def test_copy_out_through_pinned_slots_is_bitwise(cuda, tmp_path):
         assert gen._pinned.nbytes == held
     for key, val in kept.items():
         np.testing.assert_array_equal(lib[key], val)
+
+
+@pytest.mark.cuda
+def test_copy_out_spectra_through_pinned_slots_is_bitwise(cuda, tmp_path):
+    """Four spectra batches of 128 rows, n ragged, through a pipeline:
+    features and photometry leave the card through the pinned slots, with
+    the bits of a run that reads each batch back (`resume_path`); the
+    pinned bytes do not grow with n."""
+    grid = tt.make_synthetic_grid(n_ages=16, n_mets=4, n_wav=2048,
+                                  lam_min=500.0, lam_max=1.0e5)
+    filters = tt.FilterSet([tt.tophat_filter(c, ct, w) for c, ct, w in
+                            zip(_CODES, _CENTERS, _WIDTHS)])
+    sim = tt.BatchSEDSimulator(grid, filters, PNAMES,
+                               emission=tt.EmissionConfig(), device=cuda)
+    pipe = tt.SpectralFeaturePipeline(
+        grid.lam, tt.generate_constant_r_grid(100, 6000, 40000),
+        instrument_r=100, norm_window=(15000, 25000), device=cuda)
+    prior = {"log10_mass": (7.5, 11.0), "redshift": (0.1, 6.0),
+             "log10_peak_age": (7.6, 9.2), "tau": (0.1, 1.2),
+             "log10_metallicity": (-3.9, -1.6), "tau_v": (0.0, 2.0)}
+    gen = tt.LibraryGenerator(sim, prior, unlog_keys=["log10_peak_age"],
+                              spectral_pipeline=pipe, device=cuda)
+    args = dict(batch_size=128, seed=7, want_spectra=True)
+    n = 4 * 128 - 50
+    lib = gen.generate(n=n, **args)
+    ref = gen.generate(n=n, resume_path=str(tmp_path / "ck"), **args)
+    for key in ("parameters", "photometry", "spectra"):
+        assert lib[key].shape[1] == n
+        np.testing.assert_array_equal(lib[key], ref[key])
+    assert np.isfinite(lib["spectra"]).all()
+    slots = gen._pinned.slots
+    assert set(slots) == {"phot", "spec"}
+    assert slots["spec"].shape == (3, 128, lib["spectra"].shape[0])
+    assert slots["phot"].shape[:2] == (3, 128)
+    held = gen._pinned.nbytes
+    for m in (2 * 128 + 1, 9 * 128 - 7):
+        gen.generate(n=m, **args)
+        assert gen._pinned.nbytes == held
 
 
 @pytest.mark.cuda

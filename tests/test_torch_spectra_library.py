@@ -42,8 +42,10 @@ here).
 
 The spans of the spectra path (`sed.dense`, `sed.band_integral`,
 `spectra.pipeline` with `spectra.lsf` and `spectra.resample`,
-`library.draw_host`, one `readback.<field>` per field and batch) appear
-while a profiler records, and no profiler range is made otherwise.
+`library.draw_host`, one `library.stage` a batch and one `library.to_host`
+a call, as the parts leave the card through `library._CopyOut` with no
+`readback.<field>`) appear while a profiler records, and no profiler range
+is made otherwise.
 """
 
 import json
@@ -201,10 +203,12 @@ def test_spans_appear_while_a_profiler_records(case, tmp_path):
     names = _program_names(tmp_path)
     batches = -(-N // BATCH)
     for name in ("sed.dense", "sed.band_integral", "spectra.pipeline",
-                 "spectra.lsf", "spectra.resample", "readback.photometry",
-                 "readback.spectra"):
+                 "spectra.lsf", "spectra.resample", "library.stage"):
         assert names.count(name) == batches, name
+    for name in ("readback.photometry", "readback.spectra"):
+        assert name not in names
     assert names.count("library.draw_host") == 1
+    assert names.count("library.to_host") == 1
     for key in ("parameters", "photometry", "spectra"):
         np.testing.assert_array_equal(lib[key], case["lib"][key])
 
