@@ -68,13 +68,9 @@ unsorted θ):
    finite and, on 256 rows, within the CPU tests' end-to-end bounds of the
    same rows on the CPU; where h5py imports, `save` → `init_from_hdf5` →
    `simulator_from_library` (else one line says the HDF5 step did not run);
-12. "auto" and resume: `generate(2^20, zsorted_fused="auto")` on the
-   north-star model probes both window bodies (both times by CUDA events,
-   the choice and its digest printed), counts K1's launches, and equals
-   phase 4's bits when the fused body wins (within the staged-body bound
-   when it loses); a second generator on the simulator does not probe; a
-   2-batch run at the defaults takes K1 without a probe; a
-   4-batch run interrupted after batch 2 by a deliberate exception resumes
+12. defaults and resume: `generate(2^20)` at the defaults on the
+   north-star model launches K1 once per batch and equals phase 4's bits;
+   a 2-batch run at the defaults launches K1 twice; a 4-batch run interrupted after batch 2 by a deliberate exception resumes
    from its chunk files to the bits of an uninterrupted run;
 13. features: normalisation by a filter, `missing_fraction=0.1` with flag
    columns and one colour on the phase-4 library on the card, and
@@ -1285,66 +1281,33 @@ def library_file(tt, dev):
 
 
 def auto_and_resume(tt, sim, gen, k1, lib4):
-    """Phase 12: "auto" on the north-star library, and chunk resume."""
-    from synference_tpu_torch import library as tl
-
+    """Phase 12: generate at the defaults on the north-star library, and
+    chunk resume."""
     n_batch = int(np.ceil(N_LIBRARY / BATCH))
     with tempfile.TemporaryDirectory() as tmp:
-        tl.ZSORTED_PROBE_FILE = os.path.join(tmp, "zsorted_probe.json")
         k1.fused_window_photometry.launches = 0
         t0 = time.perf_counter()
-        lib = gen.generate(n=N_LIBRARY, seed=0, zsorted_fused="auto")
+        lib = gen.generate(n=N_LIBRARY, seed=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = k1.fused_window_photometry.launches
-        rec = gen.last_probe
-        check(rec is not None and rec["source"] == "probe",
-              f"auto did not probe: {rec}")
-        fused = rec["fused"]
-        log(f"[auto] generate(n={N_LIBRARY}, zsorted_fused='auto') "
-            f"{wall:.3f} s with the probe: staged body {rec['staged_ms']:.4f}"
-            f" ms, fused body (K1) {rec['fused_ms']:.4f} ms per batch of "
-            f"{BATCH} (CUDA events, one warm call each); choice "
-            f"{'fused' if fused else 'staged'}; digest {rec['digest']}; K1 "
-            f"launches {launches}")
-        check(launches == (n_batch + 2 if fused else 2),
-              f"K1 launched {launches} times")
-        if fused:
-            check(np.array_equal(lib["photometry"], lib4["photometry"]),
-                  "auto (fused) differs from phase 4's bits")
-            log("[auto] photometry equals phase 4's bits")
-        else:
-            med, p99, mx, _ = rel_stats(torch.as_tensor(lib["photometry"].T),
-                                        torch.as_tensor(lib4["photometry"].T))
-            log(f"[auto] staged vs phase 4: rel median={med:.3e} "
-                f"p99={p99:.3e} max={mx:.3e}")
-            check(p99 < TOL_STAGED_P99 and mx < TOL_STAGED_MAX,
-                  "auto (staged) disagrees with phase 4")
-        again = tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
-                                    device=sim.device)
+        log(f"[auto] generate(n={N_LIBRARY}) at the defaults {wall:.3f} s, "
+            f"K1 launches {launches}")
+        check(launches == n_batch, f"K1 launched {launches} times, not "
+              f"once for each of {n_batch} batches")
+        check(all(np.array_equal(lib[k], lib4[k])
+                  for k in ("parameters", "photometry")),
+              "generate at the defaults differs from phase 4's bits")
+        log("[auto] θ and photometry equal phase 4's bits")
         k1.fused_window_photometry.launches = 0
-        again.generate(n=N_LIBRARY, seed=0)
+        gen.generate(n=2 * BATCH, seed=7)
         torch.cuda.synchronize()
-        check(again.last_probe["source"] == "simulator",
-              "a second generator probed again")
-        check(k1.fused_window_photometry.launches == (n_batch if fused
-                                                      else 0),
-              "the second run took another body")
-        log(f"[auto] a second generator on the simulator: no probe, K1 "
-            f"launches {k1.fused_window_photometry.launches}")
-        sim.__dict__.pop("_zsorted_fused_probe")
-        short = tt.LibraryGenerator(sim, PRIOR, unlog_keys=["log10_peak_age"],
-                                    device=sim.device)
-        k1.fused_window_photometry.launches = 0
-        short.generate(n=2 * BATCH, seed=7)
-        torch.cuda.synchronize()
-        check(short.last_probe == {"source": "short run", "fused": True}
-              and k1.fused_window_photometry.launches == 2,
-              f"a 2-batch run at the defaults: {short.last_probe}, K1 "
-              f"launches {k1.fused_window_photometry.launches}")
-        log("[auto] a 2-batch run at the defaults: no probe, K1 launches 2")
+        check(k1.fused_window_photometry.launches == 2,
+              f"a 2-batch run at the defaults launched K1 "
+              f"{k1.fused_window_photometry.launches} times")
+        log("[auto] a 2-batch run at the defaults: K1 launches 2")
 
-        args = dict(n=4 * BATCH, seed=5, zsorted_fused=fused)
+        args = dict(n=4 * BATCH, seed=5)
         whole = gen.generate(**args)
         prefix = os.path.join(tmp, "resume")
         calls = [0]
@@ -3332,8 +3295,8 @@ def paper63_twin(tt, k1, pk, sim, dev):
                     max_epochs=P63_EPOCHS, n_nets=1, stop_after=P63_EPOCHS)
     counts = _counts(k1, pk)
     log(f"[paper63] {res['n_library']} rows x {res['n_filters']} bands, "
-        f"{res['feature_dim']} features: timings {res['timings']}; window "
-        f"body {res['window_body']}; K1 launches {res['k1_launches']}; TARP "
+        f"{res['feature_dim']} features: timings {res['timings']}; K1 "
+        f"launches {res['k1_launches']}; TARP "
         f"{res['tarp_deviation']:.4f}, R2 {res['r2']} after {res['epochs']} "
         f"epochs (readings)")
     check(res["n_filters"] == 63 and res["feature_dim"] == 126,
@@ -3354,7 +3317,6 @@ def parallel_phase(tt, k1, pk, sim, gen, fitter, dev):
 
     import torch.distributed as dist
 
-    from synference_tpu_torch import library as tl
     from synference_tpu_torch import parallel as par
     from synference_tpu_torch.flows.base import tree_leaves
     from synference_tpu_torch.train import (_EnsembleState, _npe_loss,
@@ -3376,18 +3338,12 @@ def parallel_phase(tt, k1, pk, sim, gen, fitter, dev):
             counts[i] += c
         return out
 
-    # "auto" probes both window bodies once (4 batches) and the simulator
-    # keeps the choice, so both runs take the same body
-    probe_file = tl.ZSORTED_PROBE_FILE
-    with tempfile.TemporaryDirectory() as tmp:
-        tl.ZSORTED_PROBE_FILE = os.path.join(tmp, "zsorted_probe.json")
-        ref = gen.generate(PAR_ROWS, batch_size=BATCH, seed=5,
-                           device_sampling=False)
-        lib, secs = _timed(lambda: counted(lambda: par.sharded_generate(
-            gen, PAR_ROWS, mesh, batch_size=BATCH, seed=5)))
-    tl.ZSORTED_PROBE_FILE = probe_file
+    ref = gen.generate(PAR_ROWS, batch_size=BATCH, seed=5,
+                       device_sampling=False)
+    lib, secs = _timed(lambda: counted(lambda: par.sharded_generate(
+        gen, PAR_ROWS, mesh, batch_size=BATCH, seed=5)))
     log(f"[parallel] sharded_generate({PAR_ROWS}) z-sorted, 1 NCCL rank: "
-        f"{secs:.3f} s, K1 launches {counts[0]} ({gen.last_probe})")
+        f"{secs:.3f} s, K1 launches {counts[0]}")
     check(np.array_equal(lib["photometry"], ref["photometry"])
           and np.array_equal(lib["parameters"], ref["parameters"]),
           "sharded z-sorted generate differs from generate")

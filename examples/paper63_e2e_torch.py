@@ -108,8 +108,8 @@ def main(n_library: int, out: str | None, device: str, grid=None,
     k1_launches = fused_sed.fused_window_photometry.launches - k1_before
     timings["generation_s"] = round(clock() - t0, 1)
     print(f"[{timings['generation_s']}s] generated {n_library:,} x {n_f} "
-          f"band fluxes (window body {gen.last_probe}, {k1_launches} K1 "
-          "launches; kernel build included)", flush=True)
+          f"band fluxes ({k1_launches} K1 launches; kernel build "
+          "included)", flush=True)
 
     t0 = clock()
     fitter = tt.SBIFitter.from_library(lib, device=dev)
@@ -147,7 +147,6 @@ def main(n_library: int, out: str | None, device: str, grid=None,
         "device": str(dev),
         "card": card,
         "epochs": len(res.val_losses),
-        "window_body": gen.last_probe,
         "k1_launches": int(k1_launches),
         "timings": timings,
         "tarp_deviation": report["tarp_deviation"],

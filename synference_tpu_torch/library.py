@@ -19,22 +19,23 @@ Counterpart of `synference_tpu/library.py`. Two generation paths, chosen by
   from its offset in the run, so particle SFZHs follow the rows' global
   indices.
 
-The window body of z-sorted runs is K1 (the fused body) or the staged body;
-`zsorted_fused="auto"` times both once per configuration on the card and
-keeps the faster, and takes K1 for runs too short to repay the timing
-(`_choose_zsorted_fused`). Libraries are written and read
-in the reference's HDF5 schema, with a `Model` group from which
-`simulator_from_library` rebuilds the simulator; files are interchangeable
-with the JAX package's. h5py and scipy are imported where they are used.
+The window body of z-sorted runs is K1 (the fused body) or the staged body,
+by one rule (`_fused_window_body`): `zsorted_fused="auto"` takes K1 on the
+card wherever K1 runs the model, and the staged body on the CPU and for
+models K1 does not run. Libraries are written and read in the reference's
+HDF5 schema, with a `Model` group from which `simulator_from_library`
+rebuilds the simulator; files are interchangeable with the JAX package's.
+h5py and scipy are imported where they are used.
 
 Deliberate differences from the JAX package: where it warns and falls back
 (an unsupported `zsorted_fused=True`, a `device_sampling=True` it cannot
 honour) this package raises; device-sampler resume chunks carry their own
 tag, because a `torch.Generator` draws other θ than `jax.random`; an unknown
 simulator class in a library file (not in `sed.SIMULATOR_REGISTRY`)
-raises instead of building the base simulator; and the window-body probe
-propagates a kernel failure. Simulators without the window engine (the
-AGN simulators, a composite) take the host path and the dense `simulate`.
+raises instead of building the base simulator; and "auto" chooses by that
+rule, where the JAX package times both bodies once per configuration.
+Simulators without the window engine (the AGN simulators, a composite) take
+the host path and the dense `simulate`.
 """
 
 from __future__ import annotations
@@ -45,7 +46,6 @@ import hashlib
 import inspect
 import json
 import os
-import pathlib
 
 import numpy as np
 import torch
@@ -59,23 +59,12 @@ from .sed import BatchSEDSimulator, EmissionConfig
 __all__ = ["auto_batch_size", "draw_from_hypercube",
            "draw_from_hypercube_device", "save_library_hdf5",
            "load_library_hdf5", "LibraryCreator", "LibraryGenerator",
-           "grid_content_hash", "simulator_from_library",
-           "zsorted_probe_digest"]
+           "grid_content_hash", "simulator_from_library"]
 
-# where "auto" keeps its window-body choices across processes (a build
-# artifact, like the kernel library beside it)
-ZSORTED_PROBE_FILE = (pathlib.Path(__file__).resolve().parent / "_build"
-                      / "zsorted_probe.json")
 # resume-chunk tags: θ of the host sampler is the JAX package's, the device
 # sampler's is not (the JAX package tags its own device chunks "device")
 _HOST_SAMPLER = "host"
 _DEVICE_SAMPLER = "torch-device"
-# "auto" probes only runs long enough to repay timing both bodies; shorter
-# runs on the card take K1
-_PROBE_MIN_BATCHES = 4
-# the Python side of both window bodies (the staged body and K1's wrapper)
-_WINDOW_BODY_MODULES = ("sed.py", "ops/fused_sed.py",
-                        "ops/photometry_kernel.py")
 
 
 def _supports(sim, gate: str) -> bool:
@@ -84,6 +73,22 @@ def _supports(sim, gate: str) -> bool:
     without the engine (a composite) and, by the gate itself, for a
     subclass with its own forward model (the AGN simulators)."""
     return getattr(sim, gate, lambda: False)()
+
+
+def _fused_window_body(sim, requested) -> bool:
+    """The window body of a z-sorted run of `sim`: True runs K1, False the
+    staged body. `requested` True or False is honoured, and True on a model
+    K1 does not run raises (the JAX package warns and takes the staged
+    body). "auto" takes K1 on the card wherever K1 runs the model, and the
+    staged body on the CPU and for models K1 does not run."""
+    k1 = _supports(sim, "_window_mega_supported")
+    if requested == "auto":
+        return sim.device.type == "cuda" and k1
+    if requested is True and not k1:
+        raise ValueError(
+            "zsorted_fused=True but the fused window body does not "
+            "support this simulator (see _window_mega_supported)")
+    return bool(requested)
 
 
 def _takes_row_offset(fn) -> bool:
@@ -576,80 +581,6 @@ class _CopyOut:
 
 
 # ---------------------------------------------------------------------------
-# The window-body probe
-# ---------------------------------------------------------------------------
-
-
-def _window_body_code_digest() -> str:
-    """sha256 over the code of both window bodies: the kernel sources (the
-    identity of K1's build) and the Python modules of the staged body and
-    K1's wrapper."""
-    from .ops._cuda import source_digest
-
-    pkg = pathlib.Path(__file__).resolve().parent
-    h = hashlib.sha256(source_digest().encode())
-    for name in _WINDOW_BODY_MODULES:
-        h.update(name.encode() + (pkg / name).read_bytes())
-    return h.hexdigest()
-
-
-def zsorted_probe_digest(sim: BatchSEDSimulator, plan: tuple, batch: int,
-                         device_name: str) -> str:
-    """sha256 key of a persisted "auto" choice: the grid's content, its
-    width, the filter codes, the plan (sub, kc, w_cols), the batch rows, the
-    card's name (a choice measured on one card is not carried to another)
-    and the code of both window bodies (a rewrite of either voids the
-    choice). Equal across processes for the same configuration and code."""
-    record = [grid_content_hash(sim.grid), int(sim.grid.n_wav),
-              list(sim.filters.codes), [int(v) for v in plan], int(batch),
-              str(device_name), _window_body_code_digest()]
-    return hashlib.sha256(json.dumps(record).encode()).hexdigest()
-
-
-def _probe_ms(fn) -> float:
-    """ms of one warm call of `fn` on the card, by CUDA events."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
-
-
-def _probe_bodies(sim: BatchSEDSimulator, theta, sub: int, kc: int,
-                  w_cols: int) -> dict:
-    """Time one warm batch through the staged and the fused window body:
-    {"staged_ms", "fused_ms", "fused": the fused body is faster}. A body
-    that fails raises."""
-    record = {}
-    for name, fused in (("staged_ms", False), ("fused_ms", True)):
-        record[name] = _probe_ms(lambda f=fused: sim.photometry_zsorted_device(
-            theta, sub_chunk=sub, kc=kc, w_cols=w_cols, fused=f))
-    record["fused"] = bool(record["fused_ms"] < record["staged_ms"])
-    return record
-
-
-def _read_probe_file() -> dict:
-    try:
-        with open(ZSORTED_PROBE_FILE) as f:
-            return json.load(f)
-    except FileNotFoundError:
-        return {}
-
-
-def _write_probe_file(digest: str, record: dict) -> None:
-    stored = _read_probe_file()
-    stored[digest] = record
-    path = pathlib.Path(ZSORTED_PROBE_FILE)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    tmp.write_text(json.dumps(stored, indent=1))
-    os.replace(tmp, path)
-
-
-# ---------------------------------------------------------------------------
 # Library generation through the batch simulator
 # ---------------------------------------------------------------------------
 
@@ -702,10 +633,6 @@ class LibraryGenerator:
         self.emission_lines = tuple(emission_lines)
         self.engine = engine
         self.embed_grid = bool(embed_grid)
-        # the last "auto" resolution: its source ("probe", "file",
-        # "simulator", "short run", "cpu" or "unsupported"), and for a probe
-        # both bodies' ms and the digest it was stored under
-        self.last_probe: dict | None = None
         # pinned slots through which runs without resume_path leave the card
         self._pinned = _PinnedRing()
         drawn = [_strip_log_prefix(k) if k in self.unlog_keys else k
@@ -756,7 +683,9 @@ class LibraryGenerator:
         when the run ends.
 
         `zsorted_fused`: the window body of z-sorted runs; True (K1), False
-        (the staged body) or "auto" (see `_choose_zsorted_fused`).
+        (the staged body) or "auto": K1 on the card wherever K1 runs the
+        model, else the staged body. True on a model K1 does not run
+        raises.
 
         `pmapped_fn`: a batch function θ (B, P) on the device -> dict with
         "photometry_njy" (and "fnu_njy" with spectra, the `simulate` outputs
@@ -812,7 +741,6 @@ class LibraryGenerator:
             theta = self.sample_parameters(n,
                                            rng=np.random.default_rng(seed))
         n_pad = int(np.ceil(n / batch_size) * batch_size)
-        n_batches = n_pad // batch_size
         batch_fn = None
         if pmapped_fn is not None:
             row_order = "input"
@@ -837,9 +765,7 @@ class LibraryGenerator:
                 self._run_span(theta_dev[:, iz], batch_size, sub))
             if kc < sim._n_knots and w_cols < sim._l_sup:
                 theta, row_order = ordered, "zsorted"
-                fuse = self._choose_zsorted_fused(
-                    zsorted_fused, sub, kc, w_cols, theta_dev[:batch_size],
-                    n_batches)
+                fuse = _fused_window_body(sim, zsorted_fused)
 
                 def batch_fn(t, i):
                     return {"photometry_njy": sim.photometry_zsorted_device(
@@ -847,7 +773,7 @@ class LibraryGenerator:
                         w_cols=w_cols, fused=fuse)}
         if batch_fn is None:
             theta_dev, row_order = self._padded(theta, n_pad), "input"
-            self._check_fused_request(zsorted_fused)
+            _fused_window_body(sim, zsorted_fused)  # True on no K1 raises
 
             def batch_fn(t, i):
                 return sim.simulate(t, want_spectra=wide, row_offset=i)
@@ -912,15 +838,14 @@ class LibraryGenerator:
         theta, sub, bs, kc, w_cols = self._draw_sorted(n, batch_size, seed)
         n_pad = theta.shape[0]
         if kc < sim._n_knots and w_cols < sim._l_sup:
-            fuse = self._choose_zsorted_fused(zsorted_fused, sub, kc, w_cols,
-                                              theta[:bs], n_pad // bs)
+            fuse = _fused_window_body(sim, zsorted_fused)
 
             def chunk_fn(t, row_offset):
                 return sim.photometry_zsorted_device(
                     t, sub_chunk=sub, row_offset=row_offset, kc=kc,
                     w_cols=w_cols, fused=fuse)
         else:  # the window is the whole table: the dense path
-            self._check_fused_request(zsorted_fused)
+            _fused_window_body(sim, zsorted_fused)  # True on no K1 raises
             chunk_fn = sim.photometry
         meta = {"n": n, "batch_size": bs, "seed": seed, "order": "zsorted",
                 "sampler": _DEVICE_SAMPLER}
@@ -1004,65 +929,6 @@ class LibraryGenerator:
         with span("library.to_host"):
             return {k: np.concatenate([p[k] for p in parts])[:n]
                     for k in parts[0]}
-
-    # -- the window body ----------------------------------------------------
-    def _check_fused_request(self, requested) -> None:
-        """An explicit fused body on a model K1 does not run raises (the JAX
-        package warns and takes the staged body)."""
-        if requested is True and not _supports(self.simulator,
-                                               "_window_mega_supported"):
-            raise ValueError(
-                "zsorted_fused=True but the fused window body does not "
-                "support this simulator (see _window_mega_supported)")
-
-    def _choose_zsorted_fused(self, requested, sub: int, kc: int,
-                              w_cols: int, probe_theta, n_batches: int) -> bool:
-        """The window body of a z-sorted run: True runs K1, False the staged
-        body.
-
-        True/False are honoured (True on a model K1 does not run raises).
-        "auto" takes the staged body on the CPU and where a model K1 does
-        not run. On the card it looks up the choice on the simulator under
-        (sub, kc, w_cols, batch rows); failing that, a run of fewer than 4
-        batches takes K1 (the faster body in every H100 reading of PERF.md)
-        without timing anything, and a longer run
-        looks in `ZSORTED_PROBE_FILE` under `zsorted_probe_digest`, and
-        failing that times one warm batch (`probe_theta`) through each body
-        with CUDA events, keeps the faster and stores the choice in both
-        places. A body that fails to build or launch raises: it does not
-        lose the vote."""
-        sim = self.simulator
-        if requested != "auto":
-            self._check_fused_request(requested)
-            return bool(requested)
-        if sim.device.type != "cuda":
-            self.last_probe = {"source": "cpu", "fused": False}
-            return False
-        if not _supports(sim, "_window_mega_supported"):
-            self.last_probe = {"source": "unsupported", "fused": False}
-            return False
-        batch = int(probe_theta.shape[0])
-        key = (int(sub), int(kc), int(w_cols), batch)
-        cache = sim.__dict__.setdefault("_zsorted_fused_probe", {})
-        if key in cache:
-            self.last_probe = dict(cache[key], source="simulator")
-            return cache[key]["fused"]
-        if n_batches < _PROBE_MIN_BATCHES:
-            self.last_probe = {"source": "short run", "fused": True}
-            return True
-        digest = zsorted_probe_digest(sim, key[:3], batch,
-                                      torch.cuda.get_device_name(sim.device))
-        stored = _read_probe_file().get(digest)
-        if stored is not None:
-            cache[key] = stored
-            self.last_probe = dict(stored, source="file")
-            return stored["fused"]
-        record = dict(_probe_bodies(sim, probe_theta, sub, kc, w_cols),
-                      digest=digest)
-        cache[key] = record
-        _write_probe_file(digest, record)
-        self.last_probe = dict(record, source="probe")
-        return record["fused"]
 
     # -- results ------------------------------------------------------------
     def _library(self, theta: np.ndarray, photometry: np.ndarray) -> dict:

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from .mesh import axis_info, gather_rows
 
@@ -106,16 +105,16 @@ def sharded_generate(generator, n: int, mesh, batch_size: int | None = None,
     plans ONE window (kc, w_cols) from them, as `generate` does, and runs
     each batch through `make_sharded_zsorted_fn`: the library then equals
     a single-process `generate(n, batch_size, seed)` bit for bit, rows
-    sorted by redshift; the window body is `generate`'s "auto" choice
-    (rank 0's, broadcast). When the window
+    sorted by redshift; the window body is `generate`'s "auto" choice,
+    which every rank makes alike from the configuration. When the window
     would be the whole table, or with `zsorted=False`, the dense simulator
     runs (`make_sharded_photometry_fn`). The single-process run to compare
     with is `generate(..., device_sampling=False)`: the default device
     sampler draws other θ.
     """
-    from ..library import _supports, auto_batch_size
+    from ..library import _fused_window_body, _supports, auto_batch_size
 
-    size, rank, group = axis_info(mesh, axis_name)
+    size, rank, _ = axis_info(mesh, axis_name)
     if batch_size is None:
         batch_size = auto_batch_size(n)
     bs = int(np.ceil(batch_size / size) * size)
@@ -138,15 +137,9 @@ def sharded_generate(generator, n: int, mesh, batch_size: int | None = None,
         kc, w_cols = sim._zsorted_plan(
             generator._run_span(theta_dev[:, iz], bs, sub))
         if kc < sim._n_knots and w_cols < sim._l_sup:
-            fused = generator._choose_zsorted_fused(
-                "auto", sub, kc, w_cols, theta_dev[:bs], n_pad // bs)
-            if group is not None:
-                choice = [fused]
-                dist.broadcast_object_list(
-                    choice, src=dist.get_global_rank(group, 0), group=group)
-                fused = bool(choice[0])
-            zfn = make_sharded_zsorted_fn(sim, mesh, axis_name, sub_chunk=sub,
-                                          kc=kc, w_cols=w_cols, fused=fused)
+            zfn = make_sharded_zsorted_fn(
+                sim, mesh, axis_name, sub_chunk=sub, kc=kc, w_cols=w_cols,
+                fused=_fused_window_body(sim, "auto"))
             return generator.generate(n, batch_size=bs, seed=seed,
                                       out_path=out_path, pmapped_fn=zfn,
                                       presort=True)

@@ -47,9 +47,9 @@ device-sampler resume bit for bit, nine batches copied out through the
 pinned slots bit for bit against per-part reads (with the slots' pinned
 bytes fixed as n grows), the same for a spectra run through a
 `SpectralFeaturePipeline`, its features and photometry both through the
-slots, the "auto" window-body probe (CUDA
-events, cached on the simulator and in its file, a failing K1 raising), and
-"auto" on a run too short to probe taking K1 once per batch.
+slots, and `generate` at the defaults taking K1 once per batch on runs of
+2 and 4 batches, with the bits of `zsorted_fused=True`, and a failing K1
+failing the run.
 
 The inference slice on the card: every name of the flow zoo, two members,
 card against CPU from the same parameters and base draws (`log_prob` and
@@ -981,73 +981,36 @@ def test_copy_out_spectra_through_pinned_slots_is_bitwise(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-def test_auto_short_run_launches_k1_per_batch(cuda, monkeypatch):
-    """A 2-batch `generate` at the default settings ("auto") takes K1, one
-    launch per batch, without timing the staged body."""
-    from synference_tpu_torch import library as tl
-
-    def no_probe(*a, **k):
-        raise AssertionError("probed a short run")
-
-    monkeypatch.setattr(tl, "_probe_bodies", no_probe)
-    prior = {"log10_mass": (7.5, 11.0), "redshift": (0.1, 8.0),
-             "log10_peak_age": (7.6, 9.2), "tau": (0.1, 1.2),
-             "log10_metallicity": (-3.9, -1.6), "tau_v": (0.0, 2.0)}
-    gen = tt.LibraryGenerator(_sim(cuda, 3), prior,
-                              unlog_keys=["log10_peak_age"], device=cuda)
-    # 16 sub-chunks over the run, as in the probe test below: narrower
-    # runs plan windows as wide as the table and take the dense path
-    args = dict(n=2 * 8192, batch_size=8192, seed=1)
-    before = k1.fused_window_photometry.launches
-    lib = gen.generate(**args)
-    assert k1.fused_window_photometry.launches == before + 2
-    assert gen.last_probe == {"source": "short run", "fused": True}
-    forced = gen.generate(zsorted_fused=True, **args)
-    np.testing.assert_array_equal(lib["photometry"], forced["photometry"])
-
-
-@pytest.mark.cuda
-def test_auto_probe_on_the_card(cuda, tmp_path, monkeypatch):
-    """"auto" times both window bodies once (CUDA events), keeps the
-    choice on the simulator and in the probe file under its digest; a
-    fresh simulator reads the file; a failing K1 propagates out of the
-    probe."""
-    from synference_tpu_torch import library as tl
+def test_default_generate_launches_k1_per_batch(cuda, monkeypatch):
+    """At the defaults ("auto") a 2-batch and a 4-batch `generate` each
+    launch K1 once per batch, whatever the run's length, and equal
+    zsorted_fused=True bit for bit; a K1 that fails to launch fails the
+    run."""
     from synference_tpu_torch import sed
 
-    monkeypatch.setattr(tl, "ZSORTED_PROBE_FILE", tmp_path / "probe.json")
     prior = {"log10_mass": (7.5, 11.0), "redshift": (0.1, 8.0),
              "log10_peak_age": (7.6, 9.2), "tau": (0.1, 1.2),
              "log10_metallicity": (-3.9, -1.6), "tau_v": (0.0, 2.0)}
-    args = dict(n=4 * 4096, batch_size=4096, seed=1)
     gen = tt.LibraryGenerator(_sim(cuda, 3), prior,
                               unlog_keys=["log10_peak_age"], device=cuda)
-    lib = gen.generate(**args)
-    rec = gen.last_probe
-    assert rec["source"] == "probe" and rec["staged_ms"] > 0
-    assert rec["fused_ms"] > 0 and len(rec["digest"]) == 64
-    forced = gen.generate(zsorted_fused=rec["fused"], **args)
-    np.testing.assert_array_equal(lib["photometry"], forced["photometry"])
-    again = tt.LibraryGenerator(gen.simulator, prior,
-                                unlog_keys=["log10_peak_age"], device=cuda)
-    again.generate(**args)
-    assert again.last_probe["source"] == "simulator"
-    fresh = tt.LibraryGenerator(_sim(cuda, 3), prior,
-                                unlog_keys=["log10_peak_age"], device=cuda)
-    fresh.generate(**args)
-    assert fresh.last_probe["source"] == "file"
-    assert fresh.last_probe["fused"] == rec["fused"]
+    # 16 sub-chunks over each run: narrower runs plan windows as wide as
+    # the table and take the dense path
+    runs = [(2, dict(n=2 * 8192, batch_size=8192, seed=1)),
+            (4, dict(n=4 * 4096, batch_size=4096, seed=1))]
+    for n_batches, args in runs:
+        before = k1.fused_window_photometry.launches
+        lib = gen.generate(**args)
+        assert k1.fused_window_photometry.launches == before + n_batches
+        forced = gen.generate(zsorted_fused=True, **args)
+        for key in ("parameters", "photometry"):
+            np.testing.assert_array_equal(lib[key], forced[key])
 
     def broken(**kw):
         raise RuntimeError("K1 failed to launch")
 
     monkeypatch.setattr(sed, "fused_window_photometry_grouped", broken)
-    monkeypatch.setattr(tl, "ZSORTED_PROBE_FILE", tmp_path / "other.json")
     with pytest.raises(RuntimeError, match="K1 failed"):
-        tt.LibraryGenerator(_sim(cuda, 3), prior,
-                            unlog_keys=["log10_peak_age"],
-                            device=cuda).generate(**args)
-
+        gen.generate(**runs[1][1])
 
 
 # -- the flow zoo and the batched MCMC on the card ---------------------------

@@ -23,12 +23,10 @@ other's.
 Deliberate differences, each checked here: where the JAX package warns and
 falls back (`device_sampling=True` it cannot honour, an unsupported
 `zsorted_fused=True`) the port raises; a library of a simulator class the
-port does not have raises instead of building the base simulator; the
-window-body probe propagates a failing body instead of scoring it as
-infinitely slow; "auto" resolves to the staged body on the CPU without a
-probe, and on the card takes K1 for runs too short to probe (the JAX
-package takes its staged body there, to spare the other body's compile;
-K1 is built in advance).
+port does not have raises instead of building the base simulator; "auto"
+takes the window body by one rule, K1 on the card wherever K1 runs the
+model and the staged body elsewhere, where the JAX package times both
+bodies once per configuration.
 """
 
 import os
@@ -558,152 +556,44 @@ def test_device_chunks_refused_across_packages(port_gen, tmp_path,
 
 
 # -- the window-body choice -----------------------------------------------------
-def test_auto_takes_staged_body_on_cpu_without_probe(port_gen, library,
-                                                     monkeypatch):
-    from synference_tpu_torch import library as tl
-
-    def no_probe(*a, **k):
-        raise AssertionError("probed on the CPU")
-
-    monkeypatch.setattr(tl, "_probe_bodies", no_probe)
+def test_default_generate_on_cpu_is_the_staged_body(port_gen):
+    """On the CPU a default generate takes the staged body: its library
+    equals zsorted_fused=False bit for bit."""
     lib = port_gen.generate(n=1500, batch_size=256, seed=3)
-    assert port_gen.last_probe == {"source": "cpu", "fused": False}
     staged = port_gen.generate(n=1500, batch_size=256, seed=3,
                                zsorted_fused=False)
+    np.testing.assert_array_equal(lib["parameters"], staged["parameters"])
     np.testing.assert_array_equal(lib["photometry"], staged["photometry"])
 
 
-_DIGEST = """
-import json, sys
-import synference_tpu_torch as tt
-from synference_tpu_torch.library import zsorted_probe_digest
-sim = tt.BatchSEDSimulator(
-    tt.make_synthetic_grid(n_ages=16, n_mets=4, n_wav=1024),
-    tt.FilterSet([tt.tophat_filter("F200W", 20000.0, 4600.0)]),
-    ("log10_mass", "redshift", "peak_age", "tau", "log10_metallicity",
-     "tau_v"), device="cpu")
-print(json.dumps([zsorted_probe_digest(sim, (1024, 12, 768), 65536, name)
-                  for name in ("NVIDIA H100 80GB HBM3", "other card")]))
-"""
-
-
-def test_probe_digest_equal_across_processes():
-    """The persisted choice's key is a sha256 digest, equal in two
-    processes (Python's salted `hash()` would differ), and depends on the
-    card."""
-    import json
-    import subprocess
-    import sys
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    runs = [json.loads(subprocess.run(
-        [sys.executable, "-c", _DIGEST], cwd=root, capture_output=True,
-        text=True, timeout=300, check=True).stdout) for _ in range(2)]
-    assert runs[0] == runs[1]
-    assert runs[0][0] != runs[0][1] and len(runs[0][0]) == 64
-
-
-def test_probe_digest_names_the_window_body_code(port_gen, monkeypatch):
-    """A rewrite of either window body (K1's sources, the staged body's
-    module) voids a persisted choice: the code's digest is in the key."""
-    from synference_tpu_torch import library as tl
-
-    sim = port_gen.simulator
-    key = (sim, (1024, 12, 768), 65536, "NVIDIA H100 80GB HBM3")
-    before = tl.zsorted_probe_digest(*key)
-    assert len(tl._window_body_code_digest()) == 64
-    monkeypatch.setattr(tl, "_window_body_code_digest", lambda: "0" * 64)
-    assert tl.zsorted_probe_digest(*key) != before
-
-
 class _CardSimStub:
-    """The little of a card simulator that `_choose_zsorted_fused` reads."""
+    """The little of a simulator that `_fused_window_body` reads."""
 
-    device = torch.device("cuda")
-
-    def __init__(self, mega: bool):
+    def __init__(self, mega: bool, device: str):
         self._mega = mega
+        self.device = torch.device(device)
 
     def _window_mega_supported(self):
         return self._mega
 
 
-@pytest.mark.parametrize("n_batches, mega, expected", [
-    (1, True, {"source": "short run", "fused": True}),
-    (3, True, {"source": "short run", "fused": True}),
-    (2, False, {"source": "unsupported", "fused": False}),
-])
-def test_auto_rule_on_the_card_without_probe(port_gen, monkeypatch,
-                                             n_batches, mega, expected):
-    """On the card "auto" takes K1 for runs of fewer than 4 batches,
-    without timing either body, where K1 runs the model, and the staged
-    body where it does not; the staged body is never taken by default on a
-    model K1 supports."""
-    from synference_tpu_torch import library as tl
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("mega", [True, False], ids=["k1", "no-k1"])
+@pytest.mark.parametrize("requested", ["auto", True, False])
+def test_fused_window_body_rule(requested, mega, device):
+    """One rule picks the window body: True and False are honoured (True
+    where K1 does not run the model raises), and "auto" takes K1 exactly on
+    the card where K1 runs the model, whatever the run's length."""
+    from synference_tpu_torch.library import _fused_window_body
 
-    def no_probe(*a, **k):
-        raise AssertionError("probed a short run")
-
-    monkeypatch.setattr(tl, "_probe_bodies", no_probe)
-    monkeypatch.setattr(port_gen, "simulator", _CardSimStub(mega))
-    fused = port_gen._choose_zsorted_fused("auto", 1024, 12, 768,
-                                           torch.zeros(4096, 6), n_batches)
-    assert fused is expected["fused"]
-    assert port_gen.last_probe == expected
-
-
-def test_auto_probes_long_runs_on_the_card(port_gen, monkeypatch, tmp_path):
-    """From 4 batches on, "auto" on the card probes once, stores the choice
-    on the simulator and in the probe file under its digest, and reads it
-    back from either (the timing itself is the card tests')."""
-    from synference_tpu_torch import library as tl
-
-    calls = []
-
-    def probe(sim, theta, sub, kc, w_cols):
-        calls.append((sub, kc, w_cols))
-        return {"staged_ms": 2.0, "fused_ms": 1.0, "fused": True}
-
-    monkeypatch.setattr(tl, "_probe_bodies", probe)
-    monkeypatch.setattr(tl, "ZSORTED_PROBE_FILE", tmp_path / "probe.json")
-    monkeypatch.setattr(tl, "zsorted_probe_digest",
-                        lambda sim, plan, batch, name: "d" * 64)
-    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev: "card")
-    stub = _CardSimStub(True)
-    monkeypatch.setattr(port_gen, "simulator", stub)
-    theta = torch.zeros(4096, 6)
-    assert port_gen._choose_zsorted_fused("auto", 1024, 12, 768, theta, 4)
-    assert port_gen.last_probe["source"] == "probe" and calls
-    assert port_gen._choose_zsorted_fused("auto", 1024, 12, 768, theta, 4)
-    assert port_gen.last_probe["source"] == "simulator" and len(calls) == 1
-    monkeypatch.setattr(port_gen, "simulator", _CardSimStub(True))
-    assert port_gen._choose_zsorted_fused("auto", 1024, 12, 768, theta, 9)
-    assert port_gen.last_probe == {"staged_ms": 2.0, "fused_ms": 1.0,
-                                   "fused": True, "digest": "d" * 64,
-                                   "source": "file"}
-    assert len(calls) == 1
-
-
-def test_probe_propagates_a_failing_body(port_gen, monkeypatch):
-    """A window body that fails in the probe raises out of it; it is not
-    scored as infinitely slow (the JAX package catches every exception
-    there)."""
-    from synference_tpu_torch import library as tl
-
-    sim = port_gen.simulator
-    theta, sub, bs, kc, w_cols = port_gen._draw_sorted(1024, 256, seed=0)
-    monkeypatch.setattr(tl, "_probe_ms", lambda fn: (fn(), 1.0)[1])
-    record = tl._probe_bodies(sim, theta[:bs], sub, kc, w_cols)
-    assert record == {"staged_ms": 1.0, "fused_ms": 1.0, "fused": False}
-
-    def broken(theta, fused=False, **kw):
-        if fused:
-            raise RuntimeError("K1 failed to launch")
-        return theta
-
-    monkeypatch.setattr(sim, "photometry_zsorted_device", broken)
-    with pytest.raises(RuntimeError, match="K1 failed"):
-        tl._probe_bodies(sim, theta[:bs], sub, kc, w_cols)
+    sim = _CardSimStub(mega, device)
+    if requested is True and not mega:
+        with pytest.raises(ValueError, match="zsorted_fused=True"):
+            _fused_window_body(sim, requested)
+        return
+    expected = (device == "cuda" and mega) if requested == "auto" \
+        else requested
+    assert _fused_window_body(sim, requested) is expected
 
 
 def test_generator_options_not_ported_raise(port_gen):
