@@ -608,6 +608,10 @@ class LibraryGenerator:
             self-contained file); by default only its name, axes and
             content hash.
         device: where the simulator runs; must be the simulator's device.
+
+    `pad_rows` counts the rows its calls have run past their n: a
+    device-sampled call pads to whole sub-chunks, a host-sampled one to
+    whole batches.
     """
 
     def __init__(self, simulator: BatchSEDSimulator, param_ranges: dict,
@@ -635,6 +639,8 @@ class LibraryGenerator:
         self.embed_grid = bool(embed_grid)
         # pinned slots through which runs without resume_path leave the card
         self._pinned = _PinnedRing()
+        # rows the calls have computed past their n, summed over the calls
+        self.pad_rows = 0
         drawn = [_strip_log_prefix(k) if k in self.unlog_keys else k
                  for k in self.param_ranges]
         missing = [p for p in simulator.param_names if p not in drawn]
@@ -830,10 +836,11 @@ class LibraryGenerator:
     def _generate_device(self, n, batch_size, seed, resume_path,
                          zsorted_fused) -> dict:
         """Photometry-only generation on the device: θ drawn, z-sorted,
-        window-planned and simulated there; two readbacks for the run's
-        plan and one a batch for its window starts; each batch's
-        photometry and its rows of θ leave the card while the next batches
-        run (`_CopyOut`)."""
+        padded to whole sub-chunks (the last batch may be shorter than
+        `batch_size`), window-planned and simulated there; two readbacks
+        for the run's plan and one a batch for its window starts; each
+        batch's photometry and its rows of θ leave the card while the next
+        batches run (`_CopyOut`)."""
         sim = self.simulator
         theta, sub, bs, kc, w_cols = self._draw_sorted(n, batch_size, seed)
         n_pad = theta.shape[0]
@@ -859,9 +866,12 @@ class LibraryGenerator:
 
     @traced("library.draw_sorted")
     def _draw_sorted(self, n: int, batch_size: int, seed: int):
-        """θ drawn on the device, sorted by redshift and padded to whole
-        batches, with one window plan for every sub-chunk of the run (one
-        readback). Returns (θ, sub-chunk rows, batch rows, kc, w_cols)."""
+        """θ drawn on the device, sorted by redshift and padded with its
+        last (highest-z) row to whole sub-chunks, not whole batches: the pad
+        sub-chunks span no knot, so the run's plan and every real row's
+        inputs are those of a whole-batch pad. One window plan for every
+        sub-chunk of the run (one readback). Returns (θ, sub-chunk rows,
+        batch rows, kc, w_cols)."""
         sim = self.simulator
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
@@ -870,7 +880,7 @@ class LibraryGenerator:
         theta = theta[torch.sort(theta[:, iz], stable=True).indices]
         sub = int(min(1024, batch_size))
         bs = int(np.ceil(batch_size / sub) * sub)
-        n_pad = int(np.ceil(n / bs) * bs)
+        n_pad = int(np.ceil(n / sub) * sub)
         if n_pad != n:  # pad with the last (highest-z) row: windows stay tight
             theta = torch.cat([theta, theta[-1:].expand(n_pad - n, -1)], dim=0)
         # the simulator's planner, over the whole run
@@ -901,26 +911,34 @@ class LibraryGenerator:
                      meta: dict, resume_path: str | None,
                      beside: dict | None = None) -> dict:
         """Run `run(row offset) -> {field: (B, width) part}` over the
-        batches. Without `resume_path` every field, with the rows of each
-        run-wide (n_pad, ...) device tensor in `beside`, leaves the card
-        part by part through `_CopyOut` while the next batches run. With
-        it, each batch comes to the host as it finishes (`_to_host`) to be
-        written to its chunk file, and a restart resumes from the files;
-        `beside` is not copied. Returns {field: (n, width) host array}."""
-        n_batches = n_pad // batch_size
+        batches of `batch_size` rows of `n_pad`; the last batch is shorter
+        when `batch_size` does not divide `n_pad`. Without `resume_path`
+        every field, with the rows of each run-wide (n_pad, ...) device
+        tensor in `beside`, leaves the card part by part through `_CopyOut`
+        while the next batches run. With it, each batch comes to the host
+        as it finishes (`_to_host`) to be written to its chunk file, and a
+        restart resumes from the files; `beside` is not copied. Adds the
+        rows run past `n` to `pad_rows`. Returns {field: (n, width) host
+        array}."""
+        n_batches = -(-n_pad // batch_size)
+
+        def launch(lo):
+            with span("library.batch"):
+                out = run(lo)
+            self.pad_rows += max(0, min(lo + batch_size, n_pad) - n)
+            return out
+
         if resume_path is None:
             copy = _CopyOut(n, batch_size, self._pinned)
             for lo in range(0, n_pad, batch_size):
-                with span("library.batch"):
-                    out = run(lo)
+                out = launch(lo)
                 for k, v in (beside or {}).items():
                     out[k] = v[lo:lo + batch_size]
                 copy.stage(lo, out)
             return copy.finish()
         parts = _load_chunks(resume_path, meta)[:n_batches]
         for ci in range(len(parts), n_batches):
-            with span("library.batch"):
-                out = run(ci * batch_size)
+            out = launch(ci * batch_size)
             with span("library.to_host"):
                 arrays = {k: _to_host(k, v) for k, v in out.items()}
             _save_chunk(resume_path, ci, meta, arrays)

@@ -49,7 +49,8 @@ bytes fixed as n grows), the same for a spectra run through a
 `SpectralFeaturePipeline`, its features and photometry both through the
 slots, and `generate` at the defaults taking K1 once per batch on runs of
 2 and 4 batches, with the bits of `zsorted_fused=True`, and a failing K1
-failing the run.
+failing the run; a run padded to whole sub-chunks, its last batch short,
+launches K1 once a batch with the bits of its whole-batch-padded twin.
 
 The inference slice on the card: every name of the flow zoo, two members,
 card against CPU from the same parameters and base draws (`log_prob` and
@@ -1011,6 +1012,34 @@ def test_default_generate_launches_k1_per_batch(cuda, monkeypatch):
     monkeypatch.setattr(sed, "fused_window_photometry_grouped", broken)
     with pytest.raises(RuntimeError, match="K1 failed"):
         gen.generate(**runs[1][1])
+
+
+@pytest.mark.cuda
+def test_ragged_run_through_k1_equals_whole_batch_pad(cuda):
+    """19,576 rows in batches of 8192 run 20 sub-chunks of 1024 (8192,
+    8192 and a short 4096), not 3 whole batches: K1 launches once a batch,
+    and θ and photometry equal those of the same rows padded to whole
+    batches and sent through the same chunk function, bit for bit."""
+    prior = {"log10_mass": (7.5, 11.0), "redshift": (0.1, 8.0),
+             "log10_peak_age": (7.6, 9.2), "tau": (0.1, 1.2),
+             "log10_metallicity": (-3.9, -1.6), "tau_v": (0.0, 2.0)}
+    sim = _sim(cuda, 3)
+    gen = tt.LibraryGenerator(sim, prior, unlog_keys=["log10_peak_age"],
+                              device=cuda)
+    args = dict(n=3 * 8192 - 5000, batch_size=8192, seed=9)
+    before, pad = k1.fused_window_photometry.launches, gen.pad_rows
+    lib = gen.generate(**args)
+    assert k1.fused_window_photometry.launches == before + 3
+    assert gen.pad_rows - pad == 20 * 1024 - args["n"]
+    theta, sub, bs, kc, w_cols = gen._draw_sorted(**args)
+    assert kc < sim._n_knots and w_cols < sim._l_sup  # K1's window path
+    theta = torch.cat([theta, theta[-1:].expand(3 * bs - len(theta), -1)])
+    phot = torch.cat([sim.photometry_zsorted_device(
+        theta[i:i + bs], sub_chunk=sub, row_offset=i, kc=kc, w_cols=w_cols,
+        fused=True) for i in range(0, 3 * bs, bs)])[:args["n"]]
+    np.testing.assert_array_equal(lib["parameters"].T,
+                                  theta[:args["n"]].cpu().numpy())
+    np.testing.assert_array_equal(lib["photometry"].T, phot.cpu().numpy())
 
 
 # -- the flow zoo and the batched MCMC on the card ---------------------------

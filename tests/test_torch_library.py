@@ -8,7 +8,12 @@ at this 1024-λ test grid a 512-row sub-chunk of a 1500-draw library spans
 the whole knot table, where generation takes the dense path
 (`test_whole_table_batches_take_dense_path`). Photometry tolerance on fluxes
 above 1e-3 of their row maximum: median < 2e-3, p99 < 5e-3 (both sides run
-the fused body).
+the fused body). A device-sampled run pads to whole sub-chunks, not whole
+batches, so its last batch may be short: its θ and photometry equal those
+of the same rows padded to whole batches bit for bit (staged body, K1's
+plain version, the dense path), `pad_rows` counts the rows run past n, and
+a run whose short last chunk runs after a restart, or is read from its
+file, resumes to the same bits.
 
 The host sampler (`draw_from_hypercube`, every engine and both LHC
 branches) gives the JAX package's θ bit for bit, and so do host-sampler
@@ -132,6 +137,77 @@ def test_seeded_and_body_independent(port_gen, library):
     assert np.quantile(rel, 0.99) < 5e-3
     other = port_gen.generate(n=1500, batch_size=256, seed=4)
     assert not np.array_equal(other["parameters"], library["parameters"])
+
+
+# -- the pad of device-sampled runs -------------------------------------------
+@pytest.fixture(scope="module")
+def narrow_gen(port_gen):
+    """The module's model over redshifts 0.1-2: a 1024-row sub-chunk of a
+    few thousand draws plans a window narrower than the table, so batches
+    above the sub-chunk run the window engine."""
+    return tt.LibraryGenerator(port_gen.simulator,
+                               dict(PRIOR, redshift=(0.1, 2.0)),
+                               unlog_keys=["log10_peak_age"], device="cpu")
+
+
+def _whole_batch_twin(gen, n, batch_size, seed, fused):
+    """θ and photometry of a device-sampled run padded to whole batches:
+    θ as `_draw_sorted` draws it, padded with its last row, and each batch
+    through the chunk function `_generate_device` picks. Returns (θ (n, P),
+    photometry (n, F), whether the window engine ran)."""
+    sim = gen.simulator
+    theta, sub, bs, kc, w_cols = gen._draw_sorted(n, batch_size, seed)
+    n_whole = -(-n // bs) * bs
+    theta = torch.cat([theta, theta[-1:].expand(n_whole - len(theta), -1)])
+    # the pad sub-chunks span no knot: the whole-batch pad plans the same
+    assert sim._plan_windows(theta, sub)[2:4] == (kc, w_cols)
+    window = kc < sim._n_knots and w_cols < sim._l_sup
+    parts = []
+    for i in range(0, n_whole, bs):
+        t = theta[i:i + bs]
+        parts.append(sim.photometry_zsorted_device(
+            t, sub_chunk=sub, row_offset=i, kc=kc, w_cols=w_cols,
+            fused=fused) if window else sim.photometry(t, row_offset=i))
+    return theta[:n].numpy(), torch.cat(parts)[:n].numpy(), window
+
+
+@pytest.mark.parametrize("body,fused", [("window", False), ("window", True),
+                                        ("dense", False)],
+                         ids=["staged", "k1", "dense"])
+def test_sub_chunk_pad_equals_whole_batch_pad(port_gen, narrow_gen, body,
+                                              fused):
+    """2500 rows in batches of 2048 run 3072 rows, not 4096: the last batch
+    holds one sub-chunk of 1024. θ and photometry equal those of the same
+    rows padded to whole batches, bit for bit, on the window engine's
+    bodies and on the dense path (the window is the whole table there)."""
+    gen = narrow_gen if body == "window" else port_gen
+    args = dict(n=2500, batch_size=2048, seed=11)
+    before = gen.pad_rows
+    lib = gen.generate(zsorted_fused=fused, **args)
+    assert gen.pad_rows - before == 3072 - 2500
+    theta, phot, window = _whole_batch_twin(gen, fused=fused, **args)
+    assert window == (body == "window")
+    np.testing.assert_array_equal(lib["parameters"].T, theta)
+    np.testing.assert_array_equal(lib["photometry"].T, phot)
+
+
+@pytest.mark.parametrize("n,batch_size,pad", [
+    (2500, 2048, 3072 - 2500),  # to whole 1024-row sub-chunks
+    (4096, 2048, 0),  # whole batches: no pad
+    (700, 256, 768 - 700),  # the batch is the sub-chunk
+    (1, 2048, 1023),
+])
+def test_pad_rows_counts_rows_past_n(narrow_gen, n, batch_size, pad):
+    """A device-sampled call adds ⌈n/sub⌉·sub − n to `pad_rows`, sub =
+    min(1024, batch_size); a host-sampled call pads to whole batches."""
+    before = narrow_gen.pad_rows
+    lib = narrow_gen.generate(n=n, batch_size=batch_size, seed=2)
+    assert lib["photometry"].shape[1] == n
+    assert narrow_gen.pad_rows - before == pad
+    before = narrow_gen.pad_rows
+    narrow_gen.generate(n=n, batch_size=batch_size, seed=2,
+                        device_sampling=False)
+    assert narrow_gen.pad_rows - before == -(-n // batch_size) * batch_size - n
 
 
 def test_empty_library(port_gen):
@@ -475,13 +551,18 @@ def _chunk_files(prefix):
                   if p.startswith(os.path.basename(prefix)))
 
 
-@pytest.mark.parametrize("path", ["host", "device"])
-def test_resume_equals_uninterrupted(path, port_gen, supp_pair, tmp_path,
-                                     monkeypatch):
+@pytest.mark.parametrize("path", ["host", "device", "device-short"])
+def test_resume_equals_uninterrupted(path, port_gen, narrow_gen, supp_pair,
+                                     tmp_path, monkeypatch):
     """A run interrupted after two batches resumes from its chunk files
-    to the same bits as an uninterrupted run; the files go at the end."""
-    gen = supp_pair[0] if path == "host" else port_gen
-    args = dict(n=700, batch_size=128 if path == "host" else 256, seed=4)
+    to the same bits as an uninterrupted run; the files go at the end. In
+    "device-short" the device run's last batch is one 1024-row sub-chunk
+    of a 2048-row batch, and it runs after the restart."""
+    gen = {"host": supp_pair[0], "device": port_gen,
+           "device-short": narrow_gen}[path]
+    args = {"host": dict(n=700, batch_size=128, seed=4),
+            "device": dict(n=700, batch_size=256, seed=4),
+            "device-short": dict(n=5000, batch_size=2048, seed=4)}[path]
     whole = gen.generate(**args)
     prefix = str(tmp_path / "ck")
     with monkeypatch.context() as m:
@@ -497,6 +578,32 @@ def test_resume_equals_uninterrupted(path, port_gen, supp_pair, tmp_path,
     for key, val in whole.items():
         if isinstance(val, np.ndarray):
             np.testing.assert_array_equal(resumed[key], val)
+
+
+def test_short_last_chunk_resumes_from_its_file(narrow_gen, tmp_path,
+                                                monkeypatch):
+    """A device run's short last chunk (one 1024-row sub-chunk of a
+    2048-row batch) is written and taken on a restart as any other: a run
+    whose every chunk is on disk launches no batch and returns the bits of
+    an uninterrupted run."""
+    from synference_tpu_torch import library as tl
+
+    args = dict(n=5000, batch_size=2048, seed=4)
+    whole = narrow_gen.generate(**args)
+    prefix = str(tmp_path / "ck")
+    with monkeypatch.context() as m:
+        m.setattr(tl, "_remove_chunks", lambda *a: None)
+        narrow_gen.generate(resume_path=prefix, **args)
+    assert len(_chunk_files(prefix)) == 3
+    with np.load(prefix + ".chunk000002.npz") as ck:
+        assert ck["phot"].shape == (1024, len(_CODES))
+        assert int(ck["batch_size"]) == 2048
+    before = narrow_gen.pad_rows
+    resumed = narrow_gen.generate(resume_path=prefix, **args)
+    assert narrow_gen.pad_rows == before  # no batch ran
+    assert _chunk_files(prefix) == []
+    for key in ("parameters", "photometry"):
+        np.testing.assert_array_equal(resumed[key], whole[key])
 
 
 def test_jax_host_chunks_resume_in_port(supp_pair, tmp_path, monkeypatch):
