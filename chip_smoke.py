@@ -204,7 +204,13 @@ unsorted θ):
    photometry of 65536 headline rows launches K2 once and equals
    `photometry()`; the sharded NSF 69 × 15 step (NCCL `all_reduce` over
    "data") equals the trainer's step bit for bit over 3 steps; ragged
-   objects padded for sampling; a directory checkpoint read back.
+   objects padded for sampling; a directory checkpoint read back;
+30. birth cloud: K1 and K2 with Charlot & Fall (2000) dust (the ISM and
+   the birth cloud over the grid's 300 young cells) at the north-star
+   bands (F8 8) and all 63 (F8 64) on 65536 rows: against their plain
+   versions and the exact gate, bitwise across two runs and against their
+   8-band slices, with τ_BC = 0 bitwise the one-screen kernel; each timed
+   beside its bound and beside the one-screen kernel on the same rows.
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
@@ -213,7 +219,8 @@ on the path (with its launches on the main path and on phases 16 and
 the fp32 first product alone as one cuBLAS `torch.matmul` with TF32 off, a
 yardstick for the kernels' core that the port never calls, and for K1 and
 K2 `paper63`: their time, bound and share at F8 64 and the cluster size
-they ran with); the last line
+they ran with, and `birth_cloud`: phase 30's at F8 8 and 64); the last
+line
 is `{"ok": true, "device": {...}}`.
 """
 
@@ -580,7 +587,8 @@ def k2_call(k1, a: dict):
                   den=a["den_w"])
     return k1.fused_sed_photometry(
         a["sfzh"], a["s_rel"], a["tau_v"], a["scale"], tables, a["kc"],
-        a["delta"], a["f8"], order=a["order"], fesc=a["fesc"])
+        a["delta"], a["f8"], order=a["order"], fesc=a["fesc"],
+        tau_bc=a.get("tau_bc"), n_young=a.get("n_young", 0))
 
 
 def k2_vs_plain(k1, sim, theta, name: str, reps: int,
@@ -2253,7 +2261,8 @@ def band_slices(k1, launch, tables: dict, n_knots: int, f8: int):
 
 def cluster_check(k1, name: str, launch, plain, exact, tables: dict,
                   n_knots: int, f8: int, bnd: dict, tol_p99: float,
-                  tol_max: float, reps: int = 5) -> dict:
+                  tol_max: float, reps: int = 5,
+                  tag: str = "paper63") -> dict:
     """A kernel at F8 > 8 (clusters of `cluster_size(F8)` band groups)
     against its plain version (relative differences: p99 < tol_p99, max <
     tol_max) and the exact first product (`exact()`, the exact gate), two
@@ -2263,12 +2272,12 @@ def cluster_check(k1, name: str, launch, plain, exact, tables: dict,
     torch.cuda.synchronize()
     ref = plain()
     med, p99, mx, abs_err = rel_stats(out, ref)
-    log(f"[paper63] {name} vs plain: rel median={med:.3e} p99={p99:.3e} "
+    log(f"[{tag}] {name} vs plain: rel median={med:.3e} p99={p99:.3e} "
         f"max={mx:.3e} (tol p99<{tol_p99} max<{tol_max}); max abs err "
         f"{abs_err:.4e} nJy")
     check(p99 < tol_p99 and mx < tol_max,
           f"{name} disagrees with its plain version")
-    exact_gate(k1, "paper63", name, out, exact(), ref)
+    exact_gate(k1, tag, name, out, exact(), ref)
     check(torch.equal(out, launch(tables, f8)), f"two {name} runs differ")
     check(torch.equal(out, band_slices(k1, launch, tables, n_knots, f8)),
           f"{name} differs from its 8-band slices")
@@ -2276,7 +2285,7 @@ def cluster_check(k1, name: str, launch, plain, exact, tables: dict,
                  ms=time_ms(lambda: launch(tables, f8), reps=reps),
                  plain_ms=time_ms(plain, reps=2, warmup=1))
     stats["share_of_bound"] = stats["bound_ms"] / stats["ms"]
-    log(f"[paper63] {name} alone: {stats['ms']:.4f} ms against a bound of "
+    log(f"[{tag}] {name} alone: {stats['ms']:.4f} ms against a bound of "
         f"{stats['bound_ms']:.4f} ms ({stats['bound_by']}; fp32 FMA), share "
         f"{stats['share_of_bound']:.3f}; a 3xTF32 route's bound "
         f"{stats['tf32x3_bound_ms']:.4f} ms; plain {stats['plain_ms']:.4f} ms; "
@@ -3410,6 +3419,91 @@ def parallel_phase(tt, k1, pk, sim, gen, fitter, dev):
     return tuple(counts)
 
 
+# -- phase 30: the birth-cloud kernels (Charlot & Fall 2000 dust) ------------
+def birth_cloud(tt, k1, sim, dev) -> dict:
+    """Phase 30: K1 and K2 with the birth-cloud screen (`tau_v_bc_param`,
+    (λ/5500 Å)^−0.7; the grid's first 25 ages, 300 of 768 cells, young) on
+    phase 1's grid at the north-star bands (F8 8, lone blocks) and all 63
+    bands (F8 64, clusters), on 65536 rows each: against their plain
+    versions and the exact gate, two runs bitwise equal, bitwise equal to
+    their 8-band slices, and with τ_BC = 0 bitwise equal to the one-screen
+    kernel; timed beside their bound (the one-screen count: the rescale's
+    exp and multiply per (row, column) are not counted) and beside the
+    one-screen kernel on the same rows. Returns {"K1": {f8: stats}, "K2":
+    {f8: stats}}."""
+    out = {"K1": {}, "K2": {}}
+    tol = dict(tol_p99=TOL_STAGED_P99, tol_max=TOL_STAGED_MAX,
+               tag="birth cloud")
+    for filters in (sim.filters, tt.load_instrument_filters()):
+        bc = tt.BatchSEDSimulator(
+            sim.grid, filters, PNAMES + ("tau_v_bc",), sfh="lognormal",
+            zdist="delta", emission=tt.EmissionConfig(
+                reprocessed_types=("total",), dust_law="power_law",
+                dust_params=(("slope", -0.7),), tau_v_bc_param="tau_v_bc"),
+            device=dev)
+        f8 = bc._f8
+        check(bc._n_young == 300 and bc._window_mega_supported()
+              and bc._mega_supported(), "the birth-cloud model skips K1/K2")
+        gen = tt.LibraryGenerator(bc, dict(PRIOR, tau_v_bc=(0.0, 2.0)),
+                                  unlog_keys=["log10_peak_age"], device=dev)
+        theta = gen.sample_parameters_device(
+            HEADLINE_BATCH, torch.Generator(device=dev).manual_seed(30))
+        z = theta[:, PNAMES.index("redshift")]
+        sorted_theta = theta[torch.sort(z, stable=True).indices]
+        chunk, sub, kc, w_cols, k0, l0 = bc._plan_windows(sorted_theta, 1024)
+        bounds = [k1_bound(a) for *_, a in bc._window_calls(
+            chunk, sub, w_cols, kc, k0, l0)]
+        k1b = {"bound_ms": sum(x["bound_ms"] for x in bounds),
+               "bound_by": ("operations" if all(
+                   x["bound_by"] == "operations" for x in bounds)
+                   else "bytes"),
+               "tf32x3_bound_ms": sum(x["tf32x3_bound_ms"] for x in bounds)}
+        g = bc._window_grouped_args(chunk, sub, w_cols, kc, k0, l0)
+        params = bc.theta_dict(theta)
+        a = dict(k2_args(bc, theta), **bc._screens(params, params["tau_v"]))
+        b, c = a["sfzh"].shape
+        n_l = a["sed_w"].shape[1]
+        k2b = bound(flops_fp32=2.0 * b * c * n_l,
+                    flops_bf16=2.0 * b * n_l * 4 * f8,
+                    nbytes=4 * (b * c + c * n_l + n_l + a["kc"] * f8 + 3 * b
+                                + b * f8) + 2 * n_l * a["kc"] * f8)
+        tables = bc._mega_tables
+        for name, args, bnd, n_knots, launch, plain, exact in (
+                ("K1", g, k1b, bc._n_knots,
+                 lambda t, f, x: k1.fused_window_photometry_grouped(
+                     **dict(x, tables=t, f8=f)),
+                 lambda x: k1.fused_window_photometry_grouped_reference(**x),
+                 lambda x: k1.fused_window_photometry_grouped_reference(
+                     **x, first_product=k1.exact_first_product)),
+                ("K2", a, k2b, a["kc"],
+                 lambda t, f, x: k2_call(k1, dict(
+                     x, sed_w=t["sed"], curve_w=t["curve"], knot_w=t["knot"],
+                     den_w=t["den"], f8=f)),
+                 lambda x: k1.fused_window_photometry_reference(**x),
+                 lambda x: k1.fused_window_photometry_exact(**x))):
+            log(f"[birth cloud] {name} at F8 {f8}: {b} rows, C={c}, "
+                f"{bc._n_young} young cells")
+            st = cluster_check(
+                k1, name, lambda t, f: launch(t, f, args),
+                lambda: plain(args), lambda: exact(args), tables, n_knots,
+                f8, bnd, **tol)
+            zero = dict(args, tau_bc=torch.zeros_like(args["tau_bc"]))
+            one = {k: v for k, v in args.items()
+                   if k not in ("tau_bc", "n_young")}
+            check(torch.equal(launch(tables, f8, zero),
+                              launch(tables, f8, one)),
+                  f"{name} with tau_bc = 0 differs from the one-screen "
+                  "kernel")
+            st["one_screen_ms"] = time_ms(lambda: launch(tables, f8, one),
+                                          reps=5)
+            log(f"[birth cloud] {name} at F8 {f8}: {st['ms']:.4f} ms, the "
+                f"one-screen kernel on the same rows {st['one_screen_ms']:.4f}"
+                f" ms ({st['ms'] / st['one_screen_ms']:.3f}x); tau_bc = 0 "
+                "gives its bits")
+            out[name][f8] = st
+    return out
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
@@ -3537,6 +3631,9 @@ def main() -> None:
         log(f"[phase] {name} {label}: {time.perf_counter() - t0:.1f} s, "
             f"launches (K1, K2, K3) {slice_counts[name]}")
     log(f"[phase] 26-29 together: {time.perf_counter() - t_new:.1f} s")
+    t0 = time.perf_counter()
+    bc = birth_cloud(tt, k1, sim, dev)
+    log(f"[phase] 30 birth cloud: {time.perf_counter() - t0:.1f} s")
     by_phase = {"K1": {"4": k1_stats["launches"], "16": p63["counts"][0],
                        "19-21": k1_19_21},
                 "K2": {"6": k2_stats["launches"], "16": p63["counts"][1],
@@ -3580,6 +3677,12 @@ def main() -> None:
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "share_of_bound", "max_abs_err",
                     "cluster", "resident_clusters")}
+        if key in bc:  # with the birth cloud, at F8 8 and F8 64
+            rows[-1]["birth_cloud"] = {
+                f8: {k: st[k] for k in (
+                    "ms", "one_screen_ms", "plain_ms", "bound_ms", "bound_by",
+                    "share_of_bound", "max_abs_err", "cluster")}
+                for f8, st in bc[key].items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

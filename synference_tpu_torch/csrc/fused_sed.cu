@@ -8,6 +8,8 @@
 //   lnu[b,l]  = Σ_c sfzh[b,c] · sed[c,l]                  (fp32 FMA in c order;
 //                                                         sed carries dλ/λ)
 //   fw[b,l]   = bf16( lnu · (fesc + (1−fesc)·exp(−τ_V[b]·k[l])) )
+//               (the `_bc` kernels first scale lnu's sum over the young
+//               cells c < cy by exp(−τ_BC[b]·k[l]), sed_tile.cuh)
 //   acc[b,k,f] = Σ_l fw[b,l] · knot[l, k·F8 + f]  for the knots k−1..k+2 of
 //                the galaxy's shift        (bf16 inputs, fp32 accumulation)
 //   out[b,f]  = interp(acc; s[b]) / max(interp(den[·,f]; s[b]), 1e-30)
@@ -47,6 +49,16 @@ k2_fused_sed_cluster_kernel(const __grid_constant__ sed_tile::Args p) {
   sed_tile::run<true>(p);
 }
 
+__global__ void __launch_bounds__(sed_tile::NT, 1)
+k2_fused_sed_bc_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<false, true>(p);
+}
+
+__global__ void __launch_bounds__(sed_tile::NT_CL, 1)
+k2_fused_sed_bc_cluster_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<true, true>(p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -56,10 +68,11 @@ extern "C" {
 // A operand, sfzh's rows in that order, row stride ld_a (`k_major` in
 // ops/fused_sed.py); `sed_k` the (L, C) K-major table, row stride ld_sed
 // (`k_major`); both with 16-byte aligned rows (TMA); out is in row order.
-// `cluster` as in k1_fused_window.
+// `cluster`, `tau_bc` and `n_young` as in k1_fused_window (tau_bc in row
+// order, read through `order` as tau_v is).
 int k2_fused_sed(const float* sfzh, int64_t a_rows, int64_t ld_a,
                  const int* order, const float* s, const float* tau_v,
-                 const float* scale, const float* sed_k, int64_t ld_sed,
+                 const float* tau_bc, int n_young, const float* scale, const float* sed_k, int64_t ld_sed,
                  const float* curve, const __nv_bfloat16* knot,
                  int64_t ld_knot, const float* den, int64_t ld_den,
                  float* out, int B, int C, int L, int n_knots, int f8,
@@ -86,9 +99,13 @@ int k2_fused_sed(const float* sfzh, int64_t a_rows, int64_t ld_a,
   p.order_interp = interp_order;
   p.group_rows = B;
   p.fesc = fesc;
-  return sed_tile::launch(k2_fused_sed_kernel, k2_fused_sed_cluster_kernel, p,
-                          sfzh, a_rows, ld_a, sed_k, L, ld_sed, 1, cluster,
-                          static_cast<cudaStream_t>(stream));
+  p.tau_bc = tau_bc;
+  p.cy = n_young;
+  return sed_tile::launch(
+      tau_bc ? k2_fused_sed_bc_kernel : k2_fused_sed_kernel,
+      tau_bc ? k2_fused_sed_bc_cluster_kernel : k2_fused_sed_cluster_kernel,
+      p, sfzh, a_rows, ld_a, sed_k, L, ld_sed, 1, cluster,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -13,6 +13,10 @@
 //   lnu[b,l] = Σ_c sfzh[b,c] · sed[c,l0+l]                 (fp32 FMA; sed
 //                                                           carries dλ/λ)
 //   fw[b,l]  = bf16( lnu · (fesc + (1−fesc)·exp(−τ_V[b]·k[l0+l])) )
+//
+// (with a birth-cloud screen, lnu's sum over the young cells c < cy is
+// scaled by exp(−τ_BC[b]·k[l0+l]) before the old cells join it; the
+// `_bc` kernels),
 //   acc[b,j] = Σ_l fw[b,l] · knot[l0+l, k0·F8 + j]   (bf16 in, fp32 sum)
 //   out[b,f] = interp(acc[b,·,f]; s[b] − k0·δ) / max(interp(den[k0+·,f]), 1e-30)
 //              · scale[b]
@@ -26,6 +30,8 @@
 // more bands the band-group blocks of a galaxy tile run as one thread-block
 // cluster (`k1_fused_window_cluster_kernel`) that computes the tile's first
 // product once and shares its fw tiles through distributed shared memory.
+// `k1_fused_window_bc_kernel` and `k1_fused_window_bc_cluster_kernel` are
+// the same two with the birth-cloud screen (sed_tile.cuh, "Birth cloud").
 //
 // Not carried over from the TPU kernel: 8-row block padding, 128-lane padding
 // and power-of-two knot slots, lane-mask row selection and the log-step roll
@@ -45,6 +51,16 @@ k1_fused_window_cluster_kernel(const __grid_constant__ sed_tile::Args p) {
   sed_tile::run<true>(p);
 }
 
+__global__ void __launch_bounds__(sed_tile::NT, 1)
+k1_fused_window_bc_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<false, true>(p);
+}
+
+__global__ void __launch_bounds__(sed_tile::NT_CL, 1)
+k1_fused_window_bc_cluster_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<true, true>(p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -61,9 +77,11 @@ const char* k1_error_string(int code) {
 // the (n_l, C) K-major table, row stride ld_sed (`k_major`); both with
 // 16-byte aligned rows (TMA). `cluster` blocks share one galaxy tile's
 // first product (1 at f8 = 8; at most 8; `cluster_size` in
-// ops/fused_sed.py).
+// ops/fused_sed.py). `tau_bc` (B,) non-null takes the birth-cloud kernels,
+// the cells 0 .. n_young − 1 behind it.
 int k1_fused_window(const float* sfzh, int64_t a_rows, int64_t ld_a,
-                    const float* s, const float* tau_v, const float* scale,
+                    const float* s, const float* tau_v, const float* tau_bc,
+                    int n_young, const float* scale,
                     const float* sed_k, int64_t n_l, int64_t ld_sed,
                     const float* curve, const __nv_bfloat16* knot,
                     int64_t ld_knot, const float* den, int64_t ld_den,
@@ -91,10 +109,14 @@ int k1_fused_window(const float* sfzh, int64_t a_rows, int64_t ld_a,
   p.order_interp = order;
   p.group_rows = sub;
   p.fesc = fesc;
-  return sed_tile::launch(k1_fused_window_kernel,
-                          k1_fused_window_cluster_kernel, p, sfzh, a_rows,
-                          ld_a, sed_k, n_l, ld_sed, (B + sub - 1) / sub,
-                          cluster, static_cast<cudaStream_t>(stream));
+  p.tau_bc = tau_bc;
+  p.cy = n_young;
+  return sed_tile::launch(
+      tau_bc ? k1_fused_window_bc_kernel : k1_fused_window_kernel,
+      tau_bc ? k1_fused_window_bc_cluster_kernel
+             : k1_fused_window_cluster_kernel,
+      p, sfzh, a_rows, ld_a, sed_k, n_l, ld_sed, (B + sub - 1) / sub, cluster,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Into *out: how many clusters of `cluster` blocks of K1's (and K2's: the

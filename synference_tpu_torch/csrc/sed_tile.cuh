@@ -10,6 +10,12 @@
 //
 //   lnu[b,l]  = Σ_c sfzh[b,c] · sed[c,l]               (fp32 FMA, c ascending)
 //   fw[b,l]   = bf16( lnu · (fesc + (1−fesc)·exp(−τ_V[b]·k[l])) )
+//
+// or, with a birth-cloud screen (Charlot & Fall 2000: the young cells, a
+// prefix c < cy of the age-major cells, also sit behind τ_BC), in one
+// accumulator:
+//
+//   lnu[b,l]  = (Σ_{c<cy} sfzh·sed) · exp(−τ_BC[b]·k[l]) + Σ_{c≥cy} sfzh·sed
 //   acc[b,k,f] = Σ_l fw[b,l] · knot[l, k·F8 + f]         (bf16 in, fp32 sum)
 //   out[b,f]  = interp(acc[b,·,f]; s[b]) / max(interp(den[·,f]; s[b]), 1e-30)
 //               · scale[b]
@@ -77,6 +83,17 @@
 // - No split over cells or λ, no atomics, no partial buffers: two runs give
 //   the same bits, and the same bits as the cp.async core before it (the
 //   same FMA chain and mma.sync steps).
+//
+// Birth cloud (`run<·, true>`, its own kernels). The FMA chain of each lnu
+// element runs over the young prefix, is scaled by exp(−τ_BC[b]·k[l]) once
+// it has taken cell cy − 1, and goes on over the old cells into the same
+// accumulator (`first_product`): the first product stays 2·C·W FLOPs a row,
+// with no second table and no second accumulator tile. The ring stage that
+// holds cell cy runs as two cell ranges around the rescale, whole groups of
+// 4 cells by 16-byte loads and a group cut by cy one cell at a time, so cy
+// may be any cell (no padding; on the north-star grid cy = 300, group 3 of
+// stage 9). The epilogue's ISM screen is unchanged. The one-screen kernels
+// (`run<·, false>`) compile without any of it.
 //
 // Band groups (F8 > 8). lnu and fw do not depend on the band, so the blocks
 // of one galaxy tile that differ only in their band group (blockIdx.y) run
@@ -170,6 +187,8 @@ constexpr size_t SMEM_BYTES = RING_BYTES + FW_BYTES + ACC_BYTES +
 constexpr size_t SMEM_BYTES_CL = NST_CL * STAGE_BYTES + 2 * FWF_BYTES +
                                  ACC_BYTES + SLAB_BYTES + TAIL_BYTES +
                                  sizeof(uint64_t) * (2 * NST_CL + 4);
+// a birth-cloud kernel's block also holds its galaxies' τ_BC, past the end
+constexpr size_t BC_BYTES = sizeof(float) * TG;
 
 static_assert(TG == 128 && TL == 128 && NC == 256,
               "the register tile maps 16 × 16 threads onto 128 × 128");
@@ -179,7 +198,8 @@ static_assert(FWF_BYTES <= FW_BYTES, "both fw tile layouts fit the region");
 static_assert(TILE_BYTES % 1024 == 0 && FW_BYTES % 16 == 0 &&
                   ACC_BYTES % 16 == 0 && SLAB_BYTES % 16 == 0,
               "alignment");
-static_assert(SMEM_BYTES <= 232448 && SMEM_BYTES_CL <= 232448,
+static_assert(SMEM_BYTES + BC_BYTES <= 232448 &&
+                  SMEM_BYTES_CL + BC_BYTES <= 232448,
               "shared memory of one block");
 static_assert(NC * CL_CONSUMER_REGS + 128 * (128 + CL_PRODUCER_REGS) <= 65536,
               "a cluster block's registers");
@@ -202,6 +222,8 @@ struct Args {
   int B, C, W, nk, f8, delta, order_interp;
   int group_rows, tiles_per_group;
   float fesc, s_max;
+  const float* tau_bc;  // birth-cloud kernels: (rows,) τ_BC; else null
+  int cy;               // and the young cells, the prefix 0 .. cy − 1 of C
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -348,7 +370,8 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
 // FWF_BYTES); the knot product's accumulator; the knot slab; the galaxies'
 // rows, knot intervals, fractions and dust depths; a reduction scratch; the
 // ring's full and empty barriers (a cluster's block: then the fw tiles'
-// full and empty barriers, two each).
+// full and empty barriers, two each); a birth-cloud kernel's block then
+// its galaxies' τ_BC.
 struct Smem {
   unsigned char* ring;
   __nv_bfloat16* fw;
@@ -363,6 +386,7 @@ struct Smem {
   uint64_t* empty;
   uint64_t* fw_full;   // [2], cluster only
   uint64_t* fw_empty;  // [2], cluster only
+  float* tau_bc;       // [TG], birth-cloud kernels only
 };
 
 template <bool CLUSTER>
@@ -388,6 +412,8 @@ __device__ __forceinline__ Smem smem_layout() {
   s.empty = s.full + (CLUSTER ? NST_CL : NST);
   s.fw_full = s.empty + (CLUSTER ? NST_CL : NST);
   s.fw_empty = s.fw_full + 2;
+  s.tau_bc = reinterpret_cast<float*>(smem_raw +
+                                      (CLUSTER ? SMEM_BYTES_CL : SMEM_BYTES));
   return s;
 }
 
@@ -400,10 +426,10 @@ struct Tile {
 };
 
 // Reads the tile's galaxies into shared memory (row, knot interval,
-// fraction, dust depth), reduces the band of first knots they span and
+// fraction, dust depths), reduces the band of first knots they span and
 // sets up the ring's barriers (and, in a cluster of n blocks, the fw
 // tiles'). Every thread of the block calls it.
-template <bool CLUSTER>
+template <bool CLUSTER, bool BC>
 __device__ __forceinline__ Tile setup_tile(const Args& p, const Smem& sm,
                                            int n) {
   const int tid = threadIdx.x;
@@ -432,6 +458,7 @@ __device__ __forceinline__ Tile setup_tile(const Args& p, const Smem& sm,
     sm.k[tid] = k;
     sm.t[tid] = f;
     sm.tau[tid] = tau;
+    if constexpr (BC) sm.tau_bc[tid] = ok ? p.tau_bc[row] : 0.f;
     lo_min = __reduce_min_sync(0xffffffffu, lo_min);
     lo_max = __reduce_max_sync(0xffffffffu, lo_max);
     if (tid % 32 == 0) {
@@ -482,16 +509,100 @@ __device__ __forceinline__ void load_chunk(const Args& p, const Smem& sm,
   }
 }
 
+// The FMAs of cells 4q .. 4q + 3 of a ring stage: 16-byte loads of this
+// thread's 8 rows of A and of B, then 4 × 64 FMAs, cell by cell.
+__device__ __forceinline__ void fma_group(float (&lnu)[8][8],
+                                          const float4* a_s,
+                                          const float4* b_s, int q, int tx,
+                                          int ty) {
+  float4 a[8], b[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    a[i] = a_s[(ty + 16 * i) * (KB / 4) + (q ^ (ty & 7))];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    b[j] = b_s[(tx + 16 * j) * (KB / 4) + (q ^ (tx & 7))];
+#define SED_TILE_FMA(X)                                        \
+  _Pragma("unroll") for (int i = 0; i < 8; ++i)                \
+      _Pragma("unroll") for (int j = 0; j < 8; ++j) lnu[i][j] = \
+          fmaf(a[i].X, b[j].X, lnu[i][j]);
+  SED_TILE_FMA(x)
+  SED_TILE_FMA(y)
+  SED_TILE_FMA(z)
+  SED_TILE_FMA(w)
+#undef SED_TILE_FMA
+}
+
+// The birth-cloud screen of the young cells, once the FMA chain of every
+// lnu element of this thread has taken cell cy − 1: lnu[i][j] ·=
+// exp(−τ_BC[g]·k[l]) for its galaxies g = ty + 16i and the chunk's columns
+// l = lw0 + tx + 16j of the window from l0 (columns past the window read
+// k = 0; the screen drops them).
+__device__ __forceinline__ void birth_cloud(float (&lnu)[8][8], const Smem& sm,
+                                            const Args& p, int l0, int lw0,
+                                            int tx, int ty) {
+  float k_l[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int lw = lw0 + tx + 16 * j;
+    k_l[j] = lw < p.W ? p.curve[l0 + lw] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float tau = sm.tau_bc[ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) lnu[i][j] *= expf(-tau * k_l[j]);
+  }
+}
+
+// The FMAs of one ring stage's cells c_lo .. c_hi − 1 in ascending order:
+// whole groups of 4 cells by 16-byte loads as `first_product` takes them,
+// the cells of a group cut by either end one at a time (the birth cloud's
+// stage, which `first_product` splits at cell cy).
+__device__ __forceinline__ void stage_cells(float (&lnu)[8][8],
+                                            const float4* a_s,
+                                            const float4* b_s, int c_lo,
+                                            int c_hi, int tx, int ty) {
+  const float* a1 = reinterpret_cast<const float*>(a_s);
+  const float* b1 = reinterpret_cast<const float*>(b_s);
+#pragma unroll 1
+  for (int c = c_lo; c < c_hi;) {
+    const int q = c >> 2;
+    if ((c & 3) == 0 && c + 4 <= c_hi) {
+      fma_group(lnu, a_s, b_s, q, tx, ty);
+      c += 4;
+    } else {
+      const int e = c & 3;
+      float a[8], b[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = a1[((ty + 16 * i) * (KB / 4) + (q ^ (ty & 7))) * 4 + e];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        b[j] = b1[((tx + 16 * j) * (KB / 4) + (q ^ (tx & 7))) * 4 + e];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) lnu[i][j] = fmaf(a[i], b[j], lnu[i][j]);
+      c += 1;
+    }
+  }
+}
+
 // lnu[i][j] of this consumer thread's 8 galaxies ty + 16i × 8 λ columns
 // tx + 16j of the chunk: one FMA chain per element over cells in ascending
 // order. A stage holds 128 rows of 32 cells of A and of B, 128 bytes a row
 // in TMA's 128-byte swizzle (16-byte chunk q of row r at chunk q ^ (r % 8);
 // r % 8 is ty % 8 or tx % 8 for every row a thread reads). Consumes n_kb
-// ring stages of a ring of NS.
-template <int NS>
+// ring stages of a ring of NS. BC: the chain is scaled by the birth cloud
+// (`birth_cloud`, at the chunk's window columns from l0 + lw0) between
+// cells cy − 1 and cy.
+template <int NS, bool BC>
 __device__ __forceinline__ void first_product(float (&lnu)[8][8],
                                               const Smem& sm, uint32_t& it,
-                                              int n_kb, int tx, int ty) {
+                                              int n_kb, int tx, int ty,
+                                              const Args& p, int l0,
+                                              int lw0) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -502,27 +613,23 @@ __device__ __forceinline__ void first_product(float (&lnu)[8][8],
     const float4* a_s =
         reinterpret_cast<const float4*>(sm.ring + s * STAGE_BYTES);
     const float4* b_s = a_s + TILE_BYTES / sizeof(float4);
-#pragma unroll
-    for (int q = 0; q < KB / 4; ++q) {  // cells 4q .. 4q + 3
-      float4 a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a[i] = a_s[(ty + 16 * i) * (KB / 4) + (q ^ (ty & 7))];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        b[j] = b_s[(tx + 16 * j) * (KB / 4) + (q ^ (tx & 7))];
-#define SED_TILE_FMA(X)                                          \
-  _Pragma("unroll") for (int i = 0; i < 8; ++i)                  \
-      _Pragma("unroll") for (int j = 0; j < 8; ++j) lnu[i][j] =  \
-          fmaf(a[i].X, b[j].X, lnu[i][j]);
-      SED_TILE_FMA(x)
-      SED_TILE_FMA(y)
-      SED_TILE_FMA(z)
-      SED_TILE_FMA(w)
-#undef SED_TILE_FMA
+    if constexpr (BC) {
+      if (kb == p.cy / KB) {  // the stage that holds cell cy
+        stage_cells(lnu, a_s, b_s, 0, p.cy % KB, tx, ty);
+        birth_cloud(lnu, sm, p, l0, lw0, tx, ty);
+        stage_cells(lnu, a_s, b_s, p.cy % KB, KB, tx, ty);
+        mbar_arrive(&sm.empty[s]);
+        continue;
+      }
     }
+#pragma unroll
+    for (int q = 0; q < KB / 4; ++q)  // cells 4q .. 4q + 3
+      fma_group(lnu, a_s, b_s, q, tx, ty);
     mbar_arrive(&sm.empty[s]);  // this thread is done with the stage
   }
+  // every cell young, cy = n_kb·KB: the stage of cell cy is past the end
+  if constexpr (BC)
+    if (p.cy >= n_kb * KB) birth_cloud(lnu, sm, p, l0, lw0, tx, ty);
 }
 
 // The knots a pass contracts: the 4 of each galaxy it finishes (first
@@ -783,6 +890,7 @@ __device__ __forceinline__ void produce(const Args& p, const Smem& sm,
 // over all NKP knots of the pass (contracting only `pass_knots` of them
 // measured 1-2% slower here on an H100: the knot phase is a small part of
 // a lone block's time).
+template <bool BC>
 __device__ __forceinline__ void consume(const Args& p, const Smem& sm,
                                         const Tile& t) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -798,7 +906,7 @@ __device__ __forceinline__ void consume(const Args& p, const Smem& sm,
       // the chunk's knot slab, in flight during the first product
       load_slab<TL>(sm.slab, p, t, pk0, NKP, fb0, c0);
       cp_async_commit();
-      first_product<NST>(lnu, sm, it, n_kb, tx, ty);
+      first_product<NST, BC>(lnu, sm, it, n_kb, tx, ty, p, t.l0, c0);
       screen<false>(lnu, sm, sm.fw, p, t.l0, c0, tx, ty);
       cp_async_wait<0>();
       consumer_sync();  // fw written and every slab copy landed
@@ -816,6 +924,7 @@ __device__ __forceinline__ void consume(const Args& p, const Smem& sm,
 // every knot team of the cluster has arrived on fw_empty[b]; once written
 // (or at a tail super-chunk with no chunk for this block), one thread
 // arrives on fw_full[b] of every block of the cluster.
+template <bool BC>
 __device__ __forceinline__ void consume_cluster(const Args& p, const Smem& sm,
                                                 const Tile& t, int n,
                                                 int rank) {
@@ -828,7 +937,9 @@ __device__ __forceinline__ void consume_cluster(const Args& p, const Smem& sm,
       const int b = sc & 1;
       const bool mine = rank < min(n, (p.W - c0 + TL - 1) / TL);
       float lnu[8][8];
-      if (mine) first_product<NST_CL>(lnu, sm, it, n_kb, tx, ty);
+      if (mine)
+        first_product<NST_CL, BC>(lnu, sm, it, n_kb, tx, ty, p, t.l0,
+                                  c0 + rank * TL);
       if (sc >= 2) mbar_wait_cluster(&sm.fw_empty[b], ((sc >> 1) - 1) & 1);
       if (mine)
         screen<true>(lnu, sm, sm.fw + b * (FWF_BYTES / 2), p, t.l0,
@@ -921,8 +1032,9 @@ __device__ __forceinline__ void knot_team(const Args& p, const Smem& sm,
 // band groups (header: "Band groups"). The tile, its passes and the window
 // are the cluster's, so every block runs the same super-chunks; the blocks
 // meet at a cluster barrier after setting up their barriers and before
-// leaving (no block's shared memory goes while a peer may read it).
-template <bool CLUSTER>
+// leaving (no block's shared memory goes while a peer may read it). BC: with
+// the birth-cloud screen (header: "Birth cloud").
+template <bool CLUSTER, bool BC = false>
 __device__ __forceinline__ void run(const Args& p) {
   const Smem sm = smem_layout<CLUSTER>();
   int n = 1, rank = 0;
@@ -933,7 +1045,7 @@ __device__ __forceinline__ void run(const Args& p) {
     n = (int)(dims.x * dims.y * dims.z);
     rank = (int)cluster.block_rank();
   }
-  const Tile t = setup_tile<CLUSTER>(p, sm, n);
+  const Tile t = setup_tile<CLUSTER, BC>(p, sm, n);
   if (t.band_top < 0) return;  // uniform per block and per cluster
   if constexpr (!CLUSTER) {
     if (threadIdx.x >= NC) {
@@ -943,7 +1055,7 @@ __device__ __forceinline__ void run(const Args& p) {
     } else {
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
           CONSUMER_REGS));
-      consume(p, sm, t);
+      consume<BC>(p, sm, t);
     }
   } else {
     cluster_arrive();  // every block's barriers are set up
@@ -957,7 +1069,7 @@ __device__ __forceinline__ void run(const Args& p) {
     } else {
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
           CL_CONSUMER_REGS));
-      consume_cluster(p, sm, t, n, rank);
+      consume_cluster<BC>(p, sm, t, n, rank);
     }
     cluster_arrive();
     cluster_wait();
@@ -1008,10 +1120,11 @@ inline int operand_map(CUtensorMap* map, const float* base, int64_t rows,
 }
 
 // Launch over `groups` window groups of `p.group_rows` rows and every band
-// group, on `stream`: `kernel` (a __global__ wrapper of run<false>, NT
-// threads) for cluster = 1, else `cluster_kernel` (of run<true>, NT_CL
+// group, on `stream`: `kernel` (a __global__ wrapper of run<false, ·>, NT
+// threads) for cluster = 1, else `cluster_kernel` (of run<true, ·>, NT_CL
 // threads) in clusters of `cluster` blocks along y, the band groups padded
-// up to whole clusters.
+// up to whole clusters. With p.tau_bc set the two are the birth-cloud
+// kernels (run<·, true>), which take BC_BYTES more shared memory.
 // cluster must lie in [1, 8], the portable cluster sizes. The operand maps
 // are made here: A (a_rows × C, row stride ld_a) and B (n_l × C, row stride
 // ld_b). Returns the launch's cudaError_t (0 = ok); a cluster launch the
@@ -1026,9 +1139,10 @@ inline int launch(Kernel kernel, Kernel cluster_kernel, Args p,
   if (!merr) merr = operand_map(&p.b_map, b, n_l, p.C, ld_b);
   if (merr) return merr;
   Kernel k = cluster == 1 ? kernel : cluster_kernel;
+  const size_t smem = (cluster == 1 ? SMEM_BYTES : SMEM_BYTES_CL) +
+                      (p.tau_bc ? BC_BYTES : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(cluster == 1 ? SMEM_BYTES : SMEM_BYTES_CL));
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   p.tiles_per_group = (p.group_rows + TG - 1) / TG;
   // same clip bound as `_knot_interp`: computed in double, rounded to float
@@ -1037,7 +1151,7 @@ inline int launch(Kernel kernel, Kernel cluster_kernel, Args p,
   const dim3 grid(groups * p.tiles_per_group,
                   (band_groups + cluster - 1) / cluster * cluster);
   if (cluster == 1) {
-    kernel<<<grid, NT, SMEM_BYTES, stream>>>(p);
+    kernel<<<grid, NT, smem, stream>>>(p);
     return (int)cudaGetLastError();
   }
   cudaLaunchAttribute attr;
@@ -1048,7 +1162,7 @@ inline int launch(Kernel kernel, Kernel cluster_kernel, Args p,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(NT_CL);
-  cfg.dynamicSmemBytes = SMEM_BYTES_CL;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;

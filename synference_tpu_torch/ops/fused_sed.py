@@ -7,6 +7,13 @@ knots of the IGM-baked knot matrix:
 
     lnu  = sfzh @ sed_w                 (fp32; sed_w carries dλ/λ)
     fw   = lnu · (fesc + (1−fesc)·exp(−τ_V·k_λ))
+
+With a birth-cloud screen (`tau_bc`, Charlot & Fall 2000) the first
+`n_young` cells, the young stars of the age-major SFZH, also sit behind
+exp(−τ_BC·k_λ):
+
+    lnu  = (sfzh[:, :n_young] @ sed_w[:n_young])·exp(−τ_BC·k_λ)
+           + sfzh[:, n_young:] @ sed_w[n_young:]
     acc  = bf16(fw) @ bf16(knot_w)      (fp32 accumulation)
     out  = interp(acc; s) / max(interp(den_w; s), 1e-30) · scale
 
@@ -196,13 +203,21 @@ def fused_window_photometry_reference(sfzh, s_rel, tau_v, scale, sed_w,
                                       curve_w, knot_w, den_w, kc: int,
                                       delta: int, f8: int, order: int = 3,
                                       fesc: float = 0.0,
-                                      first_product=torch.matmul):
+                                      first_product=torch.matmul,
+                                      tau_bc=None, n_young: int = 0):
     """Plain PyTorch K1 (same arguments as `fused_window_photometry`).
     On a card, fp32 matrix products must not use TF32
     (`torch.backends.cuda.matmul.allow_tf32` False, PyTorch's default).
     `first_product(sfzh, sed_w)` computes lnu (tests and the card checks
-    pass `exact_first_product` or an emulation)."""
-    lnu = first_product(sfzh, sed_w)
+    pass `exact_first_product` or an emulation); with `tau_bc` it computes
+    each population's part, the young cells' then screened by the birth
+    cloud."""
+    if tau_bc is None:
+        lnu = first_product(sfzh, sed_w)
+    else:
+        bc = torch.exp(-tau_bc[:, None] * curve_w[None, :])
+        lnu = (first_product(sfzh[:, :n_young], sed_w[:n_young]) * bc
+               + first_product(sfzh[:, n_young:], sed_w[n_young:]))
     att = torch.exp(-tau_v[:, None] * curve_w[None, :])
     if fesc:
         att = fesc + (1.0 - fesc) * att
@@ -226,11 +241,14 @@ def _require(cond: bool, msg: str,
 
 def _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
                        den_w, kc, delta, f8, order,
-                       who: str = "fused_window_photometry"):
+                       who: str = "fused_window_photometry", tau_bc=None,
+                       n_young: int = 0):
     req = functools.partial(_require, who=who)
     dev = sfzh.device
     named = dict(sfzh=sfzh, s_rel=s_rel, tau_v=tau_v, scale=scale,
                  sed_w=sed_w, curve_w=curve_w, knot_w=knot_w, den_w=den_w)
+    if tau_bc is not None:
+        named["tau_bc"] = tau_bc
     for name, t in named.items():
         req(t.device == dev, f"{name} is on {t.device}, sfzh on {dev}")
         want = torch.bfloat16 if name == "knot_w" else torch.float32
@@ -246,9 +264,11 @@ def _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
     req(knot_w.stride(0) % 8 == 0 and knot_w.data_ptr() % 16 == 0,
         "knot_w rows must start 16-byte aligned")
     req(order in (1, 3), f"order must be 1 or 3, not {order}")
-    shapes = dict(s_rel=(b,), tau_v=(b,), scale=(b,), sed_w=(c, w),
-                  curve_w=(w,), knot_w=(w, kc * f8), den_w=(kc, f8))
-    for name, shape in shapes.items():
+    req(0 <= n_young <= c, f"n_young must lie in [0, {c}], not {n_young}")
+    shapes = dict(s_rel=(b,), tau_v=(b,), tau_bc=(b,), scale=(b,),
+                  sed_w=(c, w), curve_w=(w,), knot_w=(w, kc * f8),
+                  den_w=(kc, f8))
+    for name, shape in ((k, v) for k, v in shapes.items() if k in named):
         req(tuple(named[name].shape) == shape,
             f"{name} has shape {tuple(named[name].shape)}, expected {shape}")
     # 1-D inputs contiguous; 2-D inputs unit column stride with any row
@@ -287,10 +307,10 @@ def _b_operand(sed):
 
 def _launch_k1(sfzh, s, tau_v, scale, sed_k, curve, knot, den, win, w: int,
                kc: int, delta: int, f8: int, order: int, fesc: float,
-               sub: int):
+               sub: int, tau_bc=None, n_young: int = 0):
     """One K1 launch over ceil(B/sub) sub-chunks (`win` their (k0, l0)
     int32 starts on the card, None for one window at (0, 0)); `sed_k` the
-    (L, C) K-major spectra (`k_major`)."""
+    (L, C) K-major spectra (`k_major`); `tau_bc` None for one screen."""
     from ._cuda import load_library
 
     lib = load_library()
@@ -303,6 +323,7 @@ def _launch_k1(sfzh, s, tau_v, scale, sed_k, curve, knot, den, win, w: int,
     stream = torch.cuda.current_stream(sfzh.device).cuda_stream
     err = lib.k1_fused_window(
         a.data_ptr(), a.shape[0], a.stride(0), s.data_ptr(), tau_v.data_ptr(),
+        None if tau_bc is None else tau_bc.data_ptr(), n_young,
         scale.data_ptr(), sed_k.data_ptr(), sed_k.shape[0], sed_k.stride(0),
         curve.data_ptr(), knot.data_ptr(), knot.stride(0), den.data_ptr(),
         den.stride(0), None if win is None else win.data_ptr(),
@@ -317,7 +338,8 @@ def _launch_k1(sfzh, s, tau_v, scale, sed_k, curve, knot, den, win, w: int,
 
 def fused_window_photometry(sfzh, s_rel, tau_v, scale, sed_w, curve_w,
                             knot_w, den_w, kc: int, delta: int, f8: int,
-                            order: int = 3, fesc: float = 0.0):
+                            order: int = 3, fesc: float = 0.0, tau_bc=None,
+                            n_young: int = 0):
     """Windowed SED → (B, F8) band fluxes for one sub-chunk, one kernel per
     call (the grouped kernel over a single window).
 
@@ -330,6 +352,8 @@ def fused_window_photometry(sfzh, s_rel, tau_v, scale, sed_w, curve_w,
         curve_w: (W,) dust curve k_λ/R_V on the window.
         knot_w: (W, kc·F8) IGM-baked knot-matrix window; bfloat16 on a card.
         den_w: (kc, F8) exact denominator knots of the window.
+        tau_bc: (B,) birth-cloud depth of the young cells, the first
+            `n_young` of C; None (the default) for the ISM screen alone.
 
     CPU tensors go through `fused_window_photometry_reference`. CUDA tensors
     launch the kernel on the current stream; inputs the kernel does not take
@@ -340,16 +364,18 @@ def fused_window_photometry(sfzh, s_rel, tau_v, scale, sed_w, curve_w,
     if sfzh.device.type == "cpu":
         return fused_window_photometry_reference(
             sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w, den_w, kc,
-            delta, f8, order=order, fesc=fesc)
+            delta, f8, order=order, fesc=fesc, tau_bc=tau_bc,
+            n_young=n_young)
     _require(sfzh.device.type == "cuda",
              f"tensors on {sfzh.device} are neither CPU nor CUDA")
     refuse_autodiff("fused_window_photometry", sfzh, s_rel, tau_v, scale,
-                    sed_w, curve_w, knot_w, den_w)
+                    sed_w, curve_w, knot_w, den_w, tau_bc)
     _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
-                       den_w, kc, delta, f8, order)
+                       den_w, kc, delta, f8, order, tau_bc=tau_bc,
+                       n_young=n_young)
     return _launch_k1(sfzh, s_rel, tau_v, scale, k_major(sed_w.t()), curve_w,
                       knot_w, den_w, None, sed_w.shape[1], kc, delta, f8,
-                      order, fesc, sfzh.shape[0])
+                      order, fesc, sfzh.shape[0], tau_bc, n_young)
 
 
 fused_window_photometry.launches = 0
@@ -387,10 +413,12 @@ def fused_window_photometry_grouped_reference(sfzh, s, tau_v, scale,
                                               kc: int, delta: int, f8: int,
                                               order: int = 3,
                                               fesc: float = 0.0,
-                                              first_product=torch.matmul):
+                                              first_product=torch.matmul,
+                                              tau_bc=None,
+                                              n_young: int = 0):
     """Plain PyTorch grouped K1: `fused_window_photometry_reference` per
-    sub-chunk, each on its own window of the tables (`first_product` as
-    there)."""
+    sub-chunk, each on its own window of the tables (`first_product`,
+    `tau_bc` and `n_young` as there)."""
     out = torch.empty((sfzh.shape[0], f8), dtype=torch.float32,
                       device=sfzh.device)
     for i, (k, l) in enumerate(zip(np.asarray(k0).tolist(),
@@ -402,14 +430,16 @@ def fused_window_photometry_grouped_reference(sfzh, s, tau_v, scale,
             tables["sed"][:, cols], tables["curve"][cols],
             tables["knot"][cols, k * f8:(k + kc) * f8],
             tables["den"][k:k + kc], kc, delta, f8, order=order, fesc=fesc,
-            first_product=first_product)
+            first_product=first_product,
+            tau_bc=None if tau_bc is None else tau_bc[r], n_young=n_young)
     return out
 
 
 def fused_window_photometry_grouped(sfzh, s, tau_v, scale, tables: dict, k0,
                                     l0, sub: int, w_cols: int, kc: int,
                                     delta: int, f8: int, order: int = 3,
-                                    fesc: float = 0.0):
+                                    fesc: float = 0.0, tau_bc=None,
+                                    n_young: int = 0):
     """Windowed SED → (B, F8) band fluxes for a batch of z-sorted
     sub-chunks, one kernel launch for all of them.
 
@@ -418,7 +448,8 @@ def fused_window_photometry_grouped(sfzh, s, tau_v, scale, tables: dict, k0,
     (`prepare_megakernel_tables`). `s` (B,) holds the absolute column
     shifts log10(1+z)/Δ; `k0`, `l0` are host integer sequences (the
     planner's), checked here and copied to the card as one int32 array.
-    Other arguments as `fused_window_photometry`.
+    Other arguments (`tau_bc`, `n_young` too) as
+    `fused_window_photometry`.
 
     CPU tensors go through `fused_window_photometry_grouped_reference`.
     CUDA tensors launch K1 once on the current stream (one more on
@@ -433,28 +464,35 @@ def fused_window_photometry_grouped(sfzh, s, tau_v, scale, tables: dict, k0,
     if sfzh.device.type == "cpu":
         return fused_window_photometry_grouped_reference(
             sfzh, s, tau_v, scale, tables, win[:, 0], win[:, 1], sub,
-            w_cols, kc, delta, f8, order=order, fesc=fesc)
+            w_cols, kc, delta, f8, order=order, fesc=fesc, tau_bc=tau_bc,
+            n_young=n_young)
     who = "fused_window_photometry_grouped"
     _require(sfzh.device.type == "cuda",
              f"tensors on {sfzh.device} are neither CPU nor CUDA", who)
-    refuse_autodiff(who, sfzh, s, tau_v, scale, sed, curve, knot, den)
+    refuse_autodiff(who, sfzh, s, tau_v, scale, sed, curve, knot, den,
+                    tau_bc)
     _check_cuda_inputs(sfzh, s, tau_v, scale, sed, curve, knot, den,
-                       n_knots, delta, f8, order, who=who)
+                       n_knots, delta, f8, order, who=who, tau_bc=tau_bc,
+                       n_young=n_young)
     win = torch.as_tensor(win).to(sfzh.device, non_blocking=True)
     return _launch_k1(sfzh, s, tau_v, scale, _b_operand(sed), curve, knot,
-                      den, win, w_cols, kc, delta, f8, order, fesc, sub)
+                      den, win, w_cols, kc, delta, f8, order, fesc, sub,
+                      tau_bc, n_young)
 
 
 def fused_sed_photometry_reference(sfzh, s, tau_v, scale, tables: dict,
                                    n_knots: int, delta: int, f8: int,
                                    order: int = 3, fesc: float = 0.0,
-                                   first_product=torch.matmul):
+                                   first_product=torch.matmul, tau_bc=None,
+                                   n_young: int = 0):
     """Plain PyTorch K2: K1's plain version over the whole tables
-    (kc = n_knots, shifts relative to knot 0; `first_product` as there)."""
+    (kc = n_knots, shifts relative to knot 0; `first_product`, `tau_bc`
+    and `n_young` as there)."""
     return fused_window_photometry_reference(
         sfzh, s, tau_v, scale, tables["sed"], tables["curve"],
         tables["knot"], tables["den"], n_knots, delta, f8, order=order,
-        fesc=fesc, first_product=first_product)
+        fesc=fesc, first_product=first_product, tau_bc=tau_bc,
+        n_young=n_young)
 
 
 def k2_row_order(s, n_knots: int, delta: int) -> torch.Tensor:
@@ -484,7 +522,8 @@ def _check_rows(rows, b: int, device) -> None:
 
 def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
                          delta: int, f8: int, order: int = 3,
-                         fesc: float = 0.0, rows=None):
+                         fesc: float = 0.0, rows=None, tau_bc=None,
+                         n_young: int = 0):
     """SED → (B, F8) band fluxes over the whole λ support and knot table,
     one kernel per call, for galaxies in any redshift order.
 
@@ -497,6 +536,8 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
             (L,), "knot" (L, n_knots·F8) bfloat16, "den" (n_knots, F8).
         rows: the order the kernel visits the rows in; None (the default)
             computes `k2_row_order`. The output is in input order either way.
+        tau_bc, n_young: the birth-cloud screen, as
+            `fused_window_photometry`.
 
     CPU tensors go through `fused_sed_photometry_reference`. CUDA tensors
     launch the kernel (`csrc/fused_sed.cu`) on the current stream; inputs it
@@ -509,15 +550,17 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
     if sfzh.device.type == "cpu":
         return fused_sed_photometry_reference(
             sfzh, s, tau_v, scale, tables, n_knots, delta, f8, order=order,
-            fesc=fesc)
+            fesc=fesc, tau_bc=tau_bc, n_young=n_young)
     who = "fused_sed_photometry"
     _require(sfzh.device.type == "cuda",
              f"tensors on {sfzh.device} are neither CPU nor CUDA", who)
     sed, curve, knot, den = (tables[k] for k in ("sed", "curve", "knot",
                                                  "den"))
-    refuse_autodiff(who, sfzh, s, tau_v, scale, sed, curve, knot, den)
+    refuse_autodiff(who, sfzh, s, tau_v, scale, sed, curve, knot, den,
+                    tau_bc)
     _check_cuda_inputs(sfzh, s, tau_v, scale, sed, curve, knot, den,
-                       n_knots, delta, f8, order, who=who)
+                       n_knots, delta, f8, order, who=who, tau_bc=tau_bc,
+                       n_young=n_young)
     if rows is None:
         rows = k2_row_order(s, n_knots, delta)
     from ._cuda import load_library
@@ -530,7 +573,8 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
     stream = torch.cuda.current_stream(sfzh.device).cuda_stream
     err = lib.k2_fused_sed(
         a.data_ptr(), a.shape[0], a.stride(0), rows.data_ptr(), s.data_ptr(),
-        tau_v.data_ptr(), scale.data_ptr(), b_op.data_ptr(), b_op.stride(0),
+        tau_v.data_ptr(), None if tau_bc is None else tau_bc.data_ptr(),
+        n_young, scale.data_ptr(), b_op.data_ptr(), b_op.stride(0),
         curve.data_ptr(), knot.data_ptr(), knot.stride(0), den.data_ptr(),
         den.stride(0), out.data_ptr(), b, c, sed.shape[1], n_knots, f8,
         delta, order, float(fesc), cluster_size(f8), stream)

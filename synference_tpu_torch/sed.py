@@ -28,7 +28,10 @@ The window engine (`photometry_zsorted_device`, and its host form
 only a window of λ columns and knots, through K1 (`fused=True`, interp
 only) or the staged plain body (interp and conv; conv builds its knot
 matrix when the engine first runs). When a window would be the whole table
-it takes the dense path.
+it takes the dense path. K1, K2 and the staged body run the ISM screen and,
+with `tau_v_bc_param` (Charlot & Fall 2000), the birth cloud over the young
+cells too: the SFZH is age-major and the grid's ages ascend, so the young
+cells are a prefix of C (`_n_young`, `_screens`).
 
 "auto" keeps the interp knot matrix at any size on every device: the JAX
 package switches to conv above 64 MiB only to stay under its TPU
@@ -335,6 +338,9 @@ class BatchSEDSimulator:
         self._young_mask = torch.as_tensor(
             (grid.log10_ages < em.age_pivot_log10).astype(np.float32),
             device=dev)
+        self._n_young = None
+        if em.tau_v_bc_param is not None:
+            self._n_young = self._young_prefix(grid, em.age_pivot_log10)
         self._grey = (greybody_emission(self._lam, em.dust_temperature,
                                         em.dust_emissivity)
                       if em.dust_emission else None)
@@ -659,6 +665,19 @@ class BatchSEDSimulator:
             return incident, sum(contract(t) for t in em.reprocessed_types)
         return incident, incident
 
+    @staticmethod
+    def _young_prefix(grid, age_pivot_log10: float) -> int:
+        """The cells younger than the pivot as the length of a prefix of C:
+        `_sfzh` lays the SFZH out age-major (ages outermost, each age's
+        `cells_per_age` cells together), and the grid's ages must ascend,
+        so the young ages' cells come first (asserted)."""
+        ages = np.asarray(grid.log10_ages, np.float64)
+        assert np.all(np.diff(ages) > 0), "the grid's ages must ascend"
+        young = np.repeat(ages < age_pivot_log10, grid.cells_per_age)
+        n = int(young.sum())
+        assert young[:n].all(), "the young cells must lead the SFZH"
+        return n
+
     def _split_sfzh(self, sfzh):
         """Split weights into young/old parts for birth-cloud dust."""
         m = torch.repeat_interleave(self._young_mask, self.grid.cells_per_age)
@@ -839,14 +858,17 @@ class BatchSEDSimulator:
         return (self.photometry_backend == "pallas"
                 and self._window_mega_supported())
 
-    def _photometry_mega(self, sfzh, z, tau_v):
-        """(B, C) SFZH + (B,) z/τ_V -> (B, F) nJy through K2, one launch."""
+    def _photometry_mega(self, sfzh, z, tau_v, tau_bc=None,
+                         n_young: int = 0):
+        """(B, C) SFZH + (B,) z/τ_V (and the birth cloud's τ_BC over the
+        first `n_young` cells) -> (B, F) nJy through K2, one launch."""
         em = self.emission
         fesc = 0.0 if em.reprocessed_types else float(em.fesc)
         out = fused_sed_photometry(
             sfzh, self._shift_of_z(z), tau_v, self._scale_of_z(z),
             self._mega_tables, self._n_knots, self._knot_delta, self._f8,
-            order=self._interp_order, fesc=fesc)
+            order=self._interp_order, fesc=fesc, tau_bc=tau_bc,
+            n_young=n_young)
         return out[:, :len(self.filters)]
 
     # ------------------------------------------------------------------
@@ -862,15 +884,17 @@ class BatchSEDSimulator:
 
     def _window_supported(self) -> bool:
         """The window bodies need the base class's forward model, the
-        interp or conv tables, a static fesc and one dust screen. K1
-        (`_window_mega_supported`) and K2 (`_mega_supported`) are gated on
-        this too."""
+        interp or conv tables, a static fesc (0 with reprocessed types or
+        the birth cloud), the ISM screen with or without the birth cloud,
+        and no dust emission. K1 (`_window_mega_supported`) and K2
+        (`_mega_supported`) are gated on this too."""
         em = self.emission
         return (not self._overrides_forward_model()
                 and self._variant in ("interp", "conv")
                 and not isinstance(em.fesc, str)
-                and not (float(em.fesc) != 0.0 and em.reprocessed_types)
-                and em.tau_v_bc_param is None
+                and not (float(em.fesc) != 0.0
+                         and (em.reprocessed_types
+                              or em.tau_v_bc_param is not None))
                 and not em.dust_emission)
 
     def _window_mega_supported(self) -> bool:
@@ -919,9 +943,25 @@ class BatchSEDSimulator:
             0, self._l_sup - w_cols)
         return k0, l0
 
+    def _screens(self, params, tau_v) -> dict:
+        """The dust screens' per-row inputs of K1, K2 and the window
+        bodies, as keyword arguments: {"tau_v": τ_V} for the ISM screen
+        alone; with the birth cloud, τ_V and τ_BC side by side in one
+        (2, B) tensor (rows "tau_v" and "tau_bc"; the second screen's one
+        per-batch device step, span `sed.screens`) and "n_young", the young
+        cells' prefix of C (`_young_prefix`)."""
+        em = self.emission
+        if em.tau_v_bc_param is None:
+            return {"tau_v": tau_v}
+        with span("sed.screens"):
+            depths = torch.stack([tau_v, params[em.tau_v_bc_param]])
+        return {"tau_v": depths[0], "tau_bc": depths[1],
+                "n_young": self._n_young}
+
     def _window_inputs(self, theta, row_offset: int = 0):
         """Per-row inputs of the window bodies for z-sorted θ: (sfzh,
-        absolute shift s, τ_V, observed-frame scale, static fesc)."""
+        absolute shift s, observed-frame scale, static fesc, the screens'
+        keyword arguments `_screens`)."""
         em = self.emission
         params = self.theta_dict(theta, row_offset)
         sfzh, _ = self._sfzh(params)
@@ -929,7 +969,8 @@ class BatchSEDSimulator:
         tau_v = (params[em.tau_v_param] if em.tau_v_param is not None
                  else torch.zeros_like(z))
         fesc = 0.0 if em.reprocessed_types else float(em.fesc)
-        return sfzh, self._shift_of_z(z), tau_v, self._scale_of_z(z), fesc
+        return (sfzh, self._shift_of_z(z), self._scale_of_z(z), fesc,
+                self._screens(params, tau_v))
 
     def _window_calls(self, theta, sub: int, w_cols: int, kc: int, k0, l0):
         """Per sub-chunk of `theta` (n_sub·sub z-sorted rows on the device),
@@ -938,29 +979,32 @@ class BatchSEDSimulator:
         k0/l0 are the host-int window starts. Interp only."""
         delta, f8 = self._knot_delta, self._f8
         tables = self._mega_tables
-        sfzh, s_abs, tau_v, scale, fesc = self._window_inputs(theta)
+        sfzh, s_abs, scale, fesc, screens = self._window_inputs(theta)
         for i, (k, l) in enumerate(zip(k0, l0)):
             r = slice(i * sub, (i + 1) * sub)
             cols = slice(l, l + w_cols)
             knots = slice(k * f8, (k + kc) * f8)
+            rows = {key: v[r] if torch.is_tensor(v) else v
+                    for key, v in screens.items()}
             yield r, cols, knots, dict(
                 sfzh=sfzh[r], s_rel=s_abs[r] - float(k * delta),
-                tau_v=tau_v[r], scale=scale[r], sed_w=tables["sed"][:, cols],
+                scale=scale[r], sed_w=tables["sed"][:, cols],
                 curve_w=tables["curve"][cols],
                 knot_w=tables["knot"][cols, knots],
                 den_w=tables["den"][k:k + kc], kc=kc, delta=delta,
-                f8=f8, order=self._interp_order, fesc=fesc)
+                f8=f8, order=self._interp_order, fesc=fesc, **rows)
 
     def _window_grouped_args(self, theta, sub: int, w_cols: int, kc: int,
                              k0, l0, row_offset: int = 0) -> dict:
         """Keyword arguments of `fused_window_photometry_grouped` for every
         sub-chunk of `theta` at once (K1, one launch)."""
-        sfzh, s_abs, tau_v, scale, fesc = self._window_inputs(theta,
-                                                              row_offset)
-        return dict(sfzh=sfzh, s=s_abs, tau_v=tau_v, scale=scale,
+        sfzh, s_abs, scale, fesc, screens = self._window_inputs(theta,
+                                                                row_offset)
+        return dict(sfzh=sfzh, s=s_abs, scale=scale,
                     tables=self._mega_tables, k0=k0, l0=l0, sub=sub,
                     w_cols=w_cols, kc=kc, delta=self._knot_delta,
-                    f8=self._f8, order=self._interp_order, fesc=fesc)
+                    f8=self._f8, order=self._interp_order, fesc=fesc,
+                    **screens)
 
     @traced("sed.window_body")
     def _zsorted_run_raw(self, theta, sub: int, w_cols: int, kc: int, k0,
@@ -970,7 +1014,9 @@ class BatchSEDSimulator:
         `fused=True` launches K1 once for all sub-chunks; `fused=False` runs
         the staged body per sub-chunk: the two products and `_knot_interp`
         in plain torch, with dλ/λ applied after the dust screen as in the
-        JAX package's staged body.
+        JAX package's staged body; with the birth cloud the young and the
+        old cells are contracted apart, each behind its own screen, as in
+        `_apply_emission`.
         """
         if fused:
             out = fused_window_photometry_grouped(
@@ -981,18 +1027,27 @@ class BatchSEDSimulator:
         fesc = float(em.fesc)
         delta, f8 = self._knot_delta, self._f8
         m_igm = self._window_knot_matrix()
-        sfzh, s_abs, tau_v, scale, _ = self._window_inputs(theta, row_offset)
+        sfzh, s_abs, scale, _, screens = self._window_inputs(theta,
+                                                             row_offset)
+        tau_v, tau_bc = screens["tau_v"], screens.get("tau_bc")
         out = torch.empty(theta.shape[0], len(self.filters),
                           dtype=torch.float32, device=theta.device)
         for i, (k, l) in enumerate(zip(k0, l0)):
             r = slice(i * sub, (i + 1) * sub)
             cols = slice(l, l + w_cols)
-            lnu = sfzh[r] @ self._t_mix[:, cols]
-            att = torch.exp(-tau_v[r, None] * self._dust_curve_sup[None, cols])
-            if em.reprocessed_types:  # the gate makes fesc 0 here
-                lnu = lnu * att
+            curve = self._dust_curve_sup[None, cols]
+            att = torch.exp(-tau_v[r, None] * curve)
+            if tau_bc is not None:  # the gate makes fesc 0 here
+                ny = screens["n_young"]
+                att_young = torch.exp(-(tau_v[r, None] + tau_bc[r, None])
+                                      * curve)
+                lnu = (sfzh[r, :ny] @ self._t_mix[:ny, cols] * att_young
+                       + sfzh[r, ny:] @ self._t_mix[ny:, cols] * att)
+            elif em.reprocessed_types:  # the gate makes fesc 0 here
+                lnu = sfzh[r] @ self._t_mix[:, cols] * att
             else:
-                lnu = lnu * (fesc + (1.0 - fesc) * att)
+                lnu = (sfzh[r] @ self._t_mix[:, cols]) * (
+                    fesc + (1.0 - fesc) * att)
             fw = lnu * self._wlam_sup[None, cols]
             acc = knot_product(fw, m_igm[cols, k * f8:(k + kc) * f8])
             phot = window_ratio(acc, self._den_f8[k:k + kc],
@@ -1148,7 +1203,8 @@ class BatchSEDSimulator:
             z = self._param(params, "redshift", 0.0)
             tau_v = (params[em.tau_v_param] if em.tau_v_param is not None
                      else torch.zeros_like(z))
-            return {"photometry_njy": self._photometry_mega(sfzh, z, tau_v)}
+            return {"photometry_njy": self._photometry_mega(
+                sfzh, z, **self._screens(params, tau_v))}
         res = self._core(theta, want_spectra, fused=fused,
                          row_offset=row_offset)
         z = res.pop("_z")

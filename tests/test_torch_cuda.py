@@ -80,6 +80,17 @@ group the sharded photometry launches K2 once per call and equals
 `photometry()` bit for bit, and the sharded training step (its `all_reduce`
 included) equals the trainer's step bit for bit.
 
+The birth-cloud slice (Charlot & Fall 2000 dust) on the card, at the
+north-star width (C 768, the first 300 cells young): K1 lone (F8 8) and
+in clusters (F8 64) over 32768 z-sorted rows, and K2 from `photometry()`
+of 16384 unsorted rows, each pass `exact_gate` whole against the two
+populations' exact first products; at F8 64 K1 equals its 8-band slices
+bit for bit; with τ_BC = 0 each equals the one-screen kernel bit for bit;
+`generate(2²⁰)` of the model launches K1 16 times and no K2 or dense
+`simulate`. The one-screen main paths (`generate(2²⁰)` at 7 bands,
+`generate(10⁵)` at 63) keep the sha256 of their θ and photometry that
+they read on an H100 80GB HBM3 before the birth-cloud kernels.
+
 K1 and K2 share one core (`csrc/sed_tile.cuh`). K1's one launch over a
 batch of sub-chunks is held to the same bound with per-sub-chunk windows
 at unaligned columns, ragged tiles and B = 1, 3, 13; both kernels at 128
@@ -1040,6 +1051,175 @@ def test_ragged_run_through_k1_equals_whole_batch_pad(cuda):
     np.testing.assert_array_equal(lib["parameters"].T,
                                   theta[:args["n"]].cpu().numpy())
     np.testing.assert_array_equal(lib["photometry"].T, phot.cpu().numpy())
+
+
+# -- Charlot & Fall (2000) dust: the birth-cloud kernels ----------------------
+_BC_NAMES = PNAMES + ("tau_v_bc",)
+_BC_PRIOR = {"log10_mass": (7.5, 11.0), "redshift": (0.1, 8.0),
+             "log10_peak_age": (7.6, 9.2), "tau": (0.1, 1.2),
+             "log10_metallicity": (-3.9, -1.6), "tau_v": (0.0, 2.0),
+             "tau_v_bc": (0.0, 2.0)}
+
+
+def _north_star_sim(device, n_bands, birth_cloud=True):
+    """The north-star width (64 ages × 12 metallicities × 10⁴ λ, C 768;
+    the first 25 ages, 300 cells, below 10⁷ yr) at `n_bands` tophat bands
+    over 0.8-5 µm, with CF00 dust (τ_V and τ_BC, (λ/5500 Å)^−0.7) or the
+    north-star's one Calzetti screen."""
+    grid = tt.make_synthetic_grid(n_ages=64, n_mets=12, n_wav=10000,
+                                  lam_min=150.0)
+    centers = np.geomspace(8000.0, 48000.0, n_bands)
+    filters = tt.FilterSet([tt.tophat_filter(f"B{i}", c, 0.15 * c)
+                            for i, c in enumerate(centers)])
+    if not birth_cloud:
+        return tt.BatchSEDSimulator(grid, filters, PNAMES, device=device)
+    return tt.BatchSEDSimulator(
+        grid, filters, _BC_NAMES, device=device,
+        emission=tt.EmissionConfig(
+            reprocessed_types=("total",), dust_law="power_law",
+            dust_params=(("slope", -0.7),), tau_v_bc_param="tau_v_bc"))
+
+
+def _bc_theta(n, sort, seed=0):
+    rng = np.random.default_rng(seed)
+    theta = np.column_stack([rng.uniform(*_BC_PRIOR[k], n) for k in (
+        "log10_mass", "redshift", "log10_peak_age", "tau",
+        "log10_metallicity", "tau_v", "tau_v_bc")]).astype(np.float32)
+    theta[:, 2] = 10.0 ** theta[:, 2]
+    return theta[np.argsort(theta[:, 1])] if sort else theta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bands", [7, 63])
+def test_birth_cloud_k1_passes_the_exact_gate(cuda, n_bands):
+    """The birth-cloud K1 at the north-star width, lone (F8 8) and in
+    clusters (F8 64), over 32768 z-sorted rows in sub-chunks of 1024:
+    `exact_gate` whole (its share part too, at this size) against the two
+    populations' exact first products; at F8 64 bit for bit the 8-band
+    slices; with τ_BC = 0 bit for bit the one-screen kernel (exp(0) = 1
+    leaves the FMA chain as it was)."""
+    sim = _north_star_sim(cuda, n_bands)
+    assert sim._n_young == 300 and sim._window_mega_supported()
+    chunk, sub, kc, w_cols, k0, l0 = sim._plan_windows(
+        _bc_theta(32768, sort=True, seed=n_bands), 1024)
+    a = sim._window_grouped_args(chunk, sub, w_cols, kc, k0, l0)
+    before = k1.fused_window_photometry.launches
+    out = k1.fused_window_photometry_grouped(**a)
+    torch.cuda.synchronize()
+    assert k1.fused_window_photometry.launches == before + 1
+    exact = k1.fused_window_photometry_grouped_reference(
+        **a, first_product=k1.exact_first_product)
+    plain = k1.fused_window_photometry_grouped_reference(**a)
+    gate = k1.exact_gate(out, exact, plain)
+    assert gate["ok"], gate
+    if a["f8"] > 8:
+        n_knots = a["tables"]["den"].shape[0]
+        slices = torch.cat([k1.fused_window_photometry_grouped(
+            **dict(a, tables=k1.band_group_tables(a["tables"], g, n_knots),
+                   f8=8)) for g in range(a["f8"] // 8)], dim=1)
+        assert torch.equal(out, slices)
+    zero = dict(a, tau_bc=torch.zeros_like(a["tau_bc"]))
+    one = {k: v for k, v in a.items() if k not in ("tau_bc", "n_young")}
+    assert torch.equal(k1.fused_window_photometry_grouped(**zero),
+                       k1.fused_window_photometry_grouped(**one))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bands", [7, 63])
+def test_birth_cloud_k2_passes_the_exact_gate(cuda, n_bands):
+    """`photometry()` of the CF00 model launches the birth-cloud K2 once,
+    rows in any order: `exact_gate` whole against the exact first
+    products, and with τ_BC = 0 the one-screen K2's bits."""
+    sim = _north_star_sim(cuda, n_bands)
+    assert sim._mega_supported()
+    theta = torch.as_tensor(_bc_theta(16384, sort=False, seed=n_bands + 1),
+                            device=cuda)
+    before = k1.fused_sed_photometry.launches
+    out = sim.photometry(theta)
+    torch.cuda.synchronize()
+    assert k1.fused_sed_photometry.launches == before + 1
+    params = sim.theta_dict(theta)
+    sfzh, _ = sim._sfzh(params)
+    z = params["redshift"]
+    args = (sfzh, sim._shift_of_z(z))
+    kw = dict(scale=sim._scale_of_z(z), tables=sim._mega_tables,
+              n_knots=sim._n_knots, delta=sim._knot_delta, f8=sim._f8,
+              order=sim._interp_order,
+              **sim._screens(params, params["tau_v"]))
+    exact = k1.fused_sed_photometry_reference(
+        *args, first_product=k1.exact_first_product, **kw)
+    plain = k1.fused_sed_photometry_reference(*args, **kw)
+    n_f = len(sim.filters)
+    gate = k1.exact_gate(out, exact[:, :n_f], plain[:, :n_f])
+    assert gate["ok"], gate
+    zero = dict(kw, tau_bc=torch.zeros_like(kw["tau_bc"]))
+    one = {k: v for k, v in kw.items() if k not in ("tau_bc", "n_young")}
+    assert torch.equal(k1.fused_sed_photometry(*args, **zero),
+                       k1.fused_sed_photometry(*args, **one))
+
+
+@pytest.mark.cuda
+def test_birth_cloud_generate_launches_k1_per_batch(cuda, monkeypatch):
+    """`generate(2²⁰)` of the CF00 model at the defaults takes the device
+    sampler and K1: 16 launches, no K2 and no dense `simulate`."""
+    sim = _north_star_sim(cuda, 7)
+    gen = tt.LibraryGenerator(sim, _BC_PRIOR, unlog_keys=["log10_peak_age"],
+                              device=cuda)
+
+    def dense(*args, **kw):
+        raise AssertionError("the dense simulate ran")
+
+    monkeypatch.setattr(sim, "simulate", dense)
+    before = (k1.fused_window_photometry.launches,
+              k1.fused_sed_photometry.launches)
+    lib = gen.generate(n=2 ** 20, seed=3)
+    assert (k1.fused_window_photometry.launches,
+            k1.fused_sed_photometry.launches) == (before[0] + 16, before[1])
+    assert lib["photometry"].shape == (7, 2 ** 20)
+    assert np.isfinite(lib["photometry"]).all()
+
+
+def _main_path_digests(device) -> dict:
+    """sha256 of θ and photometry of the one-screen main paths at the
+    north-star width: `generate(2²⁰)` at 7 bands (K1 lone) and
+    `generate(10⁵)` at 63 bands (K1's clusters), seed 0, at the
+    defaults."""
+    import hashlib
+
+    out = {}
+    for name, n_bands, n in (("north-star", 7, 2 ** 20),
+                             ("paper63", 63, 100_000)):
+        prior = {k: v for k, v in _BC_PRIOR.items() if k != "tau_v_bc"}
+        lib = tt.LibraryGenerator(
+            _north_star_sim(device, n_bands, birth_cloud=False), prior,
+            unlog_keys=["log10_peak_age"], device=device).generate(
+                n=n, seed=0)
+        for key in ("parameters", "photometry"):
+            out[f"{name}.{key}"] = hashlib.sha256(
+                np.ascontiguousarray(lib[key]).tobytes()).hexdigest()
+    return out
+
+
+# `_main_path_digests` on an NVIDIA H100 80GB HBM3 before the birth-cloud
+# kernels were added beside the one-screen kernels
+_MAIN_PATH_DIGESTS = {
+    "north-star.parameters":
+        "6b6248a4b8878d34c2715befc323ea1a9e6f617a28c98c3b2c08897af5edcb5a",
+    "north-star.photometry":
+        "689b90b07c1276b352b0bad451ec3b3a9ff2664e47b3bd2fe16a2e5d8c8aeb90",
+    "paper63.parameters":
+        "1f0edec3d232ff2f51ec0917aa8a097e50d27bc29e0abea28a746f3bde259f07",
+    "paper63.photometry":
+        "2aa60b065247a21251121950f0750f0fe0a7953411c5f7621c38730135d029ed"}
+
+
+@pytest.mark.cuda
+def test_one_screen_main_paths_keep_their_bits(cuda):
+    """The birth cloud is a kernel of its own: the one-screen main paths
+    give the bits they gave before it (on the same card model)."""
+    if torch.cuda.get_device_name(0) != "NVIDIA H100 80GB HBM3":
+        pytest.skip("the recorded bits are an H100 80GB HBM3's")
+    assert _main_path_digests(cuda) == _MAIN_PATH_DIGESTS
 
 
 # -- the flow zoo and the batched MCMC on the card ---------------------------
