@@ -352,7 +352,8 @@ def kernel_vs_plain(sim, gen, k1):
     """K1 and its plain version on the main path's own inputs: the first
     sub-chunk of the run and one from its middle (one launch each), then a
     whole 65536-row batch in one launch, orders 1 and 3."""
-    theta, sub, bs, kc, w_cols = gen._draw_sorted(N_LIBRARY, BATCH, seed=0)
+    theta, sub, bs, kc, w_cols, _ = gen._draw_sorted(N_LIBRARY, BATCH,
+                                                     seed=0)
     calls = []
     for start in (0, theta.shape[0] // 2):
         chunk, sub, kc, w_cols, k0, l0 = sim._plan_windows(
@@ -1552,8 +1553,8 @@ def families_and_particles(tt, k1, sim, dev):
               f"K1 launched {n_k1} times for {name}")
         check(bool(np.isfinite(phot).all()) and bool((phot >= 0).all()),
               f"{name} photometry not finite and non-negative")
-        theta, sub, bs, kc, w_cols = fgen._draw_sorted(FAMILY_ROWS, BATCH,
-                                                       seed=0)
+        theta, sub, bs, kc, w_cols, _ = fgen._draw_sorted(FAMILY_ROWS,
+                                                          BATCH, seed=0)
         mid = (theta.shape[0] // bs // 2) * bs
         chunk, sub, kc, w_cols, k0, l0 = fsim._plan_windows(
             theta[mid:mid + bs], sub, kc, w_cols)

@@ -62,11 +62,13 @@ def breakdown(sim, gen, n: int, reps: int) -> dict:
 
     t = {"draw+sort+plan (whole run)":
          smoke.host_ms(lambda: gen._draw_sorted(n, BATCH, seed=0), reps)}
-    theta, sub, bs, kc, w_cols = gen._draw_sorted(n, BATCH, seed=0)
-    batch = theta[:bs]
+    theta, sub, bs, kc, w_cols, (k0, l0) = gen._draw_sorted(n, BATCH, seed=0)
+    batch, starts = theta[:bs], (k0[:bs // sub], l0[:bs // sub])
     t["window plan"] = smoke.host_ms(
-        lambda: sim._plan_windows(batch, sub, kc, w_cols), reps)
-    chunk, sub, kc, w_cols, k0, l0 = sim._plan_windows(batch, sub, kc, w_cols)
+        lambda: sim._plan_windows(batch, sub, kc, w_cols, starts=starts),
+        reps)
+    chunk, sub, kc, w_cols, k0, l0 = sim._plan_windows(batch, sub, kc, w_cols,
+                                                       starts=starts)
     t["SFZH"] = smoke.host_ms(lambda: sim._sfzh(sim.theta_dict(chunk)), reps)
     t["fused body"] = smoke.host_ms(lambda: sim._zsorted_run_raw(
         chunk, sub, w_cols, kc, k0, l0, fused=True), reps)

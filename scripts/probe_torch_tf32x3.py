@@ -119,8 +119,8 @@ def shape_cases(cs, tt, k1, ref, names, dev):
     if need_ns:
         sim, gen = cs.build_model(tt, dev)
     if "k1_north_star" in names:
-        theta, sub, bs, kc, w_cols = gen._draw_sorted(cs.N_LIBRARY, cs.BATCH,
-                                                      seed=0)
+        theta, sub, bs, kc, w_cols, _ = gen._draw_sorted(
+            cs.N_LIBRARY, cs.BATCH, seed=0)
         mid = (theta.shape[0] // bs // 2) * bs
         chunk, sub, kc, w_cols, k0, l0 = sim._plan_windows(
             theta[mid:mid + bs], sub, kc, w_cols)

@@ -837,20 +837,24 @@ class LibraryGenerator:
                          zsorted_fused) -> dict:
         """Photometry-only generation on the device: θ drawn, z-sorted,
         padded to whole sub-chunks (the last batch may be shorter than
-        `batch_size`), window-planned and simulated there; two readbacks
-        for the run's plan and one a batch for its window starts; each
-        batch's photometry and its rows of θ leave the card while the next
-        batches run (`_CopyOut`)."""
+        `batch_size`), window-planned once for the run and simulated there;
+        two readbacks for the run's plan and none a batch: each batch takes
+        its slice of the run's window starts, so the host enqueues the next
+        batch while the card runs this one. Each batch's photometry and its
+        rows of θ leave the card while the next batches run (`_CopyOut`)."""
         sim = self.simulator
-        theta, sub, bs, kc, w_cols = self._draw_sorted(n, batch_size, seed)
+        theta, sub, bs, kc, w_cols, (k0, l0) = self._draw_sorted(
+            n, batch_size, seed)
         n_pad = theta.shape[0]
         if kc < sim._n_knots and w_cols < sim._l_sup:
             fuse = _fused_window_body(sim, zsorted_fused)
 
             def chunk_fn(t, row_offset):
+                # a batch starts at a whole sub-chunk and holds whole ones
+                own = slice(row_offset // sub, (row_offset + len(t)) // sub)
                 return sim.photometry_zsorted_device(
                     t, sub_chunk=sub, row_offset=row_offset, kc=kc,
-                    w_cols=w_cols, fused=fuse)
+                    w_cols=w_cols, fused=fuse, starts=(k0[own], l0[own]))
         else:  # the window is the whole table: the dense path
             _fused_window_body(sim, zsorted_fused)  # True on no K1 raises
             chunk_fn = sim.photometry
@@ -870,8 +874,10 @@ class LibraryGenerator:
         last (highest-z) row to whole sub-chunks, not whole batches: the pad
         sub-chunks span no knot, so the run's plan and every real row's
         inputs are those of a whole-batch pad. One window plan for every
-        sub-chunk of the run (one readback). Returns (θ, sub-chunk rows,
-        batch rows, kc, w_cols)."""
+        sub-chunk of the run (two readbacks: its span, then its window
+        starts). Returns (θ, sub-chunk rows, batch rows, kc, w_cols,
+        (k0, l0)): the starts as host int lists, one per sub-chunk of the
+        run, or (None, None) when the window is the whole table."""
         sim = self.simulator
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
@@ -884,8 +890,8 @@ class LibraryGenerator:
         if n_pad != n:  # pad with the last (highest-z) row: windows stay tight
             theta = torch.cat([theta, theta[-1:].expand(n_pad - n, -1)], dim=0)
         # the simulator's planner, over the whole run
-        _, _, kc, w_cols, _, _ = sim._plan_windows(theta, sub)
-        return theta, sub, bs, kc, w_cols
+        _, _, kc, w_cols, k0, l0 = sim._plan_windows(theta, sub)
+        return theta, sub, bs, kc, w_cols, (k0, l0)
 
     def _padded(self, theta: np.ndarray, n_pad: int):
         """Host θ padded with its last row to `n_pad` rows, on the device."""

@@ -1061,7 +1061,8 @@ class BatchSEDSimulator:
                                   kc: int | None = None,
                                   w_cols: int | None = None,
                                   fused: bool = False,
-                                  validate_plan: bool = False):
+                                  validate_plan: bool = False,
+                                  starts: tuple | None = None):
         """θ (B, P) on the device, rows sorted by ascending redshift (not
         checked) -> (B, F) photometry [nJy] on the device.
 
@@ -1069,8 +1070,12 @@ class BatchSEDSimulator:
         Caller-supplied plans are trusted unless `validate_plan=True`: a plan
         too small for the batch would clamp the windows and return wrong
         fluxes. The per-sub-chunk window starts are computed on the device
-        and read back once per call (see `_plan_windows`). When the window
-        would be the whole table, the batch takes the dense `photometry`.
+        and read back once per call (see `_plan_windows`), unless `starts`
+        gives them: (k0, l0), host ints, one pair per sub-chunk, planned
+        with the supplied (kc, w_cols), as a run's plan gives each of its
+        batches its slice; the call then reads nothing back. When the
+        window would be the whole table, the batch takes the dense
+        `photometry`.
         """
         if not self._window_supported():
             raise ValueError(
@@ -1082,7 +1087,7 @@ class BatchSEDSimulator:
                 "(see _window_mega_supported); call with fused=False")
         b = len(theta)
         theta, sub, kc, w_cols, k0, l0 = self._plan_windows(
-            theta, sub_chunk, kc, w_cols, validate_plan)
+            theta, sub_chunk, kc, w_cols, validate_plan, starts)
         if k0 is None:  # the window is the whole table
             return self.photometry(theta[:b], row_offset=row_offset)
         out = self._zsorted_run_raw(theta, sub, w_cols, kc, k0, l0,
@@ -1113,13 +1118,18 @@ class BatchSEDSimulator:
 
     @traced("sed.plan_windows")
     def _plan_windows(self, theta, sub_chunk: int, kc: int | None = None,
-                      w_cols: int | None = None, validate_plan: bool = False):
+                      w_cols: int | None = None, validate_plan: bool = False,
+                      starts: tuple | None = None):
         """Pad z-sorted θ to whole sub-chunks and plan their windows.
 
         Returns (padded θ, sub, kc, w_cols, k0, l0), k0/l0 as host int lists
         (one device readback, plus one for the span when the plan is not
         supplied or is validated), or None when the window is the whole
-        table (kc = n_knots or w_cols = the λ support)."""
+        table (kc = n_knots or w_cols = the λ support). Supplied `starts`
+        (k0, l0), one per sub-chunk and planned with the supplied
+        (kc, w_cols), are taken as given: no starts are computed and none
+        is read back. A supplied plan needs both sizes, and the starts one
+        entry per sub-chunk (ValueError)."""
         theta = torch.as_tensor(theta, dtype=torch.float32, device=self.device)
         b = theta.shape[0]
         sub = int(min(sub_chunk, b))
@@ -1127,13 +1137,24 @@ class BatchSEDSimulator:
         pad = n_sub * sub - b
         if pad:
             theta = torch.cat([theta, theta[-1:].expand(pad, -1)], dim=0)
-        if "redshift" in self.param_names:
-            z = theta[:, self.param_names.index("redshift")]
-        else:
-            z = torch.full((theta.shape[0],),
-                           float(self.fixed_params.get("redshift", 0.0)),
-                           dtype=torch.float32, device=self.device)
-        k_flat = self._knot_interval_device(z)
+        if starts is not None:
+            if kc is None or w_cols is None:
+                raise ValueError("window starts need their plan's (kc, "
+                                 "w_cols)")
+            k0, l0 = starts
+            if len(k0) != n_sub or len(l0) != n_sub:
+                raise ValueError(
+                    f"window starts need one entry per sub-chunk: {n_sub} "
+                    f"for {b} rows in sub-chunks of {sub}, got {len(k0)} "
+                    f"and {len(l0)}")
+        if starts is None or validate_plan:
+            if "redshift" in self.param_names:
+                z = theta[:, self.param_names.index("redshift")]
+            else:
+                z = torch.full((theta.shape[0],),
+                               float(self.fixed_params.get("redshift", 0.0)),
+                               dtype=torch.float32, device=self.device)
+            k_flat = self._knot_interval_device(z)
         if kc is None or w_cols is None or validate_plan:
             with span("readback.plan_span"):
                 knots = int(torch.max(k_flat[sub - 1::sub] - k_flat[::sub]))
@@ -1149,9 +1170,11 @@ class BatchSEDSimulator:
             w_cols = w_req if w_cols is None else int(w_cols)
         if kc >= self._n_knots or w_cols >= self._l_sup:
             return theta, sub, int(kc), int(w_cols), None, None
-        k0, l0 = self._window_starts(k_flat[::sub].to(torch.int64), kc, w_cols)
-        with span("readback.window_starts"):
-            k0, l0 = torch.stack([k0, l0]).tolist()
+        if starts is None:
+            k0, l0 = self._window_starts(k_flat[::sub].to(torch.int64), kc,
+                                         w_cols)
+            with span("readback.window_starts"):
+                k0, l0 = torch.stack([k0, l0]).tolist()
         return theta, sub, int(kc), int(w_cols), k0, l0
 
     # ------------------------------------------------------------------

@@ -1042,7 +1042,7 @@ def test_ragged_run_through_k1_equals_whole_batch_pad(cuda):
     lib = gen.generate(**args)
     assert k1.fused_window_photometry.launches == before + 3
     assert gen.pad_rows - pad == 20 * 1024 - args["n"]
-    theta, sub, bs, kc, w_cols = gen._draw_sorted(**args)
+    theta, sub, bs, kc, w_cols, _ = gen._draw_sorted(**args)
     assert kc < sim._n_knots and w_cols < sim._l_sup  # K1's window path
     theta = torch.cat([theta, theta[-1:].expand(3 * bs - len(theta), -1)])
     phot = torch.cat([sim.photometry_zsorted_device(

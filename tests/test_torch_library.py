@@ -13,7 +13,11 @@ batches, so its last batch may be short: its θ and photometry equal those
 of the same rows padded to whole batches bit for bit (staged body, K1's
 plain version, the dense path), `pad_rows` counts the rows run past n, and
 a run whose short last chunk runs after a restart, or is read from its
-file, resumes to the same bits.
+file, resumes to the same bits. The run is planned once: each batch takes
+its slice of the run plan's window starts and reads none back, and the
+library equals bit for bit the run in which each batch plans its own
+starts (1 to 5 batches, ragged and whole n, the one-screen and the
+Charlot & Fall models); starts of the wrong length raise.
 
 The host sampler (`draw_from_hypercube`, every engine and both LHC
 branches) gives the JAX package's θ bit for bit, and so do host-sampler
@@ -156,7 +160,7 @@ def _whole_batch_twin(gen, n, batch_size, seed, fused):
     through the chunk function `_generate_device` picks. Returns (θ (n, P),
     photometry (n, F), whether the window engine ran)."""
     sim = gen.simulator
-    theta, sub, bs, kc, w_cols = gen._draw_sorted(n, batch_size, seed)
+    theta, sub, bs, kc, w_cols, _ = gen._draw_sorted(n, batch_size, seed)
     n_whole = -(-n // bs) * bs
     theta = torch.cat([theta, theta[-1:].expand(n_whole - len(theta), -1)])
     # the pad sub-chunks span no knot: the whole-batch pad plans the same
@@ -208,6 +212,104 @@ def test_pad_rows_counts_rows_past_n(narrow_gen, n, batch_size, pad):
     narrow_gen.generate(n=n, batch_size=batch_size, seed=2,
                         device_sampling=False)
     assert narrow_gen.pad_rows - before == -(-n // batch_size) * batch_size - n
+
+
+# -- the run's window starts, one slice a batch ------------------------------
+@pytest.fixture(scope="module")
+def slice_gens():
+    """The module's grid and bands over redshifts 0.5-1.5, with one dust
+    screen and with Charlot & Fall's two (τ_BC over the 24 cells younger
+    than 10^7 yr): a 1024-row sub-chunk of any run plans a window narrower
+    than the table."""
+    prior = dict(PRIOR, redshift=(0.5, 1.5))
+    cf00 = tt.EmissionConfig(reprocessed_types=("total",),
+                             dust_law="power_law",
+                             dust_params=(("slope", -0.7),),
+                             tau_v_bc_param="tau_v_bc")
+    one = _pkg_sim(tt, device="cpu")
+    two = tt.BatchSEDSimulator(one.grid, one.filters, PNAMES + ("tau_v_bc",),
+                               sfh="lognormal", zdist="delta", emission=cf00,
+                               device="cpu")
+    return {"one-screen": tt.LibraryGenerator(
+                one, prior, unlog_keys=["log10_peak_age"], device="cpu"),
+            "cf00": tt.LibraryGenerator(
+                two, dict(prior, tau_v_bc=(0.0, 2.0)),
+                unlog_keys=["log10_peak_age"], device="cpu")}
+
+
+@pytest.mark.parametrize("model", ["one-screen", "cf00"])
+@pytest.mark.parametrize("batches", [1, 2, 3, 5])
+@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "whole"])
+def test_batches_take_their_slice_of_the_run_plan(slice_gens, monkeypatch,
+                                                  model, batches, ragged):
+    """Batches of 2048 rows hold two 1024-row sub-chunks (a ragged n's
+    last batch one): each batch is handed its slice of the run plan's
+    window starts, and the library equals, bit for bit, that of the run in
+    which each batch plans its own starts (the staged body)."""
+    gen = slice_gens[model]
+    sim = gen.simulator
+    args = dict(n=batches * 2048 - (1100 if ragged else 0), batch_size=2048,
+                seed=2 ** 31 + batches)
+    _, sub, _, kc, w_cols, (k0, l0) = gen._draw_sorted(**args)
+    assert kc < sim._n_knots and w_cols < sim._l_sup  # the window engine
+    assert len(k0) == len(l0) == -(-args["n"] // sub)
+    orig = type(sim).photometry_zsorted_device
+    handed = []
+
+    def recorded(self, theta, *a, starts=None, **kw):
+        handed.append(starts)
+        return orig(self, theta, *a, starts=starts, **kw)
+
+    def own_starts(self, theta, *a, starts=None, **kw):
+        return orig(self, theta, *a, **kw)
+
+    monkeypatch.setattr(type(sim), "photometry_zsorted_device", recorded)
+    lib = gen.generate(**args)
+    assert [len(s[0]) for s in handed] == [2] * (batches - 1) + [
+        1 if ragged else 2]
+    assert [x for s in handed for x in s[0]] == k0
+    assert [x for s in handed for x in s[1]] == l0
+    monkeypatch.setattr(type(sim), "photometry_zsorted_device", own_starts)
+    twin = gen.generate(**args)
+    for key in ("parameters", "photometry"):
+        np.testing.assert_array_equal(lib[key], twin[key])
+
+
+@pytest.mark.parametrize("model", ["one-screen", "cf00"])
+@pytest.mark.parametrize("fused", [False, True], ids=["staged", "k1"])
+@pytest.mark.parametrize("rows", [3072, 2500])
+def test_supplied_starts_equal_planned_starts(slice_gens, model, fused,
+                                             rows):
+    """`photometry_zsorted_device` with the run plan's starts supplied
+    gives the bits of the same call planning its own, on whole and ragged
+    rows (padded to 3 sub-chunks), on the staged body and K1's plain
+    version."""
+    gen = slice_gens[model]
+    theta, sub, _, kc, w_cols, starts = gen._draw_sorted(3072, 2048, 4)
+    kw = dict(sub_chunk=sub, kc=kc, w_cols=w_cols, fused=fused)
+    planned = gen.simulator.photometry_zsorted_device(theta[:rows], **kw)
+    given = gen.simulator.photometry_zsorted_device(theta[:rows],
+                                                    starts=starts, **kw)
+    assert given.shape == (rows, len(_CODES))
+    np.testing.assert_array_equal(given.numpy(), planned.numpy())
+
+
+@pytest.mark.parametrize("change,match", [
+    (lambda k0, l0, plan: ((k0[:-1], l0[:-1]), plan), "one entry per"),
+    (lambda k0, l0, plan: ((k0 + k0[-1:], l0 + l0[-1:]), plan),
+     "one entry per"),
+    (lambda k0, l0, plan: ((k0, l0[:-1]), plan), "one entry per"),
+    (lambda k0, l0, plan: ((k0, l0), dict(plan, kc=None)), "plan's"),
+], ids=["short", "long", "short-l0", "no-plan"])
+def test_starts_of_the_wrong_length_raise(slice_gens, change, match):
+    """Supplied starts need one (k0, l0) pair per sub-chunk and the plan
+    they were made with: anything else raises ValueError."""
+    gen = slice_gens["one-screen"]
+    theta, sub, _, kc, w_cols, (k0, l0) = gen._draw_sorted(3072, 2048, 4)
+    starts, plan = change(k0, l0, dict(kc=kc, w_cols=w_cols))
+    with pytest.raises(ValueError, match=match):
+        gen.simulator.photometry_zsorted_device(
+            theta, sub_chunk=sub, starts=starts, **plan)
 
 
 def test_empty_library(port_gen):
