@@ -211,6 +211,13 @@ unsorted θ):
    versions and the exact gate, bitwise across two runs and against their
    8-band slices, with τ_BC = 0 bitwise the one-screen kernel; each timed
    beside its bound and beside the one-screen kernel on the same rows.
+31. Pacman: K1 and K2 with a per-row escape fraction (fesc a θ column:
+   the incident table escapes unscreened, the total table sits behind the
+   ISM screen; a fifth of the rows at fesc 0 or 1) at F8 8 and F8 64 on
+   65536 rows: against their plain versions and the exact gate, bitwise
+   across two runs and against their 8-band slices, with fesc = 0 bitwise
+   the one-screen kernel on the total table; each timed beside its bound
+   at 4·C·W FLOPs a row and beside the one-screen kernel on the same rows.
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
@@ -219,8 +226,8 @@ on the path (with its launches on the main path and on phases 16 and
 the fp32 first product alone as one cuBLAS `torch.matmul` with TF32 off, a
 yardstick for the kernels' core that the port never calls, and for K1 and
 K2 `paper63`: their time, bound and share at F8 64 and the cluster size
-they ran with, and `birth_cloud`: phase 30's at F8 8 and 64); the last
-line
+they ran with, `birth_cloud`: phase 30's at F8 8 and 64, and `pacman`:
+phase 31's); the last line
 is `{"ok": true, "device": {...}}`.
 """
 
@@ -586,10 +593,13 @@ def k2_call(k1, a: dict):
     """K2 through its wrapper, from K1-style keyword arguments."""
     tables = dict(sed=a["sed_w"], curve=a["curve_w"], knot=a["knot_w"],
                   den=a["den_w"])
+    if a.get("sed_inc") is not None:
+        tables["inc"] = a["sed_inc"]
     return k1.fused_sed_photometry(
         a["sfzh"], a["s_rel"], a["tau_v"], a["scale"], tables, a["kc"],
         a["delta"], a["f8"], order=a["order"], fesc=a["fesc"],
-        tau_bc=a.get("tau_bc"), n_young=a.get("n_young", 0))
+        tau_bc=a.get("tau_bc"), n_young=a.get("n_young", 0),
+        fesc_row=a.get("fesc_row"))
 
 
 def k2_vs_plain(k1, sim, theta, name: str, reps: int,
@@ -3420,57 +3430,98 @@ def parallel_phase(tt, k1, pk, sim, gen, fitter, dev):
     return tuple(counts)
 
 
-# -- phase 30: the birth-cloud kernels (Charlot & Fall 2000 dust) ------------
-def birth_cloud(tt, k1, sim, dev) -> dict:
-    """Phase 30: K1 and K2 with the birth-cloud screen (`tau_v_bc_param`,
-    (λ/5500 Å)^−0.7; the grid's first 25 ages, 300 of 768 cells, young) on
-    phase 1's grid at the north-star bands (F8 8, lone blocks) and all 63
-    bands (F8 64, clusters), on 65536 rows each: against their plain
-    versions and the exact gate, two runs bitwise equal, bitwise equal to
-    their 8-band slices, and with τ_BC = 0 bitwise equal to the one-screen
-    kernel; timed beside their bound (the one-screen count: the rescale's
-    exp and multiply per (row, column) are not counted) and beside the
+# -- phases 30-31: K1 and K2 with a second per-row input ----------------------
+# phase 30, the birth cloud (Charlot & Fall 2000 dust: τ_BC over the grid's
+# first 25 ages, 300 of 768 cells, both screens (λ/5500 Å)^−0.7); phase 31,
+# Pacman emission (fesc a θ column: fesc·incident + (1 − fesc)·total·
+# exp(−τ_V k), both tables in the first product; a tenth of the rows at
+# fesc = 0 and a tenth at fesc = 1). `zero` is the input that gives the
+# one-screen kernel's bits, `drop` the arguments the one-screen call leaves
+# out, `tables` the spectra tables the first product reads.
+SECOND_INPUTS = {
+    "birth cloud": dict(
+        name="tau_v_bc", prior=(0.0, 2.0), seed=30, tables=1, key="tau_bc",
+        drop=("tau_bc", "n_young"), ends=False,
+        emission=dict(reprocessed_types=("total",), dust_law="power_law",
+                      dust_params=(("slope", -0.7),),
+                      tau_v_bc_param="tau_v_bc")),
+    "pacman": dict(
+        name="fesc", prior=(0.0, 1.0), seed=31, tables=2, key="fesc_row",
+        drop=("fesc_row", "sed_inc"), ends=True,
+        emission=dict(incident_type="incident", reprocessed_types=("total",),
+                      fesc="fesc")),
+}
+
+
+def screen_bound(b, c, w, kf, bf16_cols, f8, tables) -> dict:
+    """The bound of a K1 sub-chunk or a K2 batch whose first product reads
+    `tables` spectra tables: 2·tables·C·W FLOPs a row (a rescale's exp and
+    multiply per (row, column) are not counted), each table read once."""
+    return bound(flops_fp32=2.0 * tables * b * c * w,
+                 flops_bf16=2.0 * b * w * bf16_cols,
+                 nbytes=4 * (b * c + tables * c * w + w + kf
+                             + (2 + tables) * b + b * f8) + 2 * w * kf)
+
+
+def second_input(tt, k1, sim, dev, tag: str) -> dict:
+    """Phase 30 (`tag` "birth cloud") or 31 ("pacman"): K1 and K2 with
+    their second per-row input (`SECOND_INPUTS`) on phase 1's grid at the
+    north-star bands (F8 8, lone blocks) and all 63 bands (F8 64,
+    clusters), on 65536 rows each: against their plain versions and the
+    exact gate, two runs bitwise equal, bitwise equal to their 8-band
+    slices, and with the input at zero bitwise equal to the one-screen
+    kernel; timed beside their bound (`screen_bound`) and beside the
     one-screen kernel on the same rows. Returns {"K1": {f8: stats}, "K2":
     {f8: stats}}."""
+    spec = SECOND_INPUTS[tag]
     out = {"K1": {}, "K2": {}}
-    tol = dict(tol_p99=TOL_STAGED_P99, tol_max=TOL_STAGED_MAX,
-               tag="birth cloud")
+    tol = dict(tol_p99=TOL_STAGED_P99, tol_max=TOL_STAGED_MAX, tag=tag)
     for filters in (sim.filters, tt.load_instrument_filters()):
-        bc = tt.BatchSEDSimulator(
-            sim.grid, filters, PNAMES + ("tau_v_bc",), sfh="lognormal",
-            zdist="delta", emission=tt.EmissionConfig(
-                reprocessed_types=("total",), dust_law="power_law",
-                dust_params=(("slope", -0.7),), tau_v_bc_param="tau_v_bc"),
+        m = tt.BatchSEDSimulator(
+            sim.grid, filters, PNAMES + (spec["name"],), sfh="lognormal",
+            zdist="delta", emission=tt.EmissionConfig(**spec["emission"]),
             device=dev)
-        f8 = bc._f8
-        check(bc._n_young == 300 and bc._window_mega_supported()
-              and bc._mega_supported(), "the birth-cloud model skips K1/K2")
-        gen = tt.LibraryGenerator(bc, dict(PRIOR, tau_v_bc=(0.0, 2.0)),
+        f8 = m._f8
+        check(m._window_mega_supported() and m._mega_supported()
+              and (spec["name"] != "tau_v_bc" or m._n_young == 300),
+              f"the {tag} model skips K1/K2")
+        gen = tt.LibraryGenerator(m, dict(PRIOR, **{spec["name"]:
+                                                    spec["prior"]}),
                                   unlog_keys=["log10_peak_age"], device=dev)
         theta = gen.sample_parameters_device(
-            HEADLINE_BATCH, torch.Generator(device=dev).manual_seed(30))
+            HEADLINE_BATCH, torch.Generator(device=dev).manual_seed(
+                spec["seed"]))
+        if spec["ends"]:
+            ends = torch.randperm(HEADLINE_BATCH, device=dev,
+                                  generator=torch.Generator(device=dev)
+                                  .manual_seed(32))[:HEADLINE_BATCH // 5]
+            theta[ends[:HEADLINE_BATCH // 10], -1] = 0.0
+            theta[ends[HEADLINE_BATCH // 10:], -1] = 1.0
         z = theta[:, PNAMES.index("redshift")]
         sorted_theta = theta[torch.sort(z, stable=True).indices]
-        chunk, sub, kc, w_cols, k0, l0 = bc._plan_windows(sorted_theta, 1024)
-        bounds = [k1_bound(a) for *_, a in bc._window_calls(
-            chunk, sub, w_cols, kc, k0, l0)]
+        chunk, sub, kc, w_cols, k0, l0 = m._plan_windows(sorted_theta, 1024)
+        bounds = [screen_bound(*x["sfzh"].shape, x["sed_w"].shape[1],
+                               x["kc"] * x["f8"], x["kc"] * x["f8"],
+                               x["f8"], spec["tables"])
+                  for *_, x in m._window_calls(chunk, sub, w_cols, kc, k0,
+                                               l0)]
         k1b = {"bound_ms": sum(x["bound_ms"] for x in bounds),
                "bound_by": ("operations" if all(
                    x["bound_by"] == "operations" for x in bounds)
                    else "bytes"),
                "tf32x3_bound_ms": sum(x["tf32x3_bound_ms"] for x in bounds)}
-        g = bc._window_grouped_args(chunk, sub, w_cols, kc, k0, l0)
-        params = bc.theta_dict(theta)
-        a = dict(k2_args(bc, theta), **bc._screens(params, params["tau_v"]))
+        g = m._window_grouped_args(chunk, sub, w_cols, kc, k0, l0)
+        params = m.theta_dict(theta)
+        a = dict(k2_args(m, theta), **m._screens(params, params["tau_v"]))
+        if spec["tables"] == 2:
+            a["sed_inc"] = m._mega_tables["inc"]
         b, c = a["sfzh"].shape
         n_l = a["sed_w"].shape[1]
-        k2b = bound(flops_fp32=2.0 * b * c * n_l,
-                    flops_bf16=2.0 * b * n_l * 4 * f8,
-                    nbytes=4 * (b * c + c * n_l + n_l + a["kc"] * f8 + 3 * b
-                                + b * f8) + 2 * n_l * a["kc"] * f8)
-        tables = bc._mega_tables
+        k2b = screen_bound(b, c, n_l, a["kc"] * f8, 4 * f8, f8,
+                           spec["tables"])
+        tables = m._mega_tables
         for name, args, bnd, n_knots, launch, plain, exact in (
-                ("K1", g, k1b, bc._n_knots,
+                ("K1", g, k1b, m._n_knots,
                  lambda t, f, x: k1.fused_window_photometry_grouped(
                      **dict(x, tables=t, f8=f)),
                  lambda x: k1.fused_window_photometry_grouped_reference(**x),
@@ -3478,28 +3529,29 @@ def birth_cloud(tt, k1, sim, dev) -> dict:
                      **x, first_product=k1.exact_first_product)),
                 ("K2", a, k2b, a["kc"],
                  lambda t, f, x: k2_call(k1, dict(
-                     x, sed_w=t["sed"], curve_w=t["curve"], knot_w=t["knot"],
-                     den_w=t["den"], f8=f)),
+                     x, sed_w=t["sed"], sed_inc=t.get("inc"),
+                     curve_w=t["curve"], knot_w=t["knot"], den_w=t["den"],
+                     f8=f)),
                  lambda x: k1.fused_window_photometry_reference(**x),
                  lambda x: k1.fused_window_photometry_exact(**x))):
-            log(f"[birth cloud] {name} at F8 {f8}: {b} rows, C={c}, "
-                f"{bc._n_young} young cells")
+            log(f"[{tag}] {name} at F8 {f8}: {b} rows, C={c}, "
+                f"{spec['tables']} table(s)")
             st = cluster_check(
                 k1, name, lambda t, f: launch(t, f, args),
                 lambda: plain(args), lambda: exact(args), tables, n_knots,
                 f8, bnd, **tol)
-            zero = dict(args, tau_bc=torch.zeros_like(args["tau_bc"]))
-            one = {k: v for k, v in args.items()
-                   if k not in ("tau_bc", "n_young")}
+            key = spec["key"]
+            zero = dict(args, **{key: torch.zeros_like(args[key])})
+            one = {k: v for k, v in args.items() if k not in spec["drop"]}
             check(torch.equal(launch(tables, f8, zero),
                               launch(tables, f8, one)),
-                  f"{name} with tau_bc = 0 differs from the one-screen "
+                  f"{name} with {key} = 0 differs from the one-screen "
                   "kernel")
             st["one_screen_ms"] = time_ms(lambda: launch(tables, f8, one),
                                           reps=5)
-            log(f"[birth cloud] {name} at F8 {f8}: {st['ms']:.4f} ms, the "
+            log(f"[{tag}] {name} at F8 {f8}: {st['ms']:.4f} ms, the "
                 f"one-screen kernel on the same rows {st['one_screen_ms']:.4f}"
-                f" ms ({st['ms'] / st['one_screen_ms']:.3f}x); tau_bc = 0 "
+                f" ms ({st['ms'] / st['one_screen_ms']:.3f}x); {key} = 0 "
                 "gives its bits")
             out[name][f8] = st
     return out
@@ -3632,9 +3684,11 @@ def main() -> None:
         log(f"[phase] {name} {label}: {time.perf_counter() - t0:.1f} s, "
             f"launches (K1, K2, K3) {slice_counts[name]}")
     log(f"[phase] 26-29 together: {time.perf_counter() - t_new:.1f} s")
-    t0 = time.perf_counter()
-    bc = birth_cloud(tt, k1, sim, dev)
-    log(f"[phase] 30 birth cloud: {time.perf_counter() - t0:.1f} s")
+    second = {}
+    for phase, tag in (("30", "birth cloud"), ("31", "pacman")):
+        t0 = time.perf_counter()
+        second[tag] = second_input(tt, k1, sim, dev, tag)
+        log(f"[phase] {phase} {tag}: {time.perf_counter() - t0:.1f} s")
     by_phase = {"K1": {"4": k1_stats["launches"], "16": p63["counts"][0],
                        "19-21": k1_19_21},
                 "K2": {"6": k2_stats["launches"], "16": p63["counts"][1],
@@ -3678,12 +3732,15 @@ def main() -> None:
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "share_of_bound", "max_abs_err",
                     "cluster", "resident_clusters")}
-        if key in bc:  # with the birth cloud, at F8 8 and F8 64
-            rows[-1]["birth_cloud"] = {
-                f8: {k: st[k] for k in (
-                    "ms", "one_screen_ms", "plain_ms", "bound_ms", "bound_by",
-                    "share_of_bound", "max_abs_err", "cluster")}
-                for f8, st in bc[key].items()}
+        for tag, phase in (("birth_cloud", second["birth cloud"]),
+                           ("pacman", second["pacman"])):
+            if key in phase:  # phases 30 and 31, at F8 8 and F8 64
+                rows[-1][tag] = {
+                    f8: {k: st[k] for k in (
+                        "ms", "one_screen_ms", "plain_ms", "bound_ms",
+                        "bound_by", "share_of_bound", "max_abs_err",
+                        "cluster")}
+                    for f8, st in phase[key].items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

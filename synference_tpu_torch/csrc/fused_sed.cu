@@ -9,7 +9,9 @@
 //                                                         sed carries dλ/λ)
 //   fw[b,l]   = bf16( lnu · (fesc + (1−fesc)·exp(−τ_V[b]·k[l])) )
 //               (the `_bc` kernels first scale lnu's sum over the young
-//               cells c < cy by exp(−τ_BC[b]·k[l]), sed_tile.cuh)
+//               cells c < cy by exp(−τ_BC[b]·k[l]); the `_esc` kernels
+//               take fw = bf16(fesc[b]·Σ_c sfzh·inc[c,l]
+//               + (1−fesc[b])·exp(−τ_V[b]·k[l])·lnu), sed_tile.cuh)
 //   acc[b,k,f] = Σ_l fw[b,l] · knot[l, k·F8 + f]  for the knots k−1..k+2 of
 //                the galaxy's shift        (bf16 inputs, fp32 accumulation)
 //   out[b,f]  = interp(acc; s[b]) / max(interp(den[·,f]; s[b]), 1e-30)
@@ -59,6 +61,16 @@ k2_fused_sed_bc_cluster_kernel(const __grid_constant__ sed_tile::Args p) {
   sed_tile::run<true, true>(p);
 }
 
+__global__ void __launch_bounds__(sed_tile::NT, 1)
+k2_fused_sed_esc_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<false, false, true>(p);
+}
+
+__global__ void __launch_bounds__(sed_tile::NT_CL, 1)
+k2_fused_sed_esc_cluster_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<true, false, true>(p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -68,11 +80,14 @@ extern "C" {
 // A operand, sfzh's rows in that order, row stride ld_a (`k_major` in
 // ops/fused_sed.py); `sed_k` the (L, C) K-major table, row stride ld_sed
 // (`k_major`); both with 16-byte aligned rows (TMA); out is in row order.
-// `cluster`, `tau_bc` and `n_young` as in k1_fused_window (tau_bc in row
-// order, read through `order` as tau_v is).
+// `cluster`, `tau_bc`, `n_young`, `fesc_row` and `inc_k` as in
+// k1_fused_window (tau_bc and fesc_row in row order, read through `order`
+// as tau_v is).
 int k2_fused_sed(const float* sfzh, int64_t a_rows, int64_t ld_a,
                  const int* order, const float* s, const float* tau_v,
-                 const float* tau_bc, int n_young, const float* scale, const float* sed_k, int64_t ld_sed,
+                 const float* tau_bc, int n_young, const float* fesc_row,
+                 const float* scale, const float* sed_k, int64_t ld_sed,
+                 const float* inc_k, int64_t ld_inc,
                  const float* curve, const __nv_bfloat16* knot,
                  int64_t ld_knot, const float* den, int64_t ld_den,
                  float* out, int B, int C, int L, int n_knots, int f8,
@@ -101,10 +116,15 @@ int k2_fused_sed(const float* sfzh, int64_t a_rows, int64_t ld_a,
   p.fesc = fesc;
   p.tau_bc = tau_bc;
   p.cy = n_young;
+  p.fesc_row = fesc_row;
   return sed_tile::launch(
-      tau_bc ? k2_fused_sed_bc_kernel : k2_fused_sed_kernel,
-      tau_bc ? k2_fused_sed_bc_cluster_kernel : k2_fused_sed_cluster_kernel,
-      p, sfzh, a_rows, ld_a, sed_k, L, ld_sed, 1, cluster,
+      fesc_row ? k2_fused_sed_esc_kernel
+      : tau_bc ? k2_fused_sed_bc_kernel
+               : k2_fused_sed_kernel,
+      fesc_row ? k2_fused_sed_esc_cluster_kernel
+      : tau_bc ? k2_fused_sed_bc_cluster_kernel
+               : k2_fused_sed_cluster_kernel,
+      p, sfzh, a_rows, ld_a, sed_k, L, ld_sed, inc_k, ld_inc, 1, cluster,
       static_cast<cudaStream_t>(stream));
 }
 

@@ -16,7 +16,10 @@
 //
 // (with a birth-cloud screen, lnu's sum over the young cells c < cy is
 // scaled by exp(−τ_BC[b]·k[l0+l]) before the old cells join it; the
-// `_bc` kernels),
+// `_bc` kernels; with a per-row escape fraction, the `_esc` kernels,
+//   fw[b,l]  = bf16( fesc[b]·Σ_c sfzh[b,c]·inc[c,l0+l]
+//                    + (1−fesc[b])·exp(−τ_V[b]·k[l0+l])·lnu[b,l] ),
+// the incident table `inc` with dλ/λ too),
 //   acc[b,j] = Σ_l fw[b,l] · knot[l0+l, k0·F8 + j]   (bf16 in, fp32 sum)
 //   out[b,f] = interp(acc[b,·,f]; s[b] − k0·δ) / max(interp(den[k0+·,f]), 1e-30)
 //              · scale[b]
@@ -31,7 +34,9 @@
 // cluster (`k1_fused_window_cluster_kernel`) that computes the tile's first
 // product once and shares its fw tiles through distributed shared memory.
 // `k1_fused_window_bc_kernel` and `k1_fused_window_bc_cluster_kernel` are
-// the same two with the birth-cloud screen (sed_tile.cuh, "Birth cloud").
+// the same two with the birth-cloud screen (sed_tile.cuh, "Birth cloud"),
+// `k1_fused_window_esc_kernel` and `k1_fused_window_esc_cluster_kernel`
+// with the escape fraction (sed_tile.cuh, "Escape").
 //
 // Not carried over from the TPU kernel: 8-row block padding, 128-lane padding
 // and power-of-two knot slots, lane-mask row selection and the log-step roll
@@ -61,6 +66,16 @@ k1_fused_window_bc_cluster_kernel(const __grid_constant__ sed_tile::Args p) {
   sed_tile::run<true, true>(p);
 }
 
+__global__ void __launch_bounds__(sed_tile::NT, 1)
+k1_fused_window_esc_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<false, false, true>(p);
+}
+
+__global__ void __launch_bounds__(sed_tile::NT_CL, 1)
+k1_fused_window_esc_cluster_kernel(const __grid_constant__ sed_tile::Args p) {
+  sed_tile::run<true, false, true>(p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -78,11 +93,14 @@ const char* k1_error_string(int code) {
 // 16-byte aligned rows (TMA). `cluster` blocks share one galaxy tile's
 // first product (1 at f8 = 8; at most 8; `cluster_size` in
 // ops/fused_sed.py). `tau_bc` (B,) non-null takes the birth-cloud kernels,
-// the cells 0 .. n_young − 1 behind it.
+// the cells 0 .. n_young − 1 behind it; `fesc` (B,) non-null the escape
+// kernels, with `inc_k` the (n_l, C) K-major incident table, row stride
+// ld_inc (at most one of the two).
 int k1_fused_window(const float* sfzh, int64_t a_rows, int64_t ld_a,
                     const float* s, const float* tau_v, const float* tau_bc,
-                    int n_young, const float* scale,
+                    int n_young, const float* fesc_row, const float* scale,
                     const float* sed_k, int64_t n_l, int64_t ld_sed,
+                    const float* inc_k, int64_t ld_inc,
                     const float* curve, const __nv_bfloat16* knot,
                     int64_t ld_knot, const float* den, int64_t ld_den,
                     const int* win, float* out, int B, int C, int W, int kc,
@@ -111,12 +129,16 @@ int k1_fused_window(const float* sfzh, int64_t a_rows, int64_t ld_a,
   p.fesc = fesc;
   p.tau_bc = tau_bc;
   p.cy = n_young;
+  p.fesc_row = fesc_row;
   return sed_tile::launch(
-      tau_bc ? k1_fused_window_bc_kernel : k1_fused_window_kernel,
-      tau_bc ? k1_fused_window_bc_cluster_kernel
-             : k1_fused_window_cluster_kernel,
-      p, sfzh, a_rows, ld_a, sed_k, n_l, ld_sed, (B + sub - 1) / sub, cluster,
-      static_cast<cudaStream_t>(stream));
+      fesc_row ? k1_fused_window_esc_kernel
+      : tau_bc ? k1_fused_window_bc_kernel
+               : k1_fused_window_kernel,
+      fesc_row ? k1_fused_window_esc_cluster_kernel
+      : tau_bc ? k1_fused_window_bc_cluster_kernel
+               : k1_fused_window_cluster_kernel,
+      p, sfzh, a_rows, ld_a, sed_k, n_l, ld_sed, inc_k, ld_inc,
+      (B + sub - 1) / sub, cluster, static_cast<cudaStream_t>(stream));
 }
 
 // Into *out: how many clusters of `cluster` blocks of K1's (and K2's: the

@@ -16,6 +16,13 @@
 // accumulator:
 //
 //   lnu[b,l]  = (Σ_{c<cy} sfzh·sed) · exp(−τ_BC[b]·k[l]) + Σ_{c≥cy} sfzh·sed
+//
+// or, with a per-row escape fraction (Pacman emission: a second table, the
+// incident light, escapes unscreened), in one accumulator:
+//
+//   fw[b,l]   = bf16( fesc[b]·Σ_c sfzh·inc[c,l]
+//                     + (1−fesc[b])·exp(−τ_V[b]·k[l])·Σ_c sfzh·sed[c,l] )
+//
 //   acc[b,k,f] = Σ_l fw[b,l] · knot[l, k·F8 + f]         (bf16 in, fp32 sum)
 //   out[b,f]  = interp(acc[b,·,f]; s[b]) / max(interp(den[·,f]; s[b]), 1e-30)
 //               · scale[b]
@@ -94,6 +101,31 @@
 // may be any cell (no padding; on the north-star grid cy = 300, group 3 of
 // stage 9). The epilogue's ISM screen is unchanged. The one-screen kernels
 // (`run<·, false>`) compile without any of it.
+//
+// Escape (`run<·, false, true>`, its own kernels; Pacman emission, fesc a
+// column of θ). The ring streams each chunk's cells twice: n_kb stages of
+// the reprocessed table (`b_map`), then n_kb stages of the incident table
+// (`b2_map`), the same SFZH box as A both times, so the ring, its stages
+// and the shared memory are the one-screen kernel's. Each lnu element's
+// FMA chain runs over the reprocessed cells and is then scaled by
+// (1−fesc[b])·exp(−τ_V[b]·k[l]) (`escape_split`); a second accumulator
+// tile takes the incident cells' chain from zero, and the two meet in one
+// FMA, lnu = fesc[b]·inc + lnu, so the epilogue only rounds: 4·C·W + 2·W
+// FLOPs a row. Nothing is divided: fesc = 0 adds an exact zero (the
+// one-screen kernel's bits), fesc = 1 zeroes the reprocessed part.
+// Measured on an H100 and left out: one chain over the stacked cells
+// [total | incident], the incident cells' A values scaled by fesc (no
+// second tile): 1.5-2% slower at F8 8, and adding many small escaped
+// terms to a large screened sum put 0.3% of the fluxes more than 1e-5
+// off, twice the share cuBLAS's fp32 product puts there (`exact_gate`
+// fails); and one ring stage of A with both tables (A loaded once): 48 KB
+// a stage fits the lone block's shared memory twice, not four times. The
+// lone escape kernels hold both tiles without a spill; a cluster's
+// consumers (176 registers) spill (884 bytes stored against the
+// one-screen cluster kernel's 104), with 16-, 8- or 4-byte operand loads
+// alike, and run 1.22× the one-chain scheme at F8 64. They keep the two
+// tiles: the same FMAs in the same order as a lone block's, so the bits
+// of a cluster are still those of its 8-band slices.
 //
 // Band groups (F8 > 8). lnu and fw do not depend on the band, so the blocks
 // of one galaxy tile that differ only in their band group (blockIdx.y) run
@@ -187,7 +219,8 @@ constexpr size_t SMEM_BYTES = RING_BYTES + FW_BYTES + ACC_BYTES +
 constexpr size_t SMEM_BYTES_CL = NST_CL * STAGE_BYTES + 2 * FWF_BYTES +
                                  ACC_BYTES + SLAB_BYTES + TAIL_BYTES +
                                  sizeof(uint64_t) * (2 * NST_CL + 4);
-// a birth-cloud kernel's block also holds its galaxies' τ_BC, past the end
+// a birth-cloud kernel's block also holds its galaxies' τ_BC past the end,
+// an escape kernel's block their fesc
 constexpr size_t BC_BYTES = sizeof(float) * TG;
 
 static_assert(TG == 128 && TL == 128 && NC == 256,
@@ -224,6 +257,8 @@ struct Args {
   float fesc, s_max;
   const float* tau_bc;  // birth-cloud kernels: (rows,) τ_BC; else null
   int cy;               // and the young cells, the prefix 0 .. cy − 1 of C
+  const float* fesc_row;  // escape kernels: (rows,) fesc; else null
+  CUtensorMap b2_map;     // and B': (L, C) incident spectra with dλ/λ
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -371,7 +406,7 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
 // rows, knot intervals, fractions and dust depths; a reduction scratch; the
 // ring's full and empty barriers (a cluster's block: then the fw tiles'
 // full and empty barriers, two each); a birth-cloud kernel's block then
-// its galaxies' τ_BC.
+// its galaxies' τ_BC, an escape kernel's block there their fesc.
 struct Smem {
   unsigned char* ring;
   __nv_bfloat16* fw;
@@ -387,6 +422,7 @@ struct Smem {
   uint64_t* fw_full;   // [2], cluster only
   uint64_t* fw_empty;  // [2], cluster only
   float* tau_bc;       // [TG], birth-cloud kernels only
+  float* fesc;         // [TG], escape kernels only (where τ_BC would be)
 };
 
 template <bool CLUSTER>
@@ -414,6 +450,7 @@ __device__ __forceinline__ Smem smem_layout() {
   s.fw_empty = s.fw_full + 2;
   s.tau_bc = reinterpret_cast<float*>(smem_raw +
                                       (CLUSTER ? SMEM_BYTES_CL : SMEM_BYTES));
+  s.fesc = s.tau_bc;
   return s;
 }
 
@@ -426,10 +463,10 @@ struct Tile {
 };
 
 // Reads the tile's galaxies into shared memory (row, knot interval,
-// fraction, dust depths), reduces the band of first knots they span and
-// sets up the ring's barriers (and, in a cluster of n blocks, the fw
-// tiles'). Every thread of the block calls it.
-template <bool CLUSTER, bool BC>
+// fraction, dust depths, escape fraction), reduces the band of first knots
+// they span and sets up the ring's barriers (and, in a cluster of n blocks,
+// the fw tiles'). Every thread of the block calls it.
+template <bool CLUSTER, bool BC, bool ESC>
 __device__ __forceinline__ Tile setup_tile(const Args& p, const Smem& sm,
                                            int n) {
   const int tid = threadIdx.x;
@@ -459,6 +496,7 @@ __device__ __forceinline__ Tile setup_tile(const Args& p, const Smem& sm,
     sm.t[tid] = f;
     sm.tau[tid] = tau;
     if constexpr (BC) sm.tau_bc[tid] = ok ? p.tau_bc[row] : 0.f;
+    if constexpr (ESC) sm.fesc[tid] = ok ? p.fesc_row[row] : 0.f;
     lo_min = __reduce_min_sync(0xffffffffu, lo_min);
     lo_max = __reduce_max_sync(0xffffffffu, lo_max);
     if (tid % 32 == 0) {
@@ -492,20 +530,29 @@ __device__ __forceinline__ Tile setup_tile(const Args& p, const Smem& sm,
 }
 
 // The producer's loads of one λ chunk: n_kb stages of the galaxy tile's A
-// box (rows from a_row) and the chunk's B box (rows from table column lb).
-// `it` counts the ring's stages over the block's life, as the consumers
-// count them.
-template <int NS>
+// box (rows from a_row) and the chunk's B box (rows from table column lb);
+// ESC: then n_kb more of the same A boxes beside the incident table's B'
+// boxes. `it` counts the ring's stages over the block's life, as the
+// consumers count them.
+template <int NS, bool ESC>
 __device__ __forceinline__ void load_chunk(const Args& p, const Smem& sm,
                                            uint32_t& it, int n_kb, int a_row,
                                            int lb) {
-  for (int kb = 0; kb < n_kb; ++kb, ++it) {
+  for (int kb = 0; kb < (ESC ? 2 * n_kb : n_kb); ++kb, ++it) {
     const uint32_t s = it % NS;
     mbar_wait(&sm.empty[s], ((it / NS) & 1) ^ 1);
     mbar_expect_tx(&sm.full[s], (uint32_t)STAGE_BYTES);
     unsigned char* st = sm.ring + s * STAGE_BYTES;
-    tma_load(st, &p.a_map, kb * KB, a_row, &sm.full[s]);
-    tma_load(st + TILE_BYTES, &p.b_map, kb * KB, lb, &sm.full[s]);
+    if constexpr (ESC) {
+      const bool inc = kb >= n_kb;
+      const int c0 = (inc ? kb - n_kb : kb) * KB;
+      tma_load(st, &p.a_map, c0, a_row, &sm.full[s]);
+      tma_load(st + TILE_BYTES, inc ? &p.b2_map : &p.b_map, c0, lb,
+               &sm.full[s]);
+    } else {
+      tma_load(st, &p.a_map, kb * KB, a_row, &sm.full[s]);
+      tma_load(st + TILE_BYTES, &p.b_map, kb * KB, lb, &sm.full[s]);
+    }
   }
 }
 
@@ -555,6 +602,30 @@ __device__ __forceinline__ void birth_cloud(float (&lnu)[8][8], const Smem& sm,
   }
 }
 
+// The escape kernels' split, once the FMA chain of every lnu element of
+// this thread has taken the reprocessed table's last cell: lnu[i][j] ·=
+// (1 − fesc[g])·exp(−τ_V[g]·k[l]) for its galaxies g = ty + 16i and the
+// chunk's columns l = lw0 + tx + 16j of the window from l0 (columns past
+// the window read k = 0; the epilogue drops them).
+__device__ __forceinline__ void escape_split(float (&lnu)[8][8],
+                                             const Smem& sm, const Args& p,
+                                             int l0, int lw0, int tx,
+                                             int ty) {
+  float k_l[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int lw = lw0 + tx + 16 * j;
+    k_l[j] = lw < p.W ? p.curve[l0 + lw] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int g = ty + 16 * i;
+    const float tau = sm.tau[g], keep = 1.f - sm.fesc[g];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) lnu[i][j] *= keep * expf(-tau * k_l[j]);
+  }
+}
+
 // The FMAs of one ring stage's cells c_lo .. c_hi − 1 in ascending order:
 // whole groups of 4 cells by 16-byte loads as `first_product` takes them,
 // the cells of a group cut by either end one at a time (the birth cloud's
@@ -596,8 +667,10 @@ __device__ __forceinline__ void stage_cells(float (&lnu)[8][8],
 // r % 8 is ty % 8 or tx % 8 for every row a thread reads). Consumes n_kb
 // ring stages of a ring of NS. BC: the chain is scaled by the birth cloud
 // (`birth_cloud`, at the chunk's window columns from l0 + lw0) between
-// cells cy − 1 and cy.
-template <int NS, bool BC>
+// cells cy − 1 and cy. ESC: 2·n_kb stages, the reprocessed cells' into
+// lnu, then `escape_split`, then the incident cells' into a second tile,
+// which joins lnu scaled by fesc at the end (header: "Escape").
+template <int NS, bool BC, bool ESC = false>
 __device__ __forceinline__ void first_product(float (&lnu)[8][8],
                                               const Smem& sm, uint32_t& it,
                                               int n_kb, int tx, int ty,
@@ -607,12 +680,29 @@ __device__ __forceinline__ void first_product(float (&lnu)[8][8],
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) lnu[i][j] = 0.f;
-  for (int kb = 0; kb < n_kb; ++kb, ++it) {
+  float inc[ESC ? 8 : 1][8];  // ESC: the incident cells' chain
+  for (int kb = 0; kb < (ESC ? 2 * n_kb : n_kb); ++kb, ++it) {
     const uint32_t s = it % NS;
     mbar_wait(&sm.full[s], (it / NS) & 1);
     const float4* a_s =
         reinterpret_cast<const float4*>(sm.ring + s * STAGE_BYTES);
     const float4* b_s = a_s + TILE_BYTES / sizeof(float4);
+    if constexpr (ESC) {
+      if (kb >= n_kb) {  // the incident table's cells
+        if (kb == n_kb) {
+          escape_split(lnu, sm, p, l0, lw0, tx, ty);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) inc[i][j] = 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < KB / 4; ++q)  // cells 4q .. 4q + 3
+          fma_group(inc, a_s, b_s, q, tx, ty);
+        mbar_arrive(&sm.empty[s]);
+        continue;
+      }
+    }
     if constexpr (BC) {
       if (kb == p.cy / KB) {  // the stage that holds cell cy
         stage_cells(lnu, a_s, b_s, 0, p.cy % KB, tx, ty);
@@ -630,6 +720,14 @@ __device__ __forceinline__ void first_product(float (&lnu)[8][8],
   // every cell young, cy = n_kb·KB: the stage of cell cy is past the end
   if constexpr (BC)
     if (p.cy >= n_kb * KB) birth_cloud(lnu, sm, p, l0, lw0, tx, ty);
+  if constexpr (ESC) {  // lnu = fesc·inc + (1 − fesc)·exp(−τ_V k)·lnu
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float fe = sm.fesc[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) lnu[i][j] = fmaf(fe, inc[i][j], lnu[i][j]);
+    }
+  }
 }
 
 // The knots a pass contracts: the 4 of each galaxy it finishes (first
@@ -767,8 +865,8 @@ __device__ __forceinline__ int frag_word(int g, int c) {
 // Dust screen, then bf16 (the knot product's input type), into the fw
 // tile: row-major [g][LDF] for a lone block, fragment-major in a cluster.
 // Columns past the window are zero (the B tile holds the table's next
-// columns there).
-template <bool FRAG>
+// columns there). ESC: lnu is screened already (`escape_split`): bf16 only.
+template <bool FRAG, bool ESC = false>
 __device__ __forceinline__ void screen(const float (&lnu)[8][8],
                                        const Smem& sm, __nv_bfloat16* fw,
                                        const Args& p, int l0, int lw0,
@@ -787,10 +885,14 @@ __device__ __forceinline__ void screen(const float (&lnu)[8][8],
     const float tau = sm.tau[g];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float att = expf(-tau * k_l[j]);
-      if (p.fesc != 0.f) att = p.fesc + (1.f - p.fesc) * att;
+      float att = 1.f;
+      if constexpr (!ESC) {
+        att = expf(-tau * k_l[j]);
+        if (p.fesc != 0.f) att = p.fesc + (1.f - p.fesc) * att;
+      }
       const __nv_bfloat16 v =
-          in[j] ? __float2bfloat16_rn(lnu[i][j] * att) : __float2bfloat16_rn(0.f);
+          in[j] ? __float2bfloat16_rn(ESC ? lnu[i][j] : lnu[i][j] * att)
+                : __float2bfloat16_rn(0.f);
       const int c = tx + 16 * j;
       if constexpr (FRAG)
         fw[2 * frag_word(g, c & ~1) + (c & 1)] = v;
@@ -871,7 +973,7 @@ __device__ __forceinline__ void half_mma(float (&d)[KT_TILES][NJ / 8][4],
 
 // The producer warpgroup: one thread issues the loads of the block's own
 // chunk of every super-chunk (n = 1 alone: every chunk), the rest leave.
-template <bool CLUSTER>
+template <bool CLUSTER, bool ESC>
 __device__ __forceinline__ void produce(const Args& p, const Smem& sm,
                                         const Tile& t, int n, int rank) {
   if (threadIdx.x != NC) return;
@@ -882,7 +984,8 @@ __device__ __forceinline__ void produce(const Args& p, const Smem& sm,
   for (int pass = 0; pass < n_pass; ++pass)
     for (int c0 = 0; c0 < p.W; c0 += n * TL)  // super-chunk
       if (rank < min(n, (p.W - c0 + TL - 1) / TL))
-        load_chunk<ns>(p, sm, it, n_kb, t.a_row, t.l0 + c0 + rank * TL);
+        load_chunk<ns, ESC>(p, sm, it, n_kb, t.a_row,
+                            t.l0 + c0 + rank * TL);
 }
 
 // A lone block's two consumer warpgroups: TG galaxies of one window group,
@@ -890,7 +993,7 @@ __device__ __forceinline__ void produce(const Args& p, const Smem& sm,
 // over all NKP knots of the pass (contracting only `pass_knots` of them
 // measured 1-2% slower here on an H100: the knot phase is a small part of
 // a lone block's time).
-template <bool BC>
+template <bool BC, bool ESC>
 __device__ __forceinline__ void consume(const Args& p, const Smem& sm,
                                         const Tile& t) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -906,8 +1009,8 @@ __device__ __forceinline__ void consume(const Args& p, const Smem& sm,
       // the chunk's knot slab, in flight during the first product
       load_slab<TL>(sm.slab, p, t, pk0, NKP, fb0, c0);
       cp_async_commit();
-      first_product<NST, BC>(lnu, sm, it, n_kb, tx, ty, p, t.l0, c0);
-      screen<false>(lnu, sm, sm.fw, p, t.l0, c0, tx, ty);
+      first_product<NST, BC, ESC>(lnu, sm, it, n_kb, tx, ty, p, t.l0, c0);
+      screen<false, ESC>(lnu, sm, sm.fw, p, t.l0, c0, tx, ty);
       cp_async_wait<0>();
       consumer_sync();  // fw written and every slab copy landed
       knot_mma<NKP / 2>(sm.acc, sm.fw, sm.slab);
@@ -924,7 +1027,7 @@ __device__ __forceinline__ void consume(const Args& p, const Smem& sm,
 // every knot team of the cluster has arrived on fw_empty[b]; once written
 // (or at a tail super-chunk with no chunk for this block), one thread
 // arrives on fw_full[b] of every block of the cluster.
-template <bool BC>
+template <bool BC, bool ESC>
 __device__ __forceinline__ void consume_cluster(const Args& p, const Smem& sm,
                                                 const Tile& t, int n,
                                                 int rank) {
@@ -938,12 +1041,12 @@ __device__ __forceinline__ void consume_cluster(const Args& p, const Smem& sm,
       const bool mine = rank < min(n, (p.W - c0 + TL - 1) / TL);
       float lnu[8][8];
       if (mine)
-        first_product<NST_CL, BC>(lnu, sm, it, n_kb, tx, ty, p, t.l0,
-                                  c0 + rank * TL);
+        first_product<NST_CL, BC, ESC>(lnu, sm, it, n_kb, tx, ty, p, t.l0,
+                                       c0 + rank * TL);
       if (sc >= 2) mbar_wait_cluster(&sm.fw_empty[b], ((sc >> 1) - 1) & 1);
       if (mine)
-        screen<true>(lnu, sm, sm.fw + b * (FWF_BYTES / 2), p, t.l0,
-                     c0 + rank * TL, tx, ty);
+        screen<true, ESC>(lnu, sm, sm.fw + b * (FWF_BYTES / 2), p, t.l0,
+                          c0 + rank * TL, tx, ty);
       fence_cluster();
       consumer_sync();  // the whole tile is written
       if (threadIdx.x == 0)
@@ -1033,8 +1136,9 @@ __device__ __forceinline__ void knot_team(const Args& p, const Smem& sm,
 // are the cluster's, so every block runs the same super-chunks; the blocks
 // meet at a cluster barrier after setting up their barriers and before
 // leaving (no block's shared memory goes while a peer may read it). BC: with
-// the birth-cloud screen (header: "Birth cloud").
-template <bool CLUSTER, bool BC = false>
+// the birth-cloud screen (header: "Birth cloud"); ESC: with a per-row
+// escape fraction and the incident table (header: "Escape").
+template <bool CLUSTER, bool BC = false, bool ESC = false>
 __device__ __forceinline__ void run(const Args& p) {
   const Smem sm = smem_layout<CLUSTER>();
   int n = 1, rank = 0;
@@ -1045,17 +1149,17 @@ __device__ __forceinline__ void run(const Args& p) {
     n = (int)(dims.x * dims.y * dims.z);
     rank = (int)cluster.block_rank();
   }
-  const Tile t = setup_tile<CLUSTER, BC>(p, sm, n);
+  const Tile t = setup_tile<CLUSTER, BC, ESC>(p, sm, n);
   if (t.band_top < 0) return;  // uniform per block and per cluster
   if constexpr (!CLUSTER) {
     if (threadIdx.x >= NC) {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
           PRODUCER_REGS));
-      produce<false>(p, sm, t, 1, 0);
+      produce<false, ESC>(p, sm, t, 1, 0);
     } else {
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
           CONSUMER_REGS));
-      consume<BC>(p, sm, t);
+      consume<BC, ESC>(p, sm, t);
     }
   } else {
     cluster_arrive();  // every block's barriers are set up
@@ -1065,11 +1169,11 @@ __device__ __forceinline__ void run(const Args& p) {
     } else if (threadIdx.x >= NC) {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
           CL_PRODUCER_REGS));
-      produce<true>(p, sm, t, n, rank);
+      produce<true, ESC>(p, sm, t, n, rank);
     } else {
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
           CL_CONSUMER_REGS));
-      consume_cluster<BC>(p, sm, t, n, rank);
+      consume_cluster<BC, ESC>(p, sm, t, n, rank);
     }
     cluster_arrive();
     cluster_wait();
@@ -1124,23 +1228,29 @@ inline int operand_map(CUtensorMap* map, const float* base, int64_t rows,
 // threads) for cluster = 1, else `cluster_kernel` (of run<true, ·>, NT_CL
 // threads) in clusters of `cluster` blocks along y, the band groups padded
 // up to whole clusters. With p.tau_bc set the two are the birth-cloud
-// kernels (run<·, true>), which take BC_BYTES more shared memory.
+// kernels (run<·, true>), with p.fesc_row set the escape kernels
+// (run<·, false, true>); either takes BC_BYTES more shared memory.
 // cluster must lie in [1, 8], the portable cluster sizes. The operand maps
-// are made here: A (a_rows × C, row stride ld_a) and B (n_l × C, row stride
-// ld_b). Returns the launch's cudaError_t (0 = ok); a cluster launch the
-// card refuses returns its error and runs nothing.
+// are made here: A (a_rows × C, row stride ld_a), B (n_l × C, row stride
+// ld_b) and, for the escape kernels, B' (n_l × C, row stride ld_b2).
+// Returns the launch's cudaError_t (0 = ok); a cluster launch the card
+// refuses returns its error and runs nothing.
 template <class Kernel>
 inline int launch(Kernel kernel, Kernel cluster_kernel, Args p,
                   const float* a, int64_t a_rows, int64_t ld_a,
-                  const float* b, int64_t n_l, int64_t ld_b, int groups,
-                  int cluster, cudaStream_t stream) {
+                  const float* b, int64_t n_l, int64_t ld_b,
+                  const float* b2, int64_t ld_b2, int groups, int cluster,
+                  cudaStream_t stream) {
   if (cluster < 1 || cluster > 8) return (int)cudaErrorInvalidValue;
+  if (p.tau_bc && p.fesc_row) return (int)cudaErrorInvalidValue;
+  if (p.fesc_row && !b2) return (int)cudaErrorInvalidValue;
   int merr = operand_map(&p.a_map, a, a_rows, p.C, ld_a);
   if (!merr) merr = operand_map(&p.b_map, b, n_l, p.C, ld_b);
+  if (!merr && p.fesc_row) merr = operand_map(&p.b2_map, b2, n_l, p.C, ld_b2);
   if (merr) return merr;
   Kernel k = cluster == 1 ? kernel : cluster_kernel;
   const size_t smem = (cluster == 1 ? SMEM_BYTES : SMEM_BYTES_CL) +
-                      (p.tau_bc ? BC_BYTES : 0);
+                      (p.tau_bc || p.fesc_row ? BC_BYTES : 0);
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -115,12 +115,13 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.k1_fused_window.argtypes = [
-        p, i64, i64, p, p, p, i32, p, p, i64, i64, p, p, i64, p, i64, p, p,
-        i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, p]
+        p, i64, i64, p, p, p, i32, p, p, p, i64, i64, p, i64, p, p, i64, p,
+        i64, p, p, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32,
+        i32, p]
     lib.k1_fused_window.restype = i32
     lib.k2_fused_sed.argtypes = [
-        p, i64, i64, p, p, p, p, i32, p, p, i64, p, p, i64, p, i64, p,
-        i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, p]
+        p, i64, i64, p, p, p, p, i32, p, p, p, i64, p, i64, p, p, i64, p,
+        i64, p, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, p]
     lib.k2_fused_sed.restype = i32
     lib.k1_max_active_clusters.argtypes = [i32, ctypes.POINTER(i32)]
     lib.k1_max_active_clusters.restype = i32

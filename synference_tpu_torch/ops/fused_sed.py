@@ -14,6 +14,14 @@ exp(−τ_BC·k_λ):
 
     lnu  = (sfzh[:, :n_young] @ sed_w[:n_young])·exp(−τ_BC·k_λ)
            + sfzh[:, n_young:] @ sed_w[n_young:]
+
+With a per-row escape fraction (`fesc_row`, Pacman emission) a second
+table, the incident spectra `sed_inc` (tables["inc"]), escapes unscreened
+beside the screened reprocessed light of `sed_w`:
+
+    fw   = fesc_row·(sfzh @ sed_inc)
+           + (1−fesc_row)·(sfzh @ sed_w)·exp(−τ_V·k_λ)
+
     acc  = bf16(fw) @ bf16(knot_w)      (fp32 accumulation)
     out  = interp(acc; s) / max(interp(den_w; s), 1e-30) · scale
 
@@ -106,19 +114,25 @@ def window_ratio(acc, den_w, s_rel, scale, kc: int, delta: int, order: int):
 
 
 def prepare_megakernel_tables(sed_table, wlam, dust_curve, knot_matrix,
-                              den_knots, f8: int) -> dict:
+                              den_knots, f8: int, inc_table=None) -> dict:
     """The kernels' tables, built once per simulator: "sed" (C, L) spectra
     with dλ/λ folded in, "curve" (L,) dust curve, "knot" (L, K·F8) IGM-baked
     knot matrix in bf16 (the second product's input type) and "den" (K, F8)
-    den knots zero-padded to F8 bands. K1 reads windows of them, K2 the
-    whole. No TPU padding: no 128-lane or power-of-two knot slots, no lane
-    maps, no precomputed den slopes (the kernels take `_knot_interp`'s)."""
+    den knots zero-padded to F8 bands; with `inc_table` (a per-row escape
+    fraction's incident spectra, (C, L)) also "inc", it with dλ/λ. K1 reads
+    windows of them, K2 the whole. No TPU padding: no 128-lane or
+    power-of-two knot slots, no lane maps, no precomputed den slopes (the
+    kernels take `_knot_interp`'s)."""
     den = torch.zeros(den_knots.shape[0], f8, dtype=torch.float32,
                       device=den_knots.device)
     den[:, :den_knots.shape[1]] = den_knots
     sed = (sed_table * wlam[None, :]).contiguous()
-    return {"sed": sed, "curve": dust_curve.contiguous(),
-            "knot": knot_matrix.to(torch.bfloat16).contiguous(), "den": den}
+    out = {"sed": sed, "curve": dust_curve.contiguous(),
+           "knot": knot_matrix.to(torch.bfloat16).contiguous(), "den": den}
+    if inc_table is not None:  # one table when the two are one
+        out["inc"] = (sed if inc_table is sed_table
+                      else (inc_table * wlam[None, :]).contiguous())
+    return out
 
 
 def k_major(x):
@@ -204,14 +218,28 @@ def fused_window_photometry_reference(sfzh, s_rel, tau_v, scale, sed_w,
                                       delta: int, f8: int, order: int = 3,
                                       fesc: float = 0.0,
                                       first_product=torch.matmul,
-                                      tau_bc=None, n_young: int = 0):
+                                      tau_bc=None, n_young: int = 0,
+                                      fesc_row=None, sed_inc=None):
     """Plain PyTorch K1 (same arguments as `fused_window_photometry`).
     On a card, fp32 matrix products must not use TF32
     (`torch.backends.cuda.matmul.allow_tf32` False, PyTorch's default).
     `first_product(sfzh, sed_w)` computes lnu (tests and the card checks
     pass `exact_first_product` or an emulation); with `tau_bc` it computes
     each population's part, the young cells' then screened by the birth
-    cloud."""
+    cloud; with `fesc_row` the reprocessed and the incident (`sed_inc`)
+    parts, mixed by the row's escape fraction."""
+    _require(tau_bc is None or fesc_row is None,
+             "a birth cloud and a per-row fesc together are not a model "
+             "the kernels run")
+    _require((fesc_row is None) == (sed_inc is None),
+             "fesc_row and sed_inc go together")
+    if fesc_row is not None:
+        f = fesc_row[:, None]
+        att = torch.exp(-tau_v[:, None] * curve_w[None, :])
+        fw = (f * first_product(sfzh, sed_inc)
+              + (1.0 - f) * first_product(sfzh, sed_w) * att)
+        return window_ratio(knot_product(fw, knot_w), den_w[:, :f8], s_rel,
+                            scale, kc, delta, order)
     if tau_bc is None:
         lnu = first_product(sfzh, sed_w)
     else:
@@ -242,13 +270,19 @@ def _require(cond: bool, msg: str,
 def _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
                        den_w, kc, delta, f8, order,
                        who: str = "fused_window_photometry", tau_bc=None,
-                       n_young: int = 0):
+                       n_young: int = 0, fesc_row=None, sed_inc=None):
     req = functools.partial(_require, who=who)
     dev = sfzh.device
     named = dict(sfzh=sfzh, s_rel=s_rel, tau_v=tau_v, scale=scale,
                  sed_w=sed_w, curve_w=curve_w, knot_w=knot_w, den_w=den_w)
-    if tau_bc is not None:
-        named["tau_bc"] = tau_bc
+    req(tau_bc is None or fesc_row is None,
+        "tau_bc and fesc_row together: no kernel runs both")
+    req((fesc_row is None) == (sed_inc is None),
+        "fesc_row needs the incident table, and only it")
+    for name, t in (("tau_bc", tau_bc), ("fesc_row", fesc_row),
+                    ("sed_inc", sed_inc)):
+        if t is not None:
+            named[name] = t
     for name, t in named.items():
         req(t.device == dev, f"{name} is on {t.device}, sfzh on {dev}")
         want = torch.bfloat16 if name == "knot_w" else torch.float32
@@ -265,8 +299,9 @@ def _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
         "knot_w rows must start 16-byte aligned")
     req(order in (1, 3), f"order must be 1 or 3, not {order}")
     req(0 <= n_young <= c, f"n_young must lie in [0, {c}], not {n_young}")
-    shapes = dict(s_rel=(b,), tau_v=(b,), tau_bc=(b,), scale=(b,),
-                  sed_w=(c, w), curve_w=(w,), knot_w=(w, kc * f8),
+    shapes = dict(s_rel=(b,), tau_v=(b,), tau_bc=(b,), fesc_row=(b,),
+                  scale=(b,), sed_w=(c, w), sed_inc=(c, w), curve_w=(w,),
+                  knot_w=(w, kc * f8),
                   den_w=(kc, f8))
     for name, shape in ((k, v) for k, v in shapes.items() if k in named):
         req(tuple(named[name].shape) == shape,
@@ -307,10 +342,13 @@ def _b_operand(sed):
 
 def _launch_k1(sfzh, s, tau_v, scale, sed_k, curve, knot, den, win, w: int,
                kc: int, delta: int, f8: int, order: int, fesc: float,
-               sub: int, tau_bc=None, n_young: int = 0):
+               sub: int, tau_bc=None, n_young: int = 0, fesc_row=None,
+               inc_k=None):
     """One K1 launch over ceil(B/sub) sub-chunks (`win` their (k0, l0)
     int32 starts on the card, None for one window at (0, 0)); `sed_k` the
-    (L, C) K-major spectra (`k_major`); `tau_bc` None for one screen."""
+    (L, C) K-major spectra (`k_major`); `tau_bc` None for one screen;
+    `fesc_row` with `inc_k`, the K-major incident spectra, for the escape
+    kernels."""
     from ._cuda import load_library
 
     lib = load_library()
@@ -324,8 +362,11 @@ def _launch_k1(sfzh, s, tau_v, scale, sed_k, curve, knot, den, win, w: int,
     err = lib.k1_fused_window(
         a.data_ptr(), a.shape[0], a.stride(0), s.data_ptr(), tau_v.data_ptr(),
         None if tau_bc is None else tau_bc.data_ptr(), n_young,
+        None if fesc_row is None else fesc_row.data_ptr(),
         scale.data_ptr(), sed_k.data_ptr(), sed_k.shape[0], sed_k.stride(0),
-        curve.data_ptr(), knot.data_ptr(), knot.stride(0), den.data_ptr(),
+        None if inc_k is None else inc_k.data_ptr(),
+        0 if inc_k is None else inc_k.stride(0), curve.data_ptr(),
+        knot.data_ptr(), knot.stride(0), den.data_ptr(),
         den.stride(0), None if win is None else win.data_ptr(),
         out.data_ptr(), b, c, w, kc, f8, delta, order, float(fesc), sub,
         cluster_size(f8), stream)
@@ -339,7 +380,7 @@ def _launch_k1(sfzh, s, tau_v, scale, sed_k, curve, knot, den, win, w: int,
 def fused_window_photometry(sfzh, s_rel, tau_v, scale, sed_w, curve_w,
                             knot_w, den_w, kc: int, delta: int, f8: int,
                             order: int = 3, fesc: float = 0.0, tau_bc=None,
-                            n_young: int = 0):
+                            n_young: int = 0, fesc_row=None, sed_inc=None):
     """Windowed SED → (B, F8) band fluxes for one sub-chunk, one kernel per
     call (the grouped kernel over a single window).
 
@@ -354,6 +395,11 @@ def fused_window_photometry(sfzh, s_rel, tau_v, scale, sed_w, curve_w,
         den_w: (kc, F8) exact denominator knots of the window.
         tau_bc: (B,) birth-cloud depth of the young cells, the first
             `n_young` of C; None (the default) for the ISM screen alone.
+        fesc_row: (B,) escape fraction (Pacman emission): `sed_inc`, the
+            (C, W) window of the incident spectra with dλ/λ, escapes
+            unscreened and `sed_w`, the reprocessed light, sits behind the
+            ISM screen; `fesc` is then 0. None (the default) for neither.
+            Not with `tau_bc`.
 
     CPU tensors go through `fused_window_photometry_reference`. CUDA tensors
     launch the kernel on the current stream; inputs the kernel does not take
@@ -365,17 +411,18 @@ def fused_window_photometry(sfzh, s_rel, tau_v, scale, sed_w, curve_w,
         return fused_window_photometry_reference(
             sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w, den_w, kc,
             delta, f8, order=order, fesc=fesc, tau_bc=tau_bc,
-            n_young=n_young)
+            n_young=n_young, fesc_row=fesc_row, sed_inc=sed_inc)
     _require(sfzh.device.type == "cuda",
              f"tensors on {sfzh.device} are neither CPU nor CUDA")
     refuse_autodiff("fused_window_photometry", sfzh, s_rel, tau_v, scale,
-                    sed_w, curve_w, knot_w, den_w, tau_bc)
+                    sed_w, curve_w, knot_w, den_w, tau_bc, fesc_row, sed_inc)
     _check_cuda_inputs(sfzh, s_rel, tau_v, scale, sed_w, curve_w, knot_w,
                        den_w, kc, delta, f8, order, tau_bc=tau_bc,
-                       n_young=n_young)
+                       n_young=n_young, fesc_row=fesc_row, sed_inc=sed_inc)
     return _launch_k1(sfzh, s_rel, tau_v, scale, k_major(sed_w.t()), curve_w,
                       knot_w, den_w, None, sed_w.shape[1], kc, delta, f8,
-                      order, fesc, sfzh.shape[0], tau_bc, n_young)
+                      order, fesc, sfzh.shape[0], tau_bc, n_young, fesc_row,
+                      None if sed_inc is None else k_major(sed_inc.t()))
 
 
 fused_window_photometry.launches = 0
@@ -415,10 +462,11 @@ def fused_window_photometry_grouped_reference(sfzh, s, tau_v, scale,
                                               fesc: float = 0.0,
                                               first_product=torch.matmul,
                                               tau_bc=None,
-                                              n_young: int = 0):
+                                              n_young: int = 0,
+                                              fesc_row=None):
     """Plain PyTorch grouped K1: `fused_window_photometry_reference` per
     sub-chunk, each on its own window of the tables (`first_product`,
-    `tau_bc` and `n_young` as there)."""
+    `tau_bc`, `n_young` and `fesc_row`, with tables["inc"], as there)."""
     out = torch.empty((sfzh.shape[0], f8), dtype=torch.float32,
                       device=sfzh.device)
     for i, (k, l) in enumerate(zip(np.asarray(k0).tolist(),
@@ -431,7 +479,9 @@ def fused_window_photometry_grouped_reference(sfzh, s, tau_v, scale,
             tables["knot"][cols, k * f8:(k + kc) * f8],
             tables["den"][k:k + kc], kc, delta, f8, order=order, fesc=fesc,
             first_product=first_product,
-            tau_bc=None if tau_bc is None else tau_bc[r], n_young=n_young)
+            tau_bc=None if tau_bc is None else tau_bc[r], n_young=n_young,
+            fesc_row=None if fesc_row is None else fesc_row[r],
+            sed_inc=None if fesc_row is None else tables["inc"][:, cols])
     return out
 
 
@@ -439,7 +489,7 @@ def fused_window_photometry_grouped(sfzh, s, tau_v, scale, tables: dict, k0,
                                     l0, sub: int, w_cols: int, kc: int,
                                     delta: int, f8: int, order: int = 3,
                                     fesc: float = 0.0, tau_bc=None,
-                                    n_young: int = 0):
+                                    n_young: int = 0, fesc_row=None):
     """Windowed SED → (B, F8) band fluxes for a batch of z-sorted
     sub-chunks, one kernel launch for all of them.
 
@@ -448,8 +498,8 @@ def fused_window_photometry_grouped(sfzh, s, tau_v, scale, tables: dict, k0,
     (`prepare_megakernel_tables`). `s` (B,) holds the absolute column
     shifts log10(1+z)/Δ; `k0`, `l0` are host integer sequences (the
     planner's), checked here and copied to the card as one int32 array.
-    Other arguments (`tau_bc`, `n_young` too) as
-    `fused_window_photometry`.
+    Other arguments (`tau_bc`, `n_young`, `fesc_row` too) as
+    `fused_window_photometry`, whose `sed_inc` is tables["inc"] here.
 
     CPU tensors go through `fused_window_photometry_grouped_reference`.
     CUDA tensors launch K1 once on the current stream (one more on
@@ -465,34 +515,37 @@ def fused_window_photometry_grouped(sfzh, s, tau_v, scale, tables: dict, k0,
         return fused_window_photometry_grouped_reference(
             sfzh, s, tau_v, scale, tables, win[:, 0], win[:, 1], sub,
             w_cols, kc, delta, f8, order=order, fesc=fesc, tau_bc=tau_bc,
-            n_young=n_young)
+            n_young=n_young, fesc_row=fesc_row)
     who = "fused_window_photometry_grouped"
     _require(sfzh.device.type == "cuda",
              f"tensors on {sfzh.device} are neither CPU nor CUDA", who)
+    inc = None if fesc_row is None else tables.get("inc")
     refuse_autodiff(who, sfzh, s, tau_v, scale, sed, curve, knot, den,
-                    tau_bc)
+                    tau_bc, fesc_row, inc)
     _check_cuda_inputs(sfzh, s, tau_v, scale, sed, curve, knot, den,
                        n_knots, delta, f8, order, who=who, tau_bc=tau_bc,
-                       n_young=n_young)
+                       n_young=n_young, fesc_row=fesc_row, sed_inc=inc)
     win = torch.as_tensor(win).to(sfzh.device, non_blocking=True)
     return _launch_k1(sfzh, s, tau_v, scale, _b_operand(sed), curve, knot,
                       den, win, w_cols, kc, delta, f8, order, fesc, sub,
-                      tau_bc, n_young)
+                      tau_bc, n_young, fesc_row,
+                      None if inc is None else _b_operand(inc))
 
 
 def fused_sed_photometry_reference(sfzh, s, tau_v, scale, tables: dict,
                                    n_knots: int, delta: int, f8: int,
                                    order: int = 3, fesc: float = 0.0,
                                    first_product=torch.matmul, tau_bc=None,
-                                   n_young: int = 0):
+                                   n_young: int = 0, fesc_row=None):
     """Plain PyTorch K2: K1's plain version over the whole tables
-    (kc = n_knots, shifts relative to knot 0; `first_product`, `tau_bc`
-    and `n_young` as there)."""
+    (kc = n_knots, shifts relative to knot 0; `first_product`, `tau_bc`,
+    `n_young` and `fesc_row`, with tables["inc"], as there)."""
     return fused_window_photometry_reference(
         sfzh, s, tau_v, scale, tables["sed"], tables["curve"],
         tables["knot"], tables["den"], n_knots, delta, f8, order=order,
         fesc=fesc, first_product=first_product, tau_bc=tau_bc,
-        n_young=n_young)
+        n_young=n_young, fesc_row=fesc_row,
+        sed_inc=None if fesc_row is None else tables["inc"])
 
 
 def k2_row_order(s, n_knots: int, delta: int) -> torch.Tensor:
@@ -523,7 +576,7 @@ def _check_rows(rows, b: int, device) -> None:
 def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
                          delta: int, f8: int, order: int = 3,
                          fesc: float = 0.0, rows=None, tau_bc=None,
-                         n_young: int = 0):
+                         n_young: int = 0, fesc_row=None):
     """SED → (B, F8) band fluxes over the whole λ support and knot table,
     one kernel per call, for galaxies in any redshift order.
 
@@ -538,6 +591,8 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
             computes `k2_row_order`. The output is in input order either way.
         tau_bc, n_young: the birth-cloud screen, as
             `fused_window_photometry`.
+        fesc_row: (B,) escape fraction, as `fused_window_photometry`, the
+            incident table tables["inc"] (C, L).
 
     CPU tensors go through `fused_sed_photometry_reference`. CUDA tensors
     launch the kernel (`csrc/fused_sed.cu`) on the current stream; inputs it
@@ -550,17 +605,18 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
     if sfzh.device.type == "cpu":
         return fused_sed_photometry_reference(
             sfzh, s, tau_v, scale, tables, n_knots, delta, f8, order=order,
-            fesc=fesc, tau_bc=tau_bc, n_young=n_young)
+            fesc=fesc, tau_bc=tau_bc, n_young=n_young, fesc_row=fesc_row)
     who = "fused_sed_photometry"
     _require(sfzh.device.type == "cuda",
              f"tensors on {sfzh.device} are neither CPU nor CUDA", who)
     sed, curve, knot, den = (tables[k] for k in ("sed", "curve", "knot",
                                                  "den"))
+    inc = None if fesc_row is None else tables.get("inc")
     refuse_autodiff(who, sfzh, s, tau_v, scale, sed, curve, knot, den,
-                    tau_bc)
+                    tau_bc, fesc_row, inc)
     _check_cuda_inputs(sfzh, s, tau_v, scale, sed, curve, knot, den,
                        n_knots, delta, f8, order, who=who, tau_bc=tau_bc,
-                       n_young=n_young)
+                       n_young=n_young, fesc_row=fesc_row, sed_inc=inc)
     if rows is None:
         rows = k2_row_order(s, n_knots, delta)
     from ._cuda import load_library
@@ -569,13 +625,17 @@ def fused_sed_photometry(sfzh, s, tau_v, scale, tables: dict, n_knots: int,
     b, c = sfzh.shape
     a = k_major(sfzh.index_select(0, rows))
     b_op = _b_operand(sed)
+    inc_op = None if inc is None else _b_operand(inc)
     out = torch.empty((b, f8), dtype=torch.float32, device=sfzh.device)
     stream = torch.cuda.current_stream(sfzh.device).cuda_stream
     err = lib.k2_fused_sed(
         a.data_ptr(), a.shape[0], a.stride(0), rows.data_ptr(), s.data_ptr(),
         tau_v.data_ptr(), None if tau_bc is None else tau_bc.data_ptr(),
-        n_young, scale.data_ptr(), b_op.data_ptr(), b_op.stride(0),
-        curve.data_ptr(), knot.data_ptr(), knot.stride(0), den.data_ptr(),
+        n_young, None if fesc_row is None else fesc_row.data_ptr(),
+        scale.data_ptr(), b_op.data_ptr(), b_op.stride(0),
+        None if inc_op is None else inc_op.data_ptr(),
+        0 if inc_op is None else inc_op.stride(0), curve.data_ptr(),
+        knot.data_ptr(), knot.stride(0), den.data_ptr(),
         den.stride(0), out.data_ptr(), b, c, sed.shape[1], n_knots, f8,
         delta, order, float(fesc), cluster_size(f8), stream)
     if err:

@@ -31,7 +31,10 @@ matrix when the engine first runs). When a window would be the whole table
 it takes the dense path. K1, K2 and the staged body run the ISM screen and,
 with `tau_v_bc_param` (Charlot & Fall 2000), the birth cloud over the young
 cells too: the SFZH is age-major and the grid's ages ascend, so the young
-cells are a prefix of C (`_n_young`, `_screens`).
+cells are a prefix of C (`_n_young`, `_screens`). With `fesc` a θ column
+(Pacman emission) they mix each row's unscreened incident light with its
+screened reprocessed light by the row's escape fraction (`_screens`, the
+incident table `_t_inc`).
 
 "auto" keeps the interp knot matrix at any size on every device: the JAX
 package switches to conv above 64 MiB only to stay under its TPU
@@ -444,6 +447,12 @@ class BatchSEDSimulator:
         types = em.reprocessed_types or (em.incident_type,)
         self._t_mix = sum(self._components[t][:, l0:l1]
                           for t in types).contiguous()
+        # a θ-column fesc's escaped light, over the support (`_fesc_column`)
+        self._t_inc = None
+        if self._fesc_column():
+            self._t_inc = (self._t_mix if not em.reprocessed_types else
+                           self._components[em.incident_type][:, l0:l1]
+                           .contiguous())
         self._dust_curve_sup = self._dust_curve[l0:l1].contiguous()
         self._wlam_sup = torch.as_tensor(wlam[l0:l1], device=self.device)
 
@@ -482,7 +491,8 @@ class BatchSEDSimulator:
     def _derive_tables(self) -> None:
         """The den knots padded to F8 columns and, for interp, the kernels'
         views of its tables, shared by K1's windows and K2: spectra with
-        dλ/λ folded in and the IGM-baked knot matrix in bf16."""
+        dλ/λ folded in (and the incident spectra's, for a θ-column fesc) and
+        the IGM-baked knot matrix in bf16."""
         den = torch.zeros(self._den_knots.shape[0], self._f8,
                           dtype=torch.float32, device=self.device)
         den[:, :self._den_knots.shape[1]] = self._den_knots
@@ -491,7 +501,8 @@ class BatchSEDSimulator:
         if self._variant == "interp":
             self._mega_tables = prepare_megakernel_tables(
                 self._t_mix, self._wlam_sup, self._dust_curve_sup,
-                self._m_igm, self._den_knots, self._f8)
+                self._m_igm, self._den_knots, self._f8,
+                inc_table=self._t_inc)
 
     def _window_knot_matrix(self):
         """The window engine's IGM-baked knot matrix: interp's own; conv
@@ -859,16 +870,15 @@ class BatchSEDSimulator:
                 and self._window_mega_supported())
 
     def _photometry_mega(self, sfzh, z, tau_v, tau_bc=None,
-                         n_young: int = 0):
+                         n_young: int = 0, fesc_row=None):
         """(B, C) SFZH + (B,) z/τ_V (and the birth cloud's τ_BC over the
-        first `n_young` cells) -> (B, F) nJy through K2, one launch."""
-        em = self.emission
-        fesc = 0.0 if em.reprocessed_types else float(em.fesc)
+        first `n_young` cells, or the rows' escape fractions) -> (B, F) nJy
+        through K2, one launch."""
         out = fused_sed_photometry(
             sfzh, self._shift_of_z(z), tau_v, self._scale_of_z(z),
             self._mega_tables, self._n_knots, self._knot_delta, self._f8,
-            order=self._interp_order, fesc=fesc, tau_bc=tau_bc,
-            n_young=n_young)
+            order=self._interp_order, fesc=self._static_fesc(),
+            tau_bc=tau_bc, n_young=n_young, fesc_row=fesc_row)
         return out[:, :len(self.filters)]
 
     # ------------------------------------------------------------------
@@ -882,20 +892,37 @@ class BatchSEDSimulator:
         return (cls._core is not BatchSEDSimulator._core
                 or cls._apply_emission is not BatchSEDSimulator._apply_emission)
 
+    def _fesc_column(self) -> bool:
+        """True when fesc is a θ column (Pacman emission: each row's
+        escape fraction mixes its unscreened incident light with its
+        screened reprocessed light)."""
+        return isinstance(self.emission.fesc, str)
+
+    def _static_fesc(self) -> float:
+        """The kernels' static fesc: the emission's number with no
+        reprocessed types, else 0 (a θ-column fesc rides `_screens`)."""
+        em = self.emission
+        if em.reprocessed_types or self._fesc_column():
+            return 0.0
+        return float(em.fesc)
+
     def _window_supported(self) -> bool:
         """The window bodies need the base class's forward model, the
-        interp or conv tables, a static fesc (0 with reprocessed types or
-        the birth cloud), the ISM screen with or without the birth cloud,
-        and no dust emission. K1 (`_window_mega_supported`) and K2
-        (`_mega_supported`) are gated on this too."""
+        interp or conv tables, the ISM screen with either the birth cloud
+        or a θ-column fesc or neither, a static fesc only where it is 0 or
+        alone (no reprocessed types, no birth cloud), and no dust emission.
+        K1 (`_window_mega_supported`) and K2 (`_mega_supported`) are gated
+        on this too."""
         em = self.emission
+        if self._fesc_column():
+            fesc_ok = em.tau_v_bc_param is None
+        else:
+            fesc_ok = not (float(em.fesc) != 0.0
+                           and (em.reprocessed_types
+                                or em.tau_v_bc_param is not None))
         return (not self._overrides_forward_model()
                 and self._variant in ("interp", "conv")
-                and not isinstance(em.fesc, str)
-                and not (float(em.fesc) != 0.0
-                         and (em.reprocessed_types
-                              or em.tau_v_bc_param is not None))
-                and not em.dust_emission)
+                and fesc_ok and not em.dust_emission)
 
     def _window_mega_supported(self) -> bool:
         """Extra gate for the fused body (K1): the interp variant,
@@ -949,8 +976,14 @@ class BatchSEDSimulator:
         alone; with the birth cloud, τ_V and τ_BC side by side in one
         (2, B) tensor (rows "tau_v" and "tau_bc"; the second screen's one
         per-batch device step, span `sed.screens`) and "n_young", the young
-        cells' prefix of C (`_young_prefix`)."""
+        cells' prefix of C (`_young_prefix`); with a θ-column fesc, τ_V and
+        the rows' escape fractions stacked the same way ("tau_v" and
+        "fesc_row", the same span)."""
         em = self.emission
+        if self._fesc_column():
+            with span("sed.screens"):
+                rows = torch.stack([tau_v, params[em.fesc]])
+            return {"tau_v": rows[0], "fesc_row": rows[1]}
         if em.tau_v_bc_param is None:
             return {"tau_v": tau_v}
         with span("sed.screens"):
@@ -968,9 +1001,8 @@ class BatchSEDSimulator:
         z = self._param(params, "redshift", 0.0)
         tau_v = (params[em.tau_v_param] if em.tau_v_param is not None
                  else torch.zeros_like(z))
-        fesc = 0.0 if em.reprocessed_types else float(em.fesc)
-        return (sfzh, self._shift_of_z(z), self._scale_of_z(z), fesc,
-                self._screens(params, tau_v))
+        return (sfzh, self._shift_of_z(z), self._scale_of_z(z),
+                self._static_fesc(), self._screens(params, tau_v))
 
     def _window_calls(self, theta, sub: int, w_cols: int, kc: int, k0, l0):
         """Per sub-chunk of `theta` (n_sub·sub z-sorted rows on the device),
@@ -986,6 +1018,8 @@ class BatchSEDSimulator:
             knots = slice(k * f8, (k + kc) * f8)
             rows = {key: v[r] if torch.is_tensor(v) else v
                     for key, v in screens.items()}
+            if "fesc_row" in rows:
+                rows["sed_inc"] = tables["inc"][:, cols]
             yield r, cols, knots, dict(
                 sfzh=sfzh[r], s_rel=s_abs[r] - float(k * delta),
                 scale=scale[r], sed_w=tables["sed"][:, cols],
@@ -1015,8 +1049,9 @@ class BatchSEDSimulator:
         the staged body per sub-chunk: the two products and `_knot_interp`
         in plain torch, with dλ/λ applied after the dust screen as in the
         JAX package's staged body; with the birth cloud the young and the
-        old cells are contracted apart, each behind its own screen, as in
-        `_apply_emission`.
+        old cells are contracted apart, each behind its own screen, and with
+        a θ-column fesc the incident and the reprocessed tables, each row's
+        mix as in `_apply_emission`.
         """
         if fused:
             out = fused_window_photometry_grouped(
@@ -1024,12 +1059,12 @@ class BatchSEDSimulator:
                                             row_offset))
             return out[:, :len(self.filters)]
         em = self.emission
-        fesc = float(em.fesc)
         delta, f8 = self._knot_delta, self._f8
         m_igm = self._window_knot_matrix()
-        sfzh, s_abs, scale, _, screens = self._window_inputs(theta,
-                                                             row_offset)
+        sfzh, s_abs, scale, fesc, screens = self._window_inputs(theta,
+                                                                row_offset)
         tau_v, tau_bc = screens["tau_v"], screens.get("tau_bc")
+        fesc_row = screens.get("fesc_row")
         out = torch.empty(theta.shape[0], len(self.filters),
                           dtype=torch.float32, device=theta.device)
         for i, (k, l) in enumerate(zip(k0, l0)):
@@ -1043,6 +1078,10 @@ class BatchSEDSimulator:
                                       * curve)
                 lnu = (sfzh[r, :ny] @ self._t_mix[:ny, cols] * att_young
                        + sfzh[r, ny:] @ self._t_mix[ny:, cols] * att)
+            elif fesc_row is not None:
+                f = fesc_row[r, None]
+                lnu = (f * (sfzh[r] @ self._t_inc[:, cols])
+                       + (1.0 - f) * (sfzh[r] @ self._t_mix[:, cols]) * att)
             elif em.reprocessed_types:  # the gate makes fesc 0 here
                 lnu = sfzh[r] @ self._t_mix[:, cols] * att
             else:

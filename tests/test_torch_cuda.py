@@ -89,7 +89,21 @@ bit for bit; with τ_BC = 0 each equals the one-screen kernel bit for bit;
 `generate(2²⁰)` of the model launches K1 16 times and no K2 or dense
 `simulate`. The one-screen main paths (`generate(2²⁰)` at 7 bands,
 `generate(10⁵)` at 63) keep the sha256 of their θ and photometry that
-they read on an H100 80GB HBM3 before the birth-cloud kernels.
+they read on an H100 80GB HBM3 before the birth-cloud kernels, and the
+birth-cloud path (`generate(2²⁰)` at 7 bands) the sha256 it read before
+the escape kernels.
+
+The Pacman slice (fesc a θ column: the incident light escapes unscreened,
+the reprocessed light sits behind the ISM screen) on the card, at the
+north-star width: the escape K1 lone (F8 8) and in clusters (F8 64) over
+32768 z-sorted rows, and the escape K2 from `photometry()` of 16384
+unsorted rows, rows at fesc = 0, 1 and between, each pass `exact_gate`
+whole against both tables' exact first products; two runs of each give
+the same bits, at F8 64 K1 equals its 8-band slices bit for bit, and with
+fesc = 0 each equals the one-screen kernel on the reprocessed table bit
+for bit (its chain, rescaled by 1·exp(−τ_V k), then adds exact zeros);
+`generate(2²⁰)` of the model launches the escape K1 16 times, no other
+kernel of K1's name, and no K2 or dense `simulate`.
 
 K1 and K2 share one core (`csrc/sed_tile.cuh`). K1's one launch over a
 batch of sub-chunks is held to the same bound with per-sub-chunk windows
@@ -1182,16 +1196,18 @@ def test_birth_cloud_generate_launches_k1_per_batch(cuda, monkeypatch):
 def _main_path_digests(device) -> dict:
     """sha256 of θ and photometry of the one-screen main paths at the
     north-star width: `generate(2²⁰)` at 7 bands (K1 lone) and
-    `generate(10⁵)` at 63 bands (K1's clusters), seed 0, at the
-    defaults."""
+    `generate(10⁵)` at 63 bands (K1's clusters), and of the birth-cloud
+    path (`generate(2²⁰)` at 7 bands), seed 0, at the defaults."""
     import hashlib
 
     out = {}
-    for name, n_bands, n in (("north-star", 7, 2 ** 20),
-                             ("paper63", 63, 100_000)):
-        prior = {k: v for k, v in _BC_PRIOR.items() if k != "tau_v_bc"}
+    for name, n_bands, n, bc in (("north-star", 7, 2 ** 20, False),
+                                 ("paper63", 63, 100_000, False),
+                                 ("cf00", 7, 2 ** 20, True)):
+        prior = {k: v for k, v in _BC_PRIOR.items()
+                 if bc or k != "tau_v_bc"}
         lib = tt.LibraryGenerator(
-            _north_star_sim(device, n_bands, birth_cloud=False), prior,
+            _north_star_sim(device, n_bands, birth_cloud=bc), prior,
             unlog_keys=["log10_peak_age"], device=device).generate(
                 n=n, seed=0)
         for key in ("parameters", "photometry"):
@@ -1200,9 +1216,14 @@ def _main_path_digests(device) -> dict:
     return out
 
 
-# `_main_path_digests` on an NVIDIA H100 80GB HBM3 before the birth-cloud
-# kernels were added beside the one-screen kernels
+# `_main_path_digests` on an NVIDIA H100 80GB HBM3: the one-screen paths'
+# before the birth-cloud kernels were added beside the one-screen kernels,
+# the birth-cloud path's before the escape kernels were
 _MAIN_PATH_DIGESTS = {
+    "cf00.parameters":
+        "7a0255ebd6c066ca34ec5fa45b2c4535be70ee2e5cdae21eaecb298c5023bf53",
+    "cf00.photometry":
+        "87d0a84f4396f20826608743937d35dd1aa270589cbfbfc768f9e428210d2aa3",
     "north-star.parameters":
         "6b6248a4b8878d34c2715befc323ea1a9e6f617a28c98c3b2c08897af5edcb5a",
     "north-star.photometry":
@@ -1215,11 +1236,149 @@ _MAIN_PATH_DIGESTS = {
 
 @pytest.mark.cuda
 def test_one_screen_main_paths_keep_their_bits(cuda):
-    """The birth cloud is a kernel of its own: the one-screen main paths
-    give the bits they gave before it (on the same card model)."""
+    """The birth cloud and the escape fraction are kernels of their own:
+    the one-screen main paths give the bits they gave before the birth
+    cloud, and the birth-cloud path the bits it gave before the escape
+    kernels (on the same card model)."""
     if torch.cuda.get_device_name(0) != "NVIDIA H100 80GB HBM3":
         pytest.skip("the recorded bits are an H100 80GB HBM3's")
     assert _main_path_digests(cuda) == _MAIN_PATH_DIGESTS
+
+
+# -- Pacman emission: the escape kernels --------------------------------------
+_ESC_NAMES = PNAMES + ("fesc",)
+_ESC_PRIOR = dict({k: v for k, v in _BC_PRIOR.items() if k != "tau_v_bc"},
+                  fesc=(0.0, 1.0))
+
+
+def _pacman_sim(device, n_bands):
+    """`_north_star_sim`'s grid and bands under Pacman emission: fesc a
+    θ column, the incident light escaping, the total light behind the
+    Calzetti screen."""
+    grid = tt.make_synthetic_grid(n_ages=64, n_mets=12, n_wav=10000,
+                                  lam_min=150.0)
+    centers = np.geomspace(8000.0, 48000.0, n_bands)
+    filters = tt.FilterSet([tt.tophat_filter(f"B{i}", c, 0.15 * c)
+                            for i, c in enumerate(centers)])
+    return tt.BatchSEDSimulator(
+        grid, filters, _ESC_NAMES, device=device,
+        emission=tt.EmissionConfig(incident_type="incident",
+                                   reprocessed_types=("total",),
+                                   fesc="fesc"))
+
+
+def _esc_theta(n, sort, seed=0):
+    """θ from the prior box, a tenth of the rows at fesc = 0 and a tenth
+    at fesc = 1."""
+    rng = np.random.default_rng(seed)
+    theta = np.column_stack([rng.uniform(*_ESC_PRIOR[k], n) for k in (
+        "log10_mass", "redshift", "log10_peak_age", "tau",
+        "log10_metallicity", "tau_v", "fesc")]).astype(np.float32)
+    theta[:, 2] = 10.0 ** theta[:, 2]
+    ends = rng.permutation(n)[:n // 5]
+    theta[ends[:n // 10], 6] = 0.0
+    theta[ends[n // 10:], 6] = 1.0
+    return theta[np.argsort(theta[:, 1])] if sort else theta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bands", [7, 63])
+def test_pacman_k1_passes_the_exact_gate(cuda, n_bands):
+    """The escape K1 at the north-star width, lone (F8 8) and in clusters
+    (F8 64), over 32768 z-sorted rows in sub-chunks of 1024: `exact_gate`
+    whole against both tables' exact first products; two runs bit for bit;
+    at F8 64 bit for bit the 8-band slices; with fesc = 0 bit for bit the
+    one-screen kernel on the reprocessed table."""
+    sim = _pacman_sim(cuda, n_bands)
+    assert sim._window_mega_supported()
+    chunk, sub, kc, w_cols, k0, l0 = sim._plan_windows(
+        _esc_theta(32768, sort=True, seed=n_bands), 1024)
+    a = sim._window_grouped_args(chunk, sub, w_cols, kc, k0, l0)
+    before = k1.fused_window_photometry.launches
+    out = k1.fused_window_photometry_grouped(**a)
+    torch.cuda.synchronize()
+    assert k1.fused_window_photometry.launches == before + 1
+    exact = k1.fused_window_photometry_grouped_reference(
+        **a, first_product=k1.exact_first_product)
+    plain = k1.fused_window_photometry_grouped_reference(**a)
+    gate = k1.exact_gate(out, exact, plain)
+    assert gate["ok"], gate
+    assert torch.equal(out, k1.fused_window_photometry_grouped(**a))
+    if a["f8"] > 8:
+        n_knots = a["tables"]["den"].shape[0]
+        slices = torch.cat([k1.fused_window_photometry_grouped(
+            **dict(a, tables=k1.band_group_tables(a["tables"], g, n_knots),
+                   f8=8)) for g in range(a["f8"] // 8)], dim=1)
+        assert torch.equal(out, slices)
+    zero = dict(a, fesc_row=torch.zeros_like(a["fesc_row"]))
+    one = {k: v for k, v in a.items() if k != "fesc_row"}
+    assert torch.equal(k1.fused_window_photometry_grouped(**zero),
+                       k1.fused_window_photometry_grouped(**one))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bands", [7, 63])
+def test_pacman_k2_passes_the_exact_gate(cuda, n_bands):
+    """`photometry()` of the Pacman model launches the escape K2 once,
+    rows in any order: `exact_gate` whole against both tables' exact first
+    products, two runs bit for bit, and with fesc = 0 the one-screen K2's
+    bits."""
+    sim = _pacman_sim(cuda, n_bands)
+    assert sim._mega_supported()
+    theta = torch.as_tensor(_esc_theta(16384, sort=False, seed=n_bands + 1),
+                            device=cuda)
+    before = k1.fused_sed_photometry.launches
+    out = sim.photometry(theta)
+    torch.cuda.synchronize()
+    assert k1.fused_sed_photometry.launches == before + 1
+    params = sim.theta_dict(theta)
+    sfzh, _ = sim._sfzh(params)
+    z = params["redshift"]
+    args = (sfzh, sim._shift_of_z(z))
+    kw = dict(scale=sim._scale_of_z(z), tables=sim._mega_tables,
+              n_knots=sim._n_knots, delta=sim._knot_delta, f8=sim._f8,
+              order=sim._interp_order,
+              **sim._screens(params, params["tau_v"]))
+    exact = k1.fused_sed_photometry_reference(
+        *args, first_product=k1.exact_first_product, **kw)
+    plain = k1.fused_sed_photometry_reference(*args, **kw)
+    n_f = len(sim.filters)
+    gate = k1.exact_gate(out, exact[:, :n_f], plain[:, :n_f])
+    assert gate["ok"], gate
+    assert torch.equal(out, sim.photometry(theta))
+    zero = dict(kw, fesc_row=torch.zeros_like(kw["fesc_row"]))
+    one = {k: v for k, v in kw.items() if k != "fesc_row"}
+    assert torch.equal(k1.fused_sed_photometry(*args, **zero),
+                       k1.fused_sed_photometry(*args, **one))
+
+
+@pytest.mark.cuda
+def test_pacman_generate_launches_the_escape_k1_per_batch(cuda, monkeypatch):
+    """`generate(2²⁰)` of the Pacman model at the defaults takes the
+    device sampler and the escape K1: 16 launches, every K1 kernel the
+    profiler sees an escape kernel, no K2 and no dense `simulate`."""
+    sim = _pacman_sim(cuda, 7)
+    gen = tt.LibraryGenerator(sim, _ESC_PRIOR, unlog_keys=["log10_peak_age"],
+                              device=cuda)
+
+    def dense(*args, **kw):
+        raise AssertionError("the dense simulate ran")
+
+    monkeypatch.setattr(sim, "simulate", dense)
+    before = (k1.fused_window_photometry.launches,
+              k1.fused_sed_photometry.launches)
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        lib = gen.generate(n=2 ** 20, seed=5)
+        torch.cuda.synchronize()
+    assert (k1.fused_window_photometry.launches,
+            k1.fused_sed_photometry.launches) == (before[0] + 16, before[1])
+    names = [e.name for e in prof.events()
+             if "k1_fused_window" in e.name
+             and e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 16 and all("_esc_" in n for n in names), names
+    assert lib["photometry"].shape == (7, 2 ** 20)
+    assert np.isfinite(lib["photometry"]).all()
 
 
 # -- the flow zoo and the batched MCMC on the card ---------------------------
