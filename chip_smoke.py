@@ -218,6 +218,13 @@ unsorted θ):
    across two runs and against their 8-band slices, with fesc = 0 bitwise
    the one-screen kernel on the total table; each timed beside its bound
    at 4·C·W FLOPs a row and beside the one-screen kernel on the same rows.
+32. SFZH: the lognormal × delta-Z SFZH kernel (`csrc/sfzh.cu`) on a
+   main-path batch of 65536 rows at the north-star width (64 ages × 12
+   metallicities, C 768): bit for bit the plain `_sfzh` (`_mega_off`),
+   SFZH and age marginal; timed alone, as the whole `_sfzh` (with its
+   PyTorch prologue) and as the plain `_sfzh`, beside its bound (one
+   write of the SFZH and one read of its inputs); phase 4 launched it
+   once a batch.
 
 Run from the repository root: `python3 chip_smoke.py`. Any failed phase
 exits non-zero. The line before the last is a JSON summary of every kernel
@@ -227,7 +234,7 @@ the fp32 first product alone as one cuBLAS `torch.matmul` with TF32 off, a
 yardstick for the kernels' core that the port never calls, and for K1 and
 K2 `paper63`: their time, bound and share at F8 64 and the cluster size
 they ran with, `birth_cloud`: phase 30's at F8 8 and 64, and `pacman`:
-phase 31's); the last line
+phase 31's; the SFZH kernel's row, phase 32's); the last line
 is `{"ok": true, "device": {...}}`.
 """
 
@@ -473,21 +480,28 @@ def bound_has_power(k1, a, name: str = "kernel") -> None:
 
 
 def main_path(sim, gen, k1, kc: int, w_cols: int):
-    """The timed main-path run, with K1's launch count read around it."""
+    """The timed main-path run, with K1's and the SFZH kernel's launch
+    counts read around it."""
+    from synference_tpu_torch.ops import sfzh as sfzh_op
+
     gen.generate(n=65536, seed=1, zsorted_fused=True)  # warm-up, not counted
     torch.cuda.synchronize()
     k1.fused_window_photometry.launches = 0
+    sfzh_before = sfzh_op.lognormal_delta_sfzh.launches
     t0 = time.perf_counter()
     lib = gen.generate(n=N_LIBRARY, seed=0, zsorted_fused=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = k1.fused_window_photometry.launches
+    sfzh_launches = sfzh_op.lognormal_delta_sfzh.launches - sfzh_before
     phot = lib["photometry"]
     n_batch = int(np.ceil(N_LIBRARY / BATCH))
     log(f"[main] generate(n={N_LIBRARY}) {wall:.3f} s = "
-        f"{N_LIBRARY / wall:,.0f} SEDs/s; K1 launches {launches}")
-    check(launches == n_batch,
-          f"K1 launched {launches} times, expected {n_batch}")
+        f"{N_LIBRARY / wall:,.0f} SEDs/s; K1 launches {launches}, SFZH "
+        f"kernel launches {sfzh_launches}")
+    check(launches == n_batch and sfzh_launches == n_batch,
+          f"K1 launched {launches} times and the SFZH kernel "
+          f"{sfzh_launches}, expected {n_batch} each")
     check(phot.shape == (len(CODES), N_LIBRARY), f"photometry {phot.shape}")
     check(bool(np.isfinite(phot).all()), "non-finite photometry")
     check(bool((phot >= 0).all()), "negative photometry")
@@ -503,7 +517,7 @@ def main_path(sim, gen, k1, kc: int, w_cols: int):
         f"max<{TOL_STAGED_MAX})")
     check(p99 < TOL_STAGED_P99 and mx < TOL_STAGED_MAX,
           "main path disagrees with the staged window body")
-    return lib, launches
+    return lib, launches, sfzh_launches
 
 
 def features(tt, lib, dev):
@@ -3557,6 +3571,55 @@ def second_input(tt, k1, sim, dev, tag: str) -> dict:
     return out
 
 
+def sfzh_phase(sim, gen, dev) -> dict:
+    """Phase 32: the SFZH kernel against the plain `_sfzh` on 65536 rows of
+    the phase-1 model, and its times (`time_ms`) beside its bound."""
+    from synference_tpu_torch import sfh
+    from synference_tpu_torch.ops import sfzh as so
+
+    theta = gen.sample_parameters_device(
+        HEADLINE_BATCH, torch.Generator(device=dev).manual_seed(32))
+    params = sim.theta_dict(theta)
+    check(sim._sfzh_kernel_runs(HEADLINE_BATCH, dev),
+          "the north-star model skips the SFZH kernel")
+    before = so.lognormal_delta_sfzh.launches
+    got, got_m = sim._sfzh(params)
+    alone, _ = sim._sfzh(params, marginal=False)
+    sim._mega_off = True
+    try:
+        want, want_m = sim._sfzh(params)
+        plain_ms = time_ms(lambda: sim._sfzh(params, marginal=False))
+    finally:
+        sim._mega_off = False
+    check(so.lognormal_delta_sfzh.launches == before + 2,
+          "the plain `_sfzh` launched the SFZH kernel")
+    check(torch.equal(got, want) and torch.equal(alone, want)
+          and torch.equal(got_m, want_m),
+          "the SFZH kernel differs from the plain `_sfzh`")
+    p = dict(params, max_age=sim._max_age(params))
+    mu, tau = sfh.lognormal_shape(p)
+    args = (p["max_age"], mu[:, 0], tau[:, 0], 10.0 ** params["log10_mass"],
+            *sfh.delta_cells(params, sim._log10_mets), sim._sampling.edges,
+            sim._log10_mets.shape[0])
+    b, c = got.shape
+    n_ages = got_m.shape[1]
+    st = bound(0.0, 0.0, 4 * (b * c + 5 * b + n_ages + 1) + 8 * b)
+    st.update(
+        ms=time_ms(lambda: so.lognormal_delta_sfzh(*args, marginal=False),
+                   reps=50),
+        marginal_ms=time_ms(lambda: so.lognormal_delta_sfzh(*args), reps=50),
+        sfzh_ms=time_ms(lambda: sim._sfzh(params, marginal=False)),
+        plain_ms=plain_ms, max_abs_err=0.0)
+    st["share_of_bound"] = st["bound_ms"] / st["ms"]
+    log(f"[sfzh] {b} x {c}: kernel {st['ms']:.4f} ms (with the age "
+        f"marginal {st['marginal_ms']:.4f}) against a bound of "
+        f"{st['bound_ms']:.4f} ms ({st['bound_by']}, share "
+        f"{st['share_of_bound']:.3f}); the whole `_sfzh` "
+        f"{st['sfzh_ms']:.4f} ms, the plain `_sfzh` {plain_ms:.4f} ms; "
+        "bit for bit the plain SFZH and marginal")
+    return st
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda")
@@ -3575,10 +3638,11 @@ def main() -> None:
     from synference_tpu_torch.ops import _cuda
     from synference_tpu_torch.ops import fused_sed as k1
     from synference_tpu_torch.ops import photometry_kernel as pk
+    from synference_tpu_torch.ops import sfzh as sfzh_op
 
     path, secs, compiler_log = _cuda.build_library()
     _cuda.load_library()
-    log(f"[build] {path.name} built in {secs:.1f} s (K1, K2, K3)")
+    log(f"[build] {path.name} built in {secs:.1f} s (K1, K2, K3, SFZH)")
     for line in compiler_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
@@ -3591,7 +3655,8 @@ def main() -> None:
         f"{sim.grid.n_wav} grid, {sim._n_knots} knots (delta "
         f"{sim._knot_delta}), lambda support {sim._l_sup} columns")
     k1_stats, (_, _, _, a) = kernel_vs_plain(sim, gen, k1)
-    lib, launches = main_path(sim, gen, k1, a["kc"], a["sed_w"].shape[1])
+    lib, launches, sfzh_main = main_path(sim, gen, k1, a["kc"],
+                                         a["sed_w"].shape[1])
     k1_stats["launches"] = launches
     features(tt, lib, dev)
     k2_stats = dense_photometry(tt, k1, dev)
@@ -3689,6 +3754,9 @@ def main() -> None:
         t0 = time.perf_counter()
         second[tag] = second_input(tt, k1, sim, dev, tag)
         log(f"[phase] {phase} {tag}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sfzh_stats = sfzh_phase(sim, gen, dev)
+    log(f"[phase] 32 SFZH: {time.perf_counter() - t0:.1f} s")
     by_phase = {"K1": {"4": k1_stats["launches"], "16": p63["counts"][0],
                        "19-21": k1_19_21},
                 "K2": {"6": k2_stats["launches"], "16": p63["counts"][1],
@@ -3741,6 +3809,21 @@ def main() -> None:
                         "bound_by", "share_of_bound", "max_abs_err",
                         "cluster")}
                     for f8, st in phase[key].items()}
+    rows.append({
+        "name": "SFZH lognormal_delta_sfzh", "route": "cuda",
+        "source": "synference_tpu_torch/csrc/sfzh.cu",
+        # the JAX package's `_sfzh` (synference_tpu/sed.py:541) is XLA code
+        "replaces": None, "launches": sfzh_op.lognormal_delta_sfzh.launches,
+        "launches_by_phase": {"4": sfzh_main},
+        "library_ms": None, "first_product_ms": None,
+        **{k: sfzh_stats[k] for k in (
+            "ms", "marginal_ms", "sfzh_ms", "plain_ms", "bound_ms",
+            "bound_by", "share_of_bound", "max_abs_err")}})
+    log(f"[summary] SFZH lognormal_delta_sfzh: {sfzh_stats['ms']:.4f} ms "
+        f"against a bound of {sfzh_stats['bound_ms']:.4f} ms: share of "
+        f"bound {sfzh_stats['share_of_bound']:.3f}; "
+        f"{sfzh_op.lognormal_delta_sfzh.launches} launches in all, "
+        f"{sfzh_main} on the main path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

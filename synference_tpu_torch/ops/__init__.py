@@ -1,1 +1,2 @@
-"""Photometry operators: knot tables, shift interpolation and the K1 kernel."""
+"""Photometry operators (knot tables, shift interpolation, the K1-K3
+kernels) and the SFZH kernel."""

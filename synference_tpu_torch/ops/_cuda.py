@@ -130,6 +130,9 @@ def load_library() -> ctypes.CDLL:
     lib.k3_shift_keys.argtypes = [p, p, i32, i32, i32, p]
     lib.k3_shift_keys.restype = i32
     lib.k3_shift_num.restype = i32
+    lib.sfzh_lognormal_delta.argtypes = [p, p, p, p, p, p, p, p, p, i64,
+                                         i32, i32, i32, ctypes.c_float, p]
+    lib.sfzh_lognormal_delta.restype = i32
     lib.k1_error_string.argtypes = [i32]
     lib.k1_error_string.restype = ctypes.c_char_p
     return lib

@@ -67,7 +67,9 @@ from .ops.photometry_kernel import (KNOT_INTERP_ORDER, N_SUB, _knot_interp,
                                     build_subshift_table, conv_photometry_num,
                                     shift_decompose, shift_photometry_num)
 from .runtime import span, traced
-from .sfh import make_age_sampling, sfh_weights, zdist_weights
+from .ops.sfzh import MAX_AGES, lognormal_delta_sfzh, scan_chunk
+from .sfh import (delta_cells, lognormal_shape, make_age_sampling,
+                  sfh_weights, zdist_weights)
 from .units import C_AA_S
 
 __all__ = ["EmissionConfig", "BatchSEDSimulator", "SIMULATOR_REGISTRY",
@@ -632,14 +634,44 @@ class BatchSEDSimulator:
         return w.scatter(1, idx[:, None], (1.0 - frac)[:, None]).scatter_add(
             1, (idx + 1)[:, None], frac[:, None])
 
+    def _sfzh_kernel_runs(self, rows: int, device) -> bool:
+        """True where `_sfzh` takes the SFZH kernel (`ops.sfzh`) for `rows`
+        rows on `device`: a card, not `_mega_off`, a lognormal SFH and a
+        delta Z, no extra axes and no particles, at most 64 ages and at
+        least 2 metallicities, and more than one row (`scan_chunk`). The
+        kernel gives the plain ops' bits; everything else takes them."""
+        return (torch.device(device).type == "cuda" and not self._mega_off
+                and self.sfh_name == "lognormal"
+                and self.zdist_name == "delta"
+                and not self._extra_axes and self.n_particles is None
+                and self._sampling.n_bins <= MAX_AGES
+                and self._log10_mets.shape[0] >= 2
+                and scan_chunk(rows, self._sampling.n_bins) is not None)
+
+    def _sfzh_asking(self, params, marginal: bool):
+        """`_sfzh`, asking for the age marginal only where `marginal`; a
+        subclass's own `_sfzh` (the AGN grid's) takes θ alone and returns
+        its marginal always."""
+        if type(self)._sfzh is BatchSEDSimulator._sfzh:
+            return self._sfzh(params, marginal=marginal)
+        return self._sfzh(params)
+
     @traced("sed.sfzh")
-    def _sfzh(self, params):
-        """(B, A·Z·extra) mass weights [Msun] and the (B, A) age marginal."""
+    def _sfzh(self, params, marginal: bool = True):
+        """(B, A·Z·extra) mass weights [Msun] and the (B, A) age marginal
+        (None unless `marginal`); one kernel past the (B,) prologue where
+        `_sfzh_kernel_runs`."""
         sfh_params = dict(params)
         sfh_params["max_age"] = self._max_age(params)
+        mass = 10.0 ** self._param(params, "log10_mass", 8.0)
+        if self._sfzh_kernel_runs(mass.shape[0], mass.device):
+            mu, tau = lognormal_shape(sfh_params)
+            return lognormal_delta_sfzh(
+                sfh_params["max_age"], mu[:, 0], tau[:, 0], mass,
+                *delta_cells(params, self._log10_mets), self._sampling.edges,
+                self._log10_mets.shape[0], marginal)
         w_age = sfh_weights(self.sfh_name, sfh_params, self._sampling)
         w_met = zdist_weights(self.zdist_name, params, self._log10_mets)
-        mass = 10.0 ** self._param(params, "log10_mass", 8.0)
         sfzh = w_age[:, :, None] * w_met[:, None, :]
         for ax_name, ax_vals in self._extra_axes:
             w_ax = self._axis_delta_weights(ax_vals, params[ax_name])
@@ -655,7 +687,8 @@ class BatchSEDSimulator:
                                         self.n_particles).reshape(sfzh.shape)
         sfzh = sfzh * mass.reshape(-1, *([1] * (sfzh.ndim - 1)))
         b = sfzh.shape[0]
-        sfh_mass = sfzh.reshape(b, sfzh.shape[1], -1).sum(dim=2)
+        sfh_mass = (sfzh.reshape(b, sfzh.shape[1], -1).sum(dim=2)
+                    if marginal else None)
         return sfzh.reshape(b, -1), sfh_mass
 
     # ------------------------------------------------------------------
@@ -997,7 +1030,7 @@ class BatchSEDSimulator:
         keyword arguments `_screens`)."""
         em = self.emission
         params = self.theta_dict(theta, row_offset)
-        sfzh, _ = self._sfzh(params)
+        sfzh, _ = self._sfzh(params, marginal=False)
         z = self._param(params, "redshift", 0.0)
         tau_v = (params[em.tau_v_param] if em.tau_v_param is not None
                  else torch.zeros_like(z))
@@ -1226,7 +1259,7 @@ class BatchSEDSimulator:
         `fused`: photometry only; skip `_observe` and return the λ-support
         rest L_ν (the distance scale is applied after the band ratio)."""
         params = self.theta_dict(theta, row_offset)
-        sfzh, sfh_mass = self._sfzh(params)
+        sfzh, sfh_mass = self._sfzh_asking(params, marginal=want_spectra)
         z = self._param(params, "redshift", 0.0)
         if fused:
             trim = not self.emission.dust_emission
@@ -1261,7 +1294,7 @@ class BatchSEDSimulator:
         if fused and self._mega_supported():
             em = self.emission
             params = self.theta_dict(theta, row_offset)
-            sfzh, _ = self._sfzh(params)
+            sfzh, _ = self._sfzh(params, marginal=False)
             z = self._param(params, "redshift", 0.0)
             tau_v = (params[em.tau_v_param] if em.tau_v_param is not None
                      else torch.zeros_like(z))
@@ -1354,7 +1387,7 @@ class BatchSEDSimulator:
             theta, dtype=torch.float32, device=self.device))
         em = self.emission
         params = self.theta_dict(theta, row_offset)
-        sfzh, _ = self._sfzh(params)
+        sfzh, _ = self._sfzh_asking(params, marginal=False)
         tau_v = (params[em.tau_v_param][:, None] if em.tau_v_param is not None
                  else torch.zeros_like(sfzh[:, :1]))
         att = torch.exp(-tau_v * curve_l)

@@ -68,15 +68,27 @@ def _cdf_constant(p, x):
     return torch.clamp(torch.clamp(x, min=0.0), max=span)
 
 
-def _cdf_lognormal(p, x):
-    """SFR(x) ∝ (1/x) exp(−(ln x − μ)²/2τ²) ⇒ M(x) ∝ Φ((ln x − μ)/τ), with
-    the SFR mode at lookback `peak_age`: μ = ln(max_age − peak_age) + τ².
-    `x` is (B, A+1); parameters are (B,)."""
+def lognormal_shape(p):
+    """(μ, τ) of the lognormal SFH, each (B, 1): τ clamped at 1e-3 and the
+    SFR mode at lookback `peak_age`, μ = ln(max_age − peak_age) + τ² (the
+    onset gap clamped at 1e4 yr). Parameters are (B,)."""
     tau = torch.clamp(p["tau"], min=1.0e-3)[:, None]
     x_peak = torch.clamp(p["max_age"] - p["peak_age"], min=1.0e4)[:, None]
-    mu = torch.log(x_peak) + tau**2
+    return torch.log(x_peak) + tau**2, tau
+
+
+def lognormal_cdf(x, mu, tau):
+    """M(x) ∝ Φ((ln x − μ)/τ) at times since onset `x` (B, A+1), x
+    clamped at 1 yr; μ and τ (B, 1)."""
     lnx = torch.log(torch.clamp(x, min=1.0))
     return torch.special.ndtr((lnx - mu) / tau)
+
+
+def _cdf_lognormal(p, x):
+    """SFR(x) ∝ (1/x) exp(−(ln x − μ)²/2τ²) ⇒ M(x) ∝ Φ((ln x − μ)/τ)
+    (`lognormal_shape`, `lognormal_cdf`). `x` is (B, A+1); parameters are
+    (B,)."""
+    return lognormal_cdf(x, *lognormal_shape(p))
 
 
 def _cdf_delayed_tau(p, x):
@@ -174,24 +186,36 @@ def _row_total(w):
     return torch.cumsum(w, dim=1)[:, -1:]
 
 
+def edge_times(max_age, edges):
+    """(B, A+1) times since onset x = max_age − e at the lookback age-bin
+    edges `edges` (A+1,), clamped at 0: lookback bin [e_i, e_{i+1}] is the
+    x interval [max_age − e_{i+1}, max_age − e_i]. `max_age` is (B,)."""
+    return torch.clamp(max_age[:, None] - edges, min=0.0)
+
+
+def bin_weights(m):
+    """(B, A) age-bin weights from the cumulative mass `m` (B, A+1) at the
+    edges: the clamped differences over their row total, uniform where the
+    total is at most 1e-30."""
+    return _normalised(torch.clamp(m[:, :-1] - m[:, 1:], min=0.0))
+
+
+def _normalised(w):
+    total = _row_total(w)
+    uniform = torch.full_like(w, 1.0 / w.shape[1])
+    return torch.where(total > _EPS, w / torch.clamp(total, min=_EPS), uniform)
+
+
 def sfh_weights(name: str, params: dict, sampling: AgeGridSampling):
     """(B, A) mass-fraction weights over grid age bins, each row summing to 1
     (uniform when the history carries no mass on the grid). `name` is a key
     of `SFH_FAMILIES` or "dense_basis"."""
     if name == "dense_basis":
-        w = _dense_basis_weights(params, sampling)
-    elif name in SFH_FAMILIES:
-        max_age = params["max_age"][:, None]
-        # lookback bin [e_i, e_{i+1}] -> x interval [max_age-e_{i+1},
-        # max_age-e_i]
-        x_at_edges = torch.clamp(max_age - sampling.edges, min=0.0)
-        m = SFH_FAMILIES[name](params, x_at_edges)
-        w = torch.clamp(m[:, :-1] - m[:, 1:], min=0.0)
-    else:
+        return _normalised(_dense_basis_weights(params, sampling))
+    if name not in SFH_FAMILIES:
         raise ValueError(f"unknown SFH family {name!r}")
-    total = _row_total(w)
-    uniform = torch.full_like(w, 1.0 / w.shape[1])
-    return torch.where(total > _EPS, w / torch.clamp(total, min=_EPS), uniform)
+    x_at_edges = edge_times(params["max_age"], sampling.edges)
+    return bin_weights(SFH_FAMILIES[name](params, x_at_edges))
 
 
 def _dense_basis_weights(params: dict, sampling: AgeGridSampling):
@@ -224,9 +248,10 @@ def _dense_basis_weights(params: dict, sampling: AgeGridSampling):
     return w + below * levels[:, :1]
 
 
-def _zdist_delta(p, log10_mets):
-    """Delta at one metallicity: linear-in-log10Z weight sharing between the
-    two neighbouring grid cells."""
+def delta_cells(p, log10_mets):
+    """(idx, frac) (B,) of the delta metallicity: the lower of the two grid
+    cells around log10 Z (clamped to the grid) and the upper one's share,
+    linear in log10 Z."""
     if "log10_metallicity" in p:
         lz = p["log10_metallicity"]
     else:
@@ -237,11 +262,21 @@ def _zdist_delta(p, log10_mets):
         torch.searchsorted(log10_mets, lz.contiguous(), right=True) - 1,
         0, n - 2)
     lo, hi = log10_mets[idx], log10_mets[idx + 1]
-    frac = (lz - lo) / torch.clamp(hi - lo, min=1.0e-12)
+    return idx, (lz - lo) / torch.clamp(hi - lo, min=1.0e-12)
+
+
+def delta_weights(idx, frac, n: int):
+    """(B, n) weights 1 − frac at cell idx and frac at idx + 1 (`delta_cells`)."""
     # out of place: the weights carry θ's tangents under torch.func
-    w = torch.zeros(lz.shape[0], n, dtype=lz.dtype, device=lz.device)
+    w = torch.zeros(idx.shape[0], n, dtype=frac.dtype, device=frac.device)
     return w.scatter(1, idx[:, None], (1.0 - frac)[:, None]).scatter_add(
         1, (idx + 1)[:, None], frac[:, None])
+
+
+def _zdist_delta(p, log10_mets):
+    """Delta at one metallicity: linear-in-log10Z weight sharing between the
+    two neighbouring grid cells."""
+    return delta_weights(*delta_cells(p, log10_mets), log10_mets.shape[0])
 
 
 def _zdist_normal(p, log10_mets):

@@ -58,7 +58,7 @@ samples to 1e-4) and one finite training step; `run_batched_mcmc` card
 against CPU from the same draws (1e-5) and its sync guard raising on a
 log-density that reads back.
 
-The gradient slice on the card: each of the four kernel wrappers raises on
+The gradient slice on the card: each of the five kernel wrappers raises on
 an input that requires grad, on a forward-AD dual and inside
 `torch.func.jacfwd`; Fisher, MAP, VI and HMC launch no kernel (the
 simulator's `_mega_off`) and restore the flag; HMC's graphed
@@ -105,6 +105,15 @@ for bit (its chain, rescaled by 1·exp(−τ_V k), then adds exact zeros);
 `generate(2²⁰)` of the model launches the escape K1 16 times, no other
 kernel of K1's name, and no K2 or dense `simulate`.
 
+The SFZH slice on the card (`csrc/sfzh.cu`, the lognormal × delta-Z
+SFZH in one pass): `_sfzh` through the kernel equals its plain route
+(`_mega_off`) bit for bit, SFZH and age marginal, at 1, 8, 32, 33, 1024,
+32768, 32769, 34816 and 65536 rows (each side of torch's scan-width
+rule; one row takes the plain route), with rows at the prior's and the
+grid's edges and a history with no mass on the grid; `generate(2²⁰)` at
+the north-star width launches it 16 times, and a `_mega_off` simulator's
+`generate` none.
+
 K1 and K2 share one core (`csrc/sed_tile.cuh`). K1's one launch over a
 batch of sub-chunks is held to the same bound with per-sub-chunk windows
 at unaligned columns, ragged tiles and B = 1, 3, 13; both kernels at 128
@@ -120,6 +129,7 @@ import torch
 import synference_tpu_torch as tt
 from synference_tpu_torch.ops import fused_sed as k1
 from synference_tpu_torch.ops import photometry_kernel as pk
+from synference_tpu_torch.ops import sfzh as sfzh_op
 
 PNAMES = ("log10_mass", "redshift", "peak_age", "tau", "log10_metallicity",
           "tau_v")
@@ -1245,6 +1255,73 @@ def test_one_screen_main_paths_keep_their_bits(cuda):
     assert _main_path_digests(cuda) == _MAIN_PATH_DIGESTS
 
 
+# -- the SFZH kernel ------------------------------------------------------------
+def _sfzh_theta(n, seed=0):
+    """North-star θ (`_BC_PRIOR`'s one-screen columns), then rows at the
+    edges: τ at and below its clamp, the SFR peak past the oldest age and
+    near it, z at both prior ends, log10 Z below and above the grid, and a
+    history whose age weights sum to ≤ 1e-30 (the uniform row)."""
+    theta = _bc_theta(n, sort=False, seed=seed)[:, :6].copy()
+    edges = [(3, 0.0), (3, 5e-4), (2, 1.4e10), (2, 6.4e8), (1, 0.1),
+             (1, 8.0), (4, -6.0), (4, 0.0), (2, -1e12)]
+    for i, (col, v) in enumerate(edges[:n]):
+        theta[i, col] = v
+    if n > 8:
+        theta[8, 3] = 1e-3  # the peak far past: no mass on the grid
+    if n > 3:
+        theta[3, 1] = 8.0  # max age 6.5e8 yr: the peak 1e7 yr after onset
+    return theta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 32, 33, 1024, 32768, 32769, 34816,
+                                  65536])
+def test_sfzh_kernel_keeps_the_plain_bits(cuda, rows):
+    """`_sfzh` through the kernel equals the plain route bit for bit, with
+    and without the age marginal, at row counts on each side of torch's
+    scan-width rule (`scan_chunk`); one row takes the plain route."""
+    sim = _north_star_sim(cuda, 7, birth_cloud=False)
+    params = sim.theta_dict(torch.as_tensor(_sfzh_theta(rows), device=cuda))
+    before = sfzh_op.lognormal_delta_sfzh.launches
+    got, got_m = sim._sfzh(params)
+    alone, none = sim._sfzh(params, marginal=False)
+    assert sfzh_op.lognormal_delta_sfzh.launches == before + (
+        0 if rows == 1 else 2)
+    sim._mega_off = True
+    want, want_m = sim._sfzh(params)
+    assert sfzh_op.lognormal_delta_sfzh.launches == before + (
+        0 if rows == 1 else 2)
+    assert none is None and got.shape == (rows, 768)
+    assert torch.equal(got, want) and torch.equal(alone, want)
+    assert torch.equal(got_m, want_m)
+    if rows > 8:  # the uniform row: its 64 ages alike
+        ages = got[8].reshape(64, 12)
+        assert torch.equal(ages, ages[:1].expand(64, 12))
+        assert torch.equal(got_m[8], got_m[8, :1].expand(64))
+
+
+@pytest.mark.cuda
+def test_sfzh_kernel_launches_once_a_batch(cuda):
+    """`generate(2²⁰)` at the north-star width launches the SFZH kernel
+    once a batch (16) beside K1; with `_mega_off` no kernel runs."""
+    sim = _north_star_sim(cuda, 7, birth_cloud=False)
+    prior = {k: v for k, v in _BC_PRIOR.items() if k != "tau_v_bc"}
+    gen = tt.LibraryGenerator(sim, prior, unlog_keys=["log10_peak_age"],
+                              device=cuda)
+    before = (sfzh_op.lognormal_delta_sfzh.launches,
+              k1.fused_window_photometry.launches)
+    gen.generate(n=2 ** 20, seed=0)
+    assert (sfzh_op.lognormal_delta_sfzh.launches,
+            k1.fused_window_photometry.launches) == (before[0] + 16,
+                                                     before[1] + 16)
+    sim._mega_off = True
+    lib = gen.generate(n=2 ** 17, seed=0)
+    assert (sfzh_op.lognormal_delta_sfzh.launches,
+            k1.fused_window_photometry.launches) == (before[0] + 16,
+                                                     before[1] + 16)
+    assert np.isfinite(lib["photometry"]).all()
+
+
 # -- Pacman emission: the escape kernels --------------------------------------
 _ESC_NAMES = PNAMES + ("fesc",)
 _ESC_PRIOR = dict({k: v for k, v in _BC_PRIOR.items() if k != "tau_v_bc"},
@@ -1478,13 +1555,15 @@ def test_batched_mcmc_card_vs_cpu_and_no_sync(cuda):
 
 # -- the gradient fitters on the card ----------------------------------------
 def _wrapper_calls(device):
-    """(name, call(sfzh or fw)) of the four CUDA wrappers on small inputs."""
+    """(name, call(sfzh, fw or τ)) of the five CUDA wrappers on small
+    inputs."""
     g = _grouped_args(device, 13, 5, seed=3)
     sim = _sim(device, 3)
     k2 = _k2_args(sim, _unsorted_theta(7, seed=4))
     fw, table, s4 = _k3_case(device, "ragged-l")
     single = {k: g[k] for k in ("kc", "delta", "f8")}
     tables = g["tables"]
+    ones = torch.ones(9, device=device)
     return {
         "K1 single": (g["sfzh"][:5], lambda x: k1.fused_window_photometry(
             x, g["s"][:5], g["tau_v"][:5], g["scale"][:5],
@@ -1495,11 +1574,16 @@ def _wrapper_calls(device):
             **dict(g, sfzh=x))),
         "K2": (k2[0], lambda x: k1.fused_sed_photometry(x, *k2[1:])),
         "K3": (fw, lambda x: pk.shift_photometry_num(x, table, s4)),
+        "SFZH": (ones * 0.5, lambda x: sfzh_op.lognormal_delta_sfzh(
+            ones * 1e9, ones * 18.0, x, ones * 1e9,
+            torch.zeros(9, dtype=torch.int64, device=device), x,
+            torch.linspace(0.0, 1.4e10, 17, device=device), 4)[0]),
     }
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["K1 single", "K1 grouped", "K2", "K3"])
+@pytest.mark.parametrize("kernel", ["K1 single", "K1 grouped", "K2", "K3",
+                                    "SFZH"])
 def test_wrappers_refuse_gradients(cuda, kernel):
     """A CUDA input that needs a gradient raises, in reverse mode and in
     forward mode; without one the kernel launches."""
