@@ -18,7 +18,8 @@ A metric reader defines `read(trace) -> float | None` and may name the
 program's functions it needs wrapped in spans, `SPANS = {span: "module:
 Qualified.name"}`. Spans are installed in traced runs only; a name the
 program no longer has leaves its metrics out of the line, with a note on
-standard error.
+standard error. A reader also finds the program's own `synference::`
+ranges in the `Trace` (`program_spans`, `program_device_s`).
 """
 
 from __future__ import annotations
@@ -206,12 +207,90 @@ class Run:
 # ---------------------------------------------------------------------------
 # reading a traced window
 # ---------------------------------------------------------------------------
+# the program's own ranges (`synference_tpu_torch.runtime.span`): host
+# ranges on the profiler's clock, with no device-side annotation
+PREFIX = "synference::"
+OUTSIDE = "outside any span"
+
+
+def innermost(ranges: list) -> list:
+    """[(start, end, label)] covering the ranges' union, each piece with
+    the innermost range open over it; `ranges` is [(start, end, label)],
+    nested as calls on one thread nest."""
+    events = []
+    for i, (a, b, _) in enumerate(ranges):
+        events.append((a, 1, a - b, i))  # at a tie, the outer opens first
+        events.append((b, 0, b - a, i))  # and ends close before opens
+    events.sort()
+    pieces, stack, t_prev = [], [], None
+    for t, opens, _, i in events:
+        if stack and t > t_prev:
+            pieces.append((t_prev, t, ranges[stack[-1]][2]))
+        if opens:
+            stack.append(i)
+        else:
+            stack.remove(i)
+        t_prev = t
+    return pieces
+
+
+def split_idle(gaps: list, pieces: list) -> dict:
+    """Idle seconds by label: each gap (start, end) cut by the labelled
+    pieces (sorted, disjoint); what no piece covers is `OUTSIDE`."""
+    out = defaultdict(float)
+    starts = [a for a, _, _ in pieces]
+    for a, b in gaps:
+        covered = 0.0
+        j = max(bisect.bisect_right(starts, a) - 1, 0)
+        while j < len(pieces) and pieces[j][0] < b:
+            lo, hi = max(a, pieces[j][0]), min(b, pieces[j][1])
+            if hi > lo:
+                out[pieces[j][2]] += hi - lo
+                covered += hi - lo
+            j += 1
+        if b - a - covered > 0.0:
+            out[OUTSIDE] += b - a - covered
+    return out
+
+
+def _device_s(ranges: dict, launches: list, w0: int, w1: int) -> dict:
+    """span -> device seconds (inside the window) of the kernels whose
+    launch falls inside one of the span's ranges; `launches` is [(launch
+    time, start, end)]; spans that launched none are left out."""
+    out = {}
+    for span, iv in ranges.items():
+        iv = sorted(iv)
+        starts = [a for a, _ in iv]
+        total, found = 0.0, False
+        for t, a, b in launches:
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= iv[i][1]:
+                total += (min(b, w1) - max(a, w0)) * 1e-9
+                found = True
+        if found:
+            out[span] = total
+    return out
+
+
 class Trace:
-    """A traced window as the metric readers see it: device operations
-    (name, start, end) in seconds from the window's start, the busy time
-    (union of their intervals), host spans that fall in the window, the
-    device time of the kernels launched inside each span, counters and the
-    work the traffic driver counted."""
+    """A traced window as the metric readers see it, in seconds from the
+    window's start:
+    - `kernels`: device operations (name, start, end); `busy_s`: the union
+      of their intervals;
+    - `spans`: the host-clock durations of the harness's spans that fall
+      in the window; `span_device_s`: the device time of the kernels
+      launched inside each harness span;
+    - `program_spans`: the program's `synference::<span>` ranges that lie
+      in the window, span -> [(start, end)]; `program_device_s`: the
+      device time of the kernels launched inside each;
+    - `idle_by_span`: the window's idle, each gap cut at every span edge
+      and each piece put down to the innermost span of either kind open
+      over it; `OUTSIDE` keeps the idle with none open;
+      `idle_outside_program_s`: the idle with no program span open;
+    - `host_syncs`: the CUDA runtime calls that block the host
+      (`cuda*Synchronize`) in the window, by the innermost program span
+      open at the call;
+    - `counters` and `work`: what the traffic driver counted."""
 
     def __init__(self, run: Run, spans: Spans | None):
         self.window_s = run.window_s
@@ -223,7 +302,11 @@ class Trace:
             for name, iv in (spans.times.items() if spans else ())}
         self.kernels: list = []
         self.span_device_s: dict = {}
-        self.idle_by_span: dict = defaultdict(float)
+        self.program_spans: dict = {}
+        self.program_device_s: dict = {}
+        self.idle_by_span: dict = {}
+        self.idle_outside_program_s = 0.0
+        self.host_syncs: dict = {}
         self.busy_s = 0.0
         if run.prof is not None:
             self._read(run.prof)
@@ -232,21 +315,25 @@ class Trace:
         import torch
 
         cuda = torch.autograd.DeviceType.CUDA
-        runtime, ops = {}, {}
-        ranges = defaultdict(list)
+        runtime, ops, syncs = {}, {}, []
+        ranges, program = defaultdict(list), defaultdict(list)
         kernels = []
         for e in prof.profiler.kineto_results.events():
             name = e.name()
             t0 = e.start_ns()
             t1 = t0 + e.duration_ns()
             if e.device_type() == cuda:
-                if not name.startswith("bench::"):
+                if not name.startswith(("bench::", PREFIX)):
                     kernels.append((name, t0, t1, e.correlation_id(),
                                     e.linked_correlation_id()))
             elif name.startswith("bench::"):
                 ranges[name[7:]].append((t0, t1))
+            elif name.startswith(PREFIX):
+                program[name[len(PREFIX):]].append((t0, t1))
             elif name.startswith("cu"):
                 runtime[e.correlation_id()] = t0
+                if name.endswith("Synchronize"):
+                    syncs.append(t0)
             else:
                 ops[e.correlation_id()] = t0
         win = ranges.pop("window", [])
@@ -266,37 +353,40 @@ class Trace:
             else:
                 merged.append([a, b])
         self.busy_s = sum(b - a for a, b in merged)
-        # idle gaps, by the innermost span active at each gap's middle
-        rel = {n: sorted(((a - w0) * 1e-9, (b - w0) * 1e-9) for a, b in iv)
-               for n, iv in ranges.items()}
-        starts = {n: [s for s, _ in iv] for n, iv in rel.items()}
+
+        # device time of the kernels launched inside each span, by the
+        # launch's runtime call or, failing that, the operator's
+        launches = [(t, a, b) for _, a, b, corr, linked in kernels
+                    if (t := runtime.get(corr, ops.get(linked))) is not None]
+        self.span_device_s = _device_s(ranges, launches, w0, w1)
+        self.program_device_s = _device_s(program, launches, w0, w1)
+
+        def rel(iv):
+            return sorted(((a - w0) * 1e-9, (b - w0) * 1e-9) for a, b in iv
+                          if a >= w0 and b <= w1)
+
+        self.program_spans = {n: r for n, iv in program.items()
+                              if (r := rel(iv))}
+        # idle: the gaps between the busy intervals, by the innermost span
         edges = [0.0] + [x for iv in merged for x in iv] + [self.window_s]
-        for a, b in zip(edges[::2], edges[1::2]):
-            if b <= a:
+        gaps = [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
+        mine = [(a, b, n) for n, iv in self.program_spans.items()
+                for a, b in iv]
+        theirs = [(a, b, n) for n, iv in ranges.items() for a, b in rel(iv)]
+        self.idle_by_span = split_idle(gaps, innermost(mine + theirs))
+        own = innermost(mine)
+        self.idle_outside_program_s = split_idle(gaps, own)[OUTSIDE]
+        # the host's blocking calls, by the innermost program span open
+        starts = [a for a, _, _ in own]
+        counts = defaultdict(int)
+        for t in syncs:
+            if not w0 <= t <= w1:
                 continue
-            mid = 0.5 * (a + b)
-            inside = []
-            for n, iv in rel.items():
-                i = bisect.bisect_right(starts[n], mid) - 1
-                if i >= 0 and mid <= iv[i][1]:
-                    inside.append((iv[i][1] - iv[i][0], n))
-            label = min(inside)[1] if inside else "outside any span"
-            self.idle_by_span[label] += b - a
-        # device time of the kernels launched inside each span
-        for span, iv in ranges.items():
-            iv.sort()
-            starts = [a for a, _ in iv]
-            total, found = 0.0, False
-            for _, a, b, corr, linked in kernels:
-                t = runtime.get(corr, ops.get(linked))
-                if t is None:
-                    continue
-                i = bisect.bisect_right(starts, t) - 1
-                if i >= 0 and t <= iv[i][1]:
-                    total += (min(b, w1) - max(a, w0)) * 1e-9
-                    found = True
-            if found:
-                self.span_device_s[span] = total
+            t = (t - w0) * 1e-9
+            i = bisect.bisect_right(starts, t) - 1
+            inside = i >= 0 and t <= own[i][1]
+            counts[own[i][2] if inside else OUTSIDE] += 1
+        self.host_syncs = dict(counts)
 
     def kernel_s(self, *fragments) -> float:
         """Device seconds of operations whose name holds any fragment."""
@@ -309,8 +399,10 @@ class Trace:
             by_op[n[:120]] += b - a
         top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
         gaps = sorted(self.idle_by_span.items(), key=lambda kv: -kv[1])[:10]
+        syncs = sorted(self.host_syncs.items(), key=lambda kv: -kv[1])[:10]
         return {"device_ops": [[n, s] for n, s in top],
-                "idle_gaps": [[n, s] for n, s in gaps]}
+                "idle_gaps": [[n, s] for n, s in gaps],
+                "host_syncs": [[n, c] for n, c in syncs]}
 
 
 # ---------------------------------------------------------------------------

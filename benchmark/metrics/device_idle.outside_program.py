@@ -1,8 +1,8 @@
 """device_idle.outside_program: the share of the window in which the
 device is idle and no program span is open, in percent: the client's own
 time between `generate` calls, which the program cannot shorten
-(`ProgramTrace.idle_outside_program_s`, `benchmark/program_trace.py`);
-nothing on a trace without program spans."""
+(`harness.Trace.idle_outside_program_s`); nothing on a trace without
+program spans."""
 
 
 def read(trace):

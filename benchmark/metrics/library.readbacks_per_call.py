@@ -1,7 +1,8 @@
 """library.readbacks_per_call: blocking reads of the card per `generate`
-call: the program's `readback.<site>` spans over its `library.generate`
-spans in the window (`ProgramTrace.program_spans`,
-`benchmark/program_trace.py`); nothing on a trace without them."""
+call: the program's `readback.<site>` spans (the run plan's reads, each
+wait for a copy-out landing) over its `library.generate` spans in the
+window (`harness.Trace.program_spans`); nothing on a trace without
+them."""
 
 
 def read(trace):

@@ -1,7 +1,8 @@
 """library.to_host_ms: host milliseconds per `generate` call in the
-program's `library.to_host` spans (each batch's photometry and θ copied to
-the host and concatenated), from `ProgramTrace.program_spans`
-(`benchmark/program_trace.py`); nothing on a trace without them."""
+program's `library.to_host` spans: the end-of-call wait for the copy-out's
+last landings on the host (with `resume_path`, each batch's reads and the
+concatenation), from `harness.Trace.program_spans`; nothing on a trace
+without them."""
 
 
 def read(trace):

@@ -1,8 +1,8 @@
 """sed.window_enqueue_ms: host milliseconds per batch in the program's
 `sed.window_body` spans (`BatchSEDSimulator._zsorted_run_raw`: the window
-inputs with `_sfzh`, the window starts' copy to the card and K1's
-enqueue), from `ProgramTrace.program_spans`
-(`benchmark/program_trace.py`); nothing on a trace without them."""
+inputs with `_sfzh` and `_screens`, the batch's slice of the run's window
+starts sent to the card, and K1's enqueue; no read of the card), from
+`harness.Trace.program_spans`; nothing on a trace without them."""
 
 
 def read(trace):

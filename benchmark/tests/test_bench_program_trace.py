@@ -1,9 +1,10 @@
-"""The program's spans in a traced window (`benchmark/program_trace.py`):
-the four program-span readers and their `.paper63` twins on a synthetic
-trace, and nothing from them without program spans; `ProgramTrace` on a
-profiler's events, by hand, with the harness's ten readers reading the
-same values from `harness.Trace` and `ProgramTrace` on events with and
-without program spans; and a traced CPU run of the small generate cell."""
+"""The program's spans in a traced window, as `harness.Trace` reads them:
+the program-span readers and their twins on a synthetic trace, and nothing
+from them without program spans; `harness.Trace` on a profiler's events,
+by hand, with the accepted readers reading the same values on events with
+and without program spans; a harness span with a program span nested in
+it; the five cells' listing of the program-span metrics; and a traced CPU
+run of the small generate cell."""
 
 from types import SimpleNamespace
 
@@ -13,15 +14,20 @@ import torch
 import _tiny
 from _tiny import harness
 
-from benchmark import program_trace as pt
-
-BASE = tuple(pt.PROGRAM_METRICS)
-READERS = BASE + tuple(f"{n}.paper63" for n in BASE)
-# the per-layer metrics BENCHMARK.json had before the program's spans
+# the program-span readers, their units, and the twins' suffixes by cell
+# (the spectra cell runs no `sed.window_body`)
+PROGRAM = {"library.readbacks_per_call": "count", "library.to_host_ms": "ms",
+           "sed.window_enqueue_ms": "ms", "device_idle.outside_program": "%"}
+SUFFIX = {"north-star.generate": "", "paper63.generate": ".paper63",
+          "cf00.generate": ".cf00", "pacman.generate": ".pacman",
+          "nirspec-prism.generate": ".prism"}
+READERS = tuple(n + s for s in SUFFIX.values() for n in PROGRAM
+                if not (s == ".prism" and n == "sed.window_enqueue_ms"))
+# per-layer metrics that read the harness's spans and the device trace
 EXISTING = ("library.plan_ms", "library.plan_ms.paper63", "sed.sfzh_ms",
-            "sed.sfzh_ms.paper63", "k1_roofline", "k1_roofline.paper63",
-            "generate_mfu", "generate_mfu.paper63", "device_idle.generate",
-            "device_idle.paper63")
+            "sed.sfzh_ms.paper63", "sed.sfzh_ms.pacman", "k1_roofline",
+            "k1_roofline.paper63", "generate_mfu", "generate_mfu.paper63",
+            "device_idle.generate", "device_idle.paper63")
 MS = 1_000_000  # ns
 
 
@@ -34,16 +40,16 @@ def test_program_readers_on_a_synthetic_trace():
         window_s=2.0, busy_s=1.5, idle_outside_program_s=0.1,
         program_spans={
             "library.generate": [(0.0, 0.9), (1.0, 1.9)],
-            "readback.window_starts": [(0.1, 0.2)] * 5,
-            "readback.theta": [(0.8, 0.85), (1.8, 1.85)],
+            "readback.plan_span": [(0.1, 0.2)] * 5,
+            "readback.part": [(0.8, 0.85), (1.8, 1.85)],
             "library.to_host": [(0.7, 0.75), (1.7, 1.73)],
             "sed.window_body": [(0.2, 0.202), (0.3, 0.304)]})
-    for suffix in ("", ".paper63"):
-        assert _read("library.readbacks_per_call" + suffix, t) == 3.5
-        assert abs(_read("library.to_host_ms" + suffix, t) - 40.0) < 1e-9
-        assert abs(_read("sed.window_enqueue_ms" + suffix, t) - 3.0) < 1e-9
-        assert abs(_read("device_idle.outside_program" + suffix, t)
-                   - 5.0) < 1e-9
+    for name in READERS:
+        base = name.rsplit(".", 1)[0] if name not in PROGRAM else name
+        want = {"library.readbacks_per_call": 3.5, "library.to_host_ms": 40.0,
+                "sed.window_enqueue_ms": 3.0,
+                "device_idle.outside_program": 5.0}[base]
+        assert abs(_read(name, t) - want) < 1e-9, name
 
 
 def test_program_readers_find_nothing_without_program_spans():
@@ -100,9 +106,9 @@ def _events(program: bool) -> list:
           _Event("k1_fused_window_kernel", 35, 55, cuda=True, corr=101,
                  linked=5),
           _Event("cudaMemcpyAsync", 62.2, 62.4, corr=102, linked=6),
-          _Event("Memcpy DtoH (Device -> Pageable)", 62.5, 70, cuda=True,
+          _Event("Memcpy DtoH (Device -> Pinned)", 62.5, 70, cuda=True,
                  corr=102, linked=6),
-          _Event("cudaStreamSynchronize", 70, 70.1, corr=103, linked=6)]
+          _Event("cudaEventSynchronize", 70, 70.1, corr=103, linked=6)]
     if program:
         ev += [_Event("synference::" + n, a, b, corr=c) for c, (n, a, b) in
                enumerate([("library.generate", 5, 95),
@@ -111,47 +117,51 @@ def _events(program: bool) -> list:
                           ("library.batch", 21, 60),
                           ("sed.window_body", 22, 50),
                           ("sed.sfzh", 23.5, 29.5),
-                          ("readback.window_starts", 52, 58),
+                          ("library.stage", 52, 58),
                           ("library.to_host", 61, 94),
-                          ("readback.photometry", 62, 80),
-                          ("readback.theta", 81, 85)], start=10)]
+                          ("readback.part", 62, 80)], start=10)]
     return ev
 
 
-def _trace(cls, program: bool):
+def _run(events: list):
     t_begin = 1000.0
     run = SimpleNamespace(
         window_s=0.1, counters={}, t_begin=t_begin, t_end=t_begin + 0.1,
         work={"least_s": 0.01, "ops": 6.7e10},
         prof=SimpleNamespace(profiler=SimpleNamespace(
-            kineto_results=SimpleNamespace(
-                events=lambda: _events(program)))))
+            kineto_results=SimpleNamespace(events=lambda: events))))
     spans = SimpleNamespace(times={
         "library._draw_sorted": [(t_begin + 0.0055, t_begin + 0.0205)],
         "sed._sfzh": [(t_begin + 0.023, t_begin + 0.030)]})
-    return cls(run, spans)
+    return run, spans
+
+
+def _trace(program: bool):
+    return harness.Trace(*_run(_events(program)))
 
 
 def test_existing_readers_read_the_same_beside_program_spans():
-    plain = _trace(harness.Trace, program=False)
+    plain = _trace(program=False)
+    t = _trace(program=True)
     values = {n: _read(n, plain) for n in EXISTING}
     assert None not in values.values(), values
-    for cls in (harness.Trace, pt.ProgramTrace):
-        t = _trace(cls, program=True)
-        assert {n: _read(n, t) for n in EXISTING} == values, cls
-        assert t.busy_s == plain.busy_s and t.kernels == plain.kernels
-        assert t.span_device_s == plain.span_device_s
+    assert {n: _read(n, t) for n in EXISTING} == values
+    assert t.busy_s == plain.busy_s and t.kernels == plain.kernels
+    assert t.span_device_s == plain.span_device_s
+    assert t.spans == plain.spans
+    assert plain.program_spans == {} and plain.host_syncs == {
+        "outside any span": 1}
 
 
-def test_program_trace_by_hand():
-    t = _trace(pt.ProgramTrace, program=True)
+def test_trace_by_hand():
+    t = _trace(program=True)
     ms = 1e-3
     assert t.program_spans["library.generate"] == [(5 * ms, 95 * ms)]
-    assert len(t.program_spans) == 10
+    assert len(t.program_spans) == 9
     assert abs(t.busy_s - 29.5 * ms) < 1e-12
     want_device = {"library.generate": 29.5, "library.batch": 22.0,
                    "sed.window_body": 22.0, "sed.sfzh": 2.0,
-                   "library.to_host": 7.5, "readback.photometry": 7.5}
+                   "library.to_host": 7.5, "readback.part": 7.5}
     assert set(t.program_device_s) == set(want_device)
     for name, v in want_device.items():
         assert abs(t.program_device_s[name] - v * ms) < 1e-12, name
@@ -159,35 +169,83 @@ def test_program_trace_by_hand():
                  "library._draw_sorted": 1.0, "library.draw_sorted": 10.0,
                  "readback.plan_span": 4.0, "library.batch": 3.0,
                  "sed.window_body": 6.0, "sed._sfzh": 1.0, "sed.sfzh": 4.0,
-                 "readback.window_starts": 3.0, "library.to_host": 11.0,
-                 "readback.photometry": 10.5, "readback.theta": 4.0}
+                 "library.stage": 3.0, "library.to_host": 15.0,
+                 "readback.part": 10.5}
     assert set(t.idle_by_span) == set(want_idle)
     for name, v in want_idle.items():
         assert abs(t.idle_by_span[name] - v * ms) < 1e-9, name
     assert abs(t.idle_outside_program_s - 10.0 * ms) < 1e-9
-    assert t.host_syncs == {"readback.photometry": 1}
-    gaps = dict(t.breakdown()["idle_gaps"])
+    assert t.host_syncs == {"readback.part": 1}
+    out = t.breakdown()
+    gaps = dict(out["idle_gaps"])
     assert gaps["outside any span"] == t.idle_outside_program_s
-    assert t.breakdown()["host_syncs"] == [["readback.photometry", 1]]
-    assert _read("library.readbacks_per_call", t) == 4.0
+    assert out["host_syncs"] == [["readback.part", 1]]
+    assert _read("library.readbacks_per_call", t) == 2.0
     assert abs(_read("library.to_host_ms", t) - 33.0) < 1e-6
     assert abs(_read("sed.window_enqueue_ms", t) - 28.0) < 1e-6
     assert abs(_read("device_idle.outside_program", t) - 10.0) < 1e-6
 
 
+def test_program_span_nested_in_a_harness_span():
+    """`bench::sed._sfzh` at 10-20 ms around `synference::sed.sfzh` at
+    12-18, one kernel launched at 13 that runs 14-16: the kernel list, the
+    busy time and the harness span's device time are what a trace that
+    reads no program span reads (one kernel, 2 ms, 2 ms); the idle inside
+    the program span goes to it, and the harness span keeps the idle
+    between its edges and the program span's."""
+    ev = [_Event("bench::window", 0, 30, corr=1),
+          _Event("bench::sed._sfzh", 10, 20, corr=2),
+          _Event("synference::sed.sfzh", 12, 18, corr=3),
+          _Event("aten::exp", 12.9, 13.2, corr=4),
+          _Event("cudaLaunchKernel", 13, 13.1, corr=100, linked=4),
+          _Event("exp_kernel", 14, 16, cuda=True, corr=100, linked=4)]
+    run, spans = _run(ev)
+    run.window_s = 0.03
+    spans.times = {"sed._sfzh": [(run.t_begin + 0.010, run.t_begin + 0.020)]}
+    t = harness.Trace(run, spans)
+    ms = 1e-3
+    assert t.kernels == [("exp_kernel", 14 * ms, 16 * ms)]
+    assert abs(t.busy_s - 2 * ms) < 1e-12
+    assert set(t.span_device_s) == {"sed._sfzh"}
+    assert abs(t.span_device_s["sed._sfzh"] - 2 * ms) < 1e-12
+    assert abs(t.program_device_s["sed.sfzh"] - 2 * ms) < 1e-12
+    want_idle = {"outside any span": 20.0, "sed._sfzh": 4.0,
+                 "sed.sfzh": 4.0}
+    assert set(t.idle_by_span) == set(want_idle)
+    for name, v in want_idle.items():
+        assert abs(t.idle_by_span[name] - v * ms) < 1e-9, name
+    assert abs(t.idle_outside_program_s - 24.0 * ms) < 1e-9
+    assert abs(_read("sed.sfzh_ms", t) - 2.0) < 1e-9
+
+
 def test_innermost_nests_at_shared_edges():
-    pieces = pt.innermost([(0.0, 4.0, "a"), (0.0, 2.0, "b"),
-                           (2.0, 4.0, "c"), (5.0, 6.0, "d")])
+    pieces = harness.innermost([(0.0, 4.0, "a"), (0.0, 2.0, "b"),
+                                (2.0, 4.0, "c"), (5.0, 6.0, "d")])
     assert pieces == [(0.0, 2.0, "b"), (2.0, 4.0, "c"), (5.0, 6.0, "d")]
-    idle = pt.split_idle([(1.0, 5.5)], pieces)
-    assert dict(idle) == {"b": 1.0, "c": 2.0, pt.OUTSIDE: 1.0, "d": 0.5}
+    idle = harness.split_idle([(1.0, 5.5)], pieces)
+    assert dict(idle) == {"b": 1.0, "c": 2.0, harness.OUTSIDE: 1.0,
+                          "d": 0.5}
+
+
+@pytest.mark.parametrize("cell", sorted(SUFFIX))
+def test_every_cell_lists_its_program_span_metrics(cell):
+    spec = harness.bench_spec()
+    e2e, layer = harness.cell_metrics(spec, cell)
+    rate = next(m["name"] for m in e2e if m["name"] != "setup_s")
+    listed = {m["name"]: m for m in layer}
+    for base, unit in PROGRAM.items():
+        name = base + SUFFIX[cell]
+        if name not in READERS:
+            continue
+        m = listed[name]
+        assert (m["unit"], m["better"], m["moves"], m["workloads"]) == (
+            unit, "lower", rate, [cell]), name
 
 
 @pytest.fixture
-def traced_run(monkeypatch):
+def traced_run():
     wl, cfg = _tiny.generate_cell()
     cfg["model"]["prior"]["redshift"] = [1.0, 1.5]  # windows narrower
-    monkeypatch.setattr(harness, "Trace", pt.ProgramTrace)
     spec = harness.bench_spec()
     e2e, layer = harness.cell_metrics(spec, "north-star.generate")
     import time
@@ -195,16 +253,16 @@ def traced_run(monkeypatch):
     return harness.run_cell(
         "north-star.generate", 2 ** 31 + 11, 0.5, True, "cpu",
         time.perf_counter(), workload=wl, config=cfg, end_to_end=e2e,
-        per_layer=layer + pt.program_metrics(spec, "north-star.generate"))
+        per_layer=layer)
 
 
 def test_traced_cpu_run_reads_the_program_spans(traced_run):
     result, _ = traced_run
     assert result["correct"] is True
     m = result["metrics"]
-    # one batch of 4096 rows a call: the run's plan (2), the batch's window
-    # starts and photometry (2), θ (1)
-    assert m["library.readbacks_per_call"]["value"] == 5.0
+    # one batch of 4096 rows a call: the run plan's two reads (its knot
+    # span, then its window starts); the copy-out's landings need no wait
+    assert m["library.readbacks_per_call"]["value"] == 2.0
     assert m["library.readbacks_per_call"]["unit"] == "count"
     assert m["library.to_host_ms"]["value"] > 0.0
     assert m["sed.window_enqueue_ms"]["value"] > 0.0
@@ -213,12 +271,5 @@ def test_traced_cpu_run_reads_the_program_spans(traced_run):
     assert "device_idle.outside_program" not in m
     labels = {n for n, _ in result["breakdown"]["idle_gaps"]}
     assert labels & {"library.to_host", "sed.window_body", "sed.sfzh",
-                     "library.draw_sorted", "readback.theta"}
-
-
-def test_program_metrics_take_the_cells_suffix():
-    spec = harness.bench_spec()
-    assert [m["name"] for m in pt.program_metrics(spec, "paper63.generate")
-            ] == [f"{n}.paper63" for n in BASE]
-    assert [m["name"] for m in pt.program_metrics(
-        spec, "north-star.generate")] == list(BASE)
+                     "library.draw_sorted", "library.batch"}
+    assert "host_syncs" in result["breakdown"]

@@ -31,5 +31,6 @@ def test_traced_result_line_format():
     assert "library.plan_ms" in result["metrics"]
     assert "setup_s" not in result["metrics"]
     assert {"busy_s", "window_s"} <= set(result["device"])
-    assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
-    assert len(result["breakdown"]["idle_gaps"]) <= 10
+    assert set(result["breakdown"]) == {"device_ops", "idle_gaps",
+                                        "host_syncs"}
+    assert all(len(v) <= 10 for v in result["breakdown"].values())

@@ -71,11 +71,14 @@ def test_spectra_control_and_faults_fail(card_route):
 
 def test_traced_cpu_run_reads_the_work(card_route):
     """On the CPU the profiler sees no device kernels: of the cell's
-    metrics only `spectra_mfu.prism` has something to read."""
+    metrics only `spectra_mfu.prism` and the two that read the program's
+    spans on the host have something to read."""
     wl, cfg = _cell()
     result, _ = _tiny.run(CELL, wl, cfg, trace=True)
     assert result["correct"]
-    assert set(result["metrics"]) == {"spectra_mfu.prism"}
+    assert set(result["metrics"]) == {"spectra_mfu.prism",
+                                      "library.readbacks_per_call.prism",
+                                      "library.to_host_ms.prism"}
     assert 0.0 < result["metrics"]["spectra_mfu.prism"]["value"] < 100.0
 
 
